@@ -1,0 +1,91 @@
+"""Streaming iSTFT pieces: a matmul inverse DFT, overlap-add and the
+window envelope, no FFT primitive.
+
+Counterpart of the synthesis half of ``fireredtts2_tpu/ops/stft.py`` that
+the streaming vocoder uses (the mel frontend's forward STFT belongs to
+prompt encoding, a later slice). The bases are built once in float64
+numpy, exactly as the JAX package builds them, and cached per device.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+
+def hann_window(win_length: int, dtype=np.float32) -> np.ndarray:
+    """Periodic Hann window (matches torch.hann_window's default)."""
+    n = np.arange(win_length, dtype=np.float64)
+    return (0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)).astype(dtype)
+
+
+@lru_cache(maxsize=8)
+def _istft_basis_np(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
+    """irfft synthesis basis: x = Cr @ re + Ci @ im, each (n_fft, F)."""
+    F = n_fft // 2 + 1
+    freqs = np.arange(F, dtype=np.float64)
+    times = np.arange(n_fft, dtype=np.float64)
+    ang = 2.0 * np.pi * times[:, None] * freqs[None, :] / n_fft
+    scale = np.full(F, 2.0)
+    scale[0] = 1.0
+    if n_fft % 2 == 0:
+        scale[-1] = 1.0
+    cr = (np.cos(ang) * scale[None, :] / n_fft).astype(np.float32)
+    ci = (-np.sin(ang) * scale[None, :] / n_fft).astype(np.float32)
+    return cr, ci
+
+
+_TENSORS: dict[tuple, torch.Tensor] = {}
+
+
+def _const(name: str, n_fft: int, build, dtype, device) -> torch.Tensor:
+    """Cached device copy of a host-built constant."""
+    key = (name, n_fft, dtype, str(device))
+    t = _TENSORS.get(key)
+    if t is None:
+        t = torch.as_tensor(build()).to(device=device, dtype=dtype)
+        _TENSORS[key] = t
+    return t
+
+
+def hann_tensor(n_fft: int, dtype, device) -> torch.Tensor:
+    return _const("hann", n_fft, lambda: hann_window(n_fft), dtype, device)
+
+
+def irfft_frames(spec_re: torch.Tensor, spec_im: torch.Tensor, n_fft: int
+                 ) -> torch.Tensor:
+    """Per-frame inverse rDFT (no window): (B, F, T) -> (B, n_fft, T)."""
+    dt, dev = spec_re.dtype, spec_re.device
+    cr = _const("cr", n_fft, lambda: _istft_basis_np(n_fft)[0], dt, dev)
+    ci = _const("ci", n_fft, lambda: _istft_basis_np(n_fft)[1], dt, dev)
+    return (torch.einsum("nf,bft->bnt", cr, spec_re)
+            + torch.einsum("nf,bft->bnt", ci, spec_im))
+
+
+def overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:
+    """Overlap-add frames (B, win, T) -> (B, (T-1)*hop + win); win % hop == 0.
+    Each frame is cut into win//hop hop-sized parts summed at shifts."""
+    B, win, T = frames.shape
+    assert win % hop_length == 0, (win, hop_length)
+    r = win // hop_length
+    parts = frames.reshape(B, r, hop_length, T)
+    total_segs = T + r - 1
+    out = torch.zeros((B, hop_length, total_segs), dtype=frames.dtype,
+                      device=frames.device)
+    for j in range(r):
+        out[:, :, j:j + T] += parts[:, j]
+    return out.transpose(1, 2).reshape(B, total_segs * hop_length)
+
+
+def window_envelope(n_fft: int, hop_length: int, num_frames: int,
+                    dtype=torch.float32, device=None) -> torch.Tensor:
+    """Overlap-added squared-window envelope, ((T-1)*hop + win,)."""
+    def build():
+        w2 = hann_window(n_fft) ** 2
+        frames = np.broadcast_to(w2[:, None], (n_fft, num_frames))
+        return overlap_add(torch.as_tensor(np.ascontiguousarray(frames))[None],
+                           hop_length)[0]
+    return _const(f"env{hop_length}x{num_frames}", n_fft, build, dtype, device)
+
