@@ -17,13 +17,32 @@ Phases (any failure exits non-zero and prints no result line):
    writes that overshoot the slab; the written rows must be identical and
    the attention close; kernel C's read-only mode (D) once with lower
    bounds;
-5. a small-width model through the kernels on the card against the same
+5. kernel B (fused_depth_decode) against its plain version at the
+   flagship depth decoder (qwen-200m, 16 codebooks of 2051), B in {1, 8},
+   plans gate=r8,up=s8,down=s8 (the serving preset), gate=r4,... and
+   gate=r8a8,up=s8a8,...: logits with the same tokens forced into both,
+   then free sampling (equal up to a counted near-tie);
+6. kernel E (int4_matmul) at every qwen-200m depth matrix, M in
+   {1, 2, 8, 16}, beside a bf16 torch.matmul on the dequantised weight;
+7. kernel F (pallas_decode_attention, on kernel A's code) over unmerged
+   slabs with left-padded windows;
+8. a small-width model through the kernels on the card against the same
    weights on the CPU in float32 (LM layers and the streaming vocoder);
-6. the flagship EngineConfig() with random weights: generate_stream and
-   generate on one text and one utterance seed, ~4 s of audio each, with
-   every launch count set to 0 just before each run and read just after.
-   Audio must be finite and one 1920-sample chunk per frame, both runs
-   must sample the same frames, and both kernels must have launched.
+9. the main paths at flagship width with random weights, each run with
+   every launch count set to 0 just before it and read just after: the
+   serving preset (int8 backbone + kernel B, quantize_backbone=True,
+   fused_depth_plan="gate=r8,up=s8,down=s8"), generate_stream and generate
+   of 50 frames, kernel B once per LM frame; the bf16 path of EngineConfig()
+   (25 frames); an int4 depth decoder (quantize_depth_bits=4, generate of 10
+   frames, kernel E launched). Audio must be finite and one 1920-sample
+   chunk per frame, stream and generate must sample the same frames, and
+   kernels A and C must have launched in every run.
+
+Bounds are the larger of the bytes a call must move (each input read once,
+each output written once) over 3.35 TB/s and its operations over the bf16
+(or int8) peak of the card's data sheet. `library_ms` times one PyTorch
+call computing the same function (F.scaled_dot_product_attention over the
+same window with a mask) where there is one; the port never calls it.
 
 Tolerance of a kernel against its plain version (bf16 in, bf16 out, fp32
 inside both): |kernel - plain| <= 1e-2 + 2e-2 * |plain| elementwise. Both
@@ -47,6 +66,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -57,6 +77,11 @@ import numpy as np
 
 ATOL, RTOL = 1e-2, 2e-2          # kernel vs plain, bf16 (see the docstring)
 REF_TOL = 0.1                    # small model on the card vs CPU fp32, of peak
+B_TOL = 5e-2                     # kernel B logits vs plain, of the plain peak
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
+PRESET = "gate=r8,up=s8,down=s8"
+TOPK, TEMP = 10, 0.75            # the engine's depth sampling defaults
 TEXT = "Hello from the PyTorch port of FireRedTTS2 on one GPU."
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
@@ -102,24 +127,56 @@ def device_ms(fn, reps: int):
     return us / reps / 1e3 if us > 0 else None
 
 
+def event_ms(fn, reps: int, warmup: int = 3) -> float:
+    """CUDA-event time per call of fn, after warm-up."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(nbytes: float, ops: float, kind: str = "bf16") -> tuple[float, str]:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_ms(fn, reps: int):
+    """CUDA-event time of one PyTorch library call (a yardstick the port
+    never calls); None when this PyTorch lacks the call's options."""
+    try:
+        fn()
+    except (TypeError, RuntimeError) as e:
+        log(f"library call unavailable: {e!r}")
+        return None
+    return event_ms(fn, reps)
+
+
+def sdpa_call(q, k, v, mask):
+    """One F.scaled_dot_product_attention over (B, Hq, S, D) queries and
+    (B, Hkv, W, D) keys/values with a boolean mask (B, 1, S, W)."""
+    import torch.nn.functional as F
+    kw = {"enable_gqa": True} if q.shape[1] != k.shape[1] else {}
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, **kw)
+
+
 def time_pair(kernel, plain, reps: int, warmup: int = 3) -> dict:
     """Per call, kernel vs plain, in turns P K K P: `ms`/`plain_ms` are the
     device time of the launched CUDA kernels (profiler), `wall_ms`/
     `plain_wall_ms` CUDA-event time per call including the host's launch
     gaps."""
-    import torch
-
     def events(fn):
-        for _ in range(warmup):
-            fn()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
+        return event_ms(fn, reps, warmup)
 
     p1, k1, k2, p2 = events(plain), events(kernel), events(kernel), events(plain)
     pd1, kd1, kd2, pd2 = (device_ms(plain, reps), device_ms(kernel, reps),
@@ -134,7 +191,8 @@ def fmt_times(r: dict) -> str:
         return "n/a" if x is None else f"{x:.4f}"
     return (f"device ms: kernel {f(r.get('ms'))}, plain {f(r.get('plain_ms'))}; "
             f"per-call wall ms: kernel {f(r.get('wall_ms'))}, "
-            f"plain {f(r.get('plain_wall_ms'))}")
+            f"plain {f(r.get('plain_wall_ms'))}; bound {f(r.get('bound_ms'))} "
+            f"({r.get('bound_by')}); library {f(r.get('library_ms'))}")
 
 
 def _rnd(gen, *shape):
@@ -184,6 +242,9 @@ def check_kernel_a(dev, L, T, Hkv, G, Dh, reps, cases=None, timed=True):
         out = fd.flash_decode_gqa1(q, k4, v4, layer, qs, qe, lo, hi)
         ref = fd.flash_decode_gqa1_plain(q, k4, v4, layer, qs, qe, lo, hi)
         err, ok = _compare(out, ref)
+        live_slots = int((q_end - q_start).sum())
+        bnd, by = bound_ms(4 * B * Hkv * G * Dh + live_slots * Hkv * Dh * 4,
+                           4 * Hkv * G * Dh * live_slots)
         times = {}
         if timed:
             step = itertools.count()
@@ -192,7 +253,15 @@ def check_kernel_a(dev, L, T, Hkv, G, Dh, reps, cases=None, timed=True):
                                              lo, hi),
                 lambda: fd.flash_decode_gqa1_plain(q, k4, v4, next(step) % L,
                                                    qs, qe, lo, hi), reps)
-        results.append(dict(B=B, live=live, max_abs_err=err, ok=ok, **times))
+            w0, w1 = int(q_start.min()), int(q_end.max())
+            kv = [t[layer, :, w0:w1].view(B, w1 - w0, Hkv, Dh).transpose(1, 2)
+                  for t in (k4, v4)]
+            slot = torch.arange(w0, w1, device=dev)
+            mask = ((slot >= qs[:, None]) & (slot < qe[:, None]))[:, None, None]
+            times["library_ms"] = library_ms(
+                sdpa_call(q[:, :, None], kv[0], kv[1], mask), reps)
+        results.append(dict(B=B, live=live, max_abs_err=err, ok=ok,
+                            bound_ms=bnd, bound_by=by, **times))
         del q, k4, v4
     return results
 
@@ -230,6 +299,9 @@ def check_kernel_c(dev, L, T, H, Dh, reps, cases=None, timed=True):
                                                    pos_t, q_end, live_hi)
         err, ok = _compare(out, ref)
         rows_ok = bool(torch.equal(kk, kp)) and bool(torch.equal(vk, vp))
+        read = int(q_end.max(dim=1).values.sum())      # slab rows attended
+        bnd, by = bound_ms(2 * (2 * B * S * D) + 2 * 2 * B * S * D
+                           + read * D * 4, 4 * D * int(q_end.sum()))
         times = {}
         if timed:
             step = itertools.count()
@@ -239,9 +311,17 @@ def check_kernel_c(dev, L, T, H, Dh, reps, cases=None, timed=True):
                 lambda: fd.flash_decode_update_bounded_plain(
                     q, nk, nv, kp, vp, next(step) % L, pos_t, q_end, live_hi),
                 reps)
+            hi = min(int(live_hi), T)
+            kv = [t[layer, :, :hi].view(B, hi, H, Dh).transpose(1, 2)
+                  for t in (kk, vk)]
+            slot = torch.arange(hi, device=dev)
+            mask = (slot[None, None] < q_end[:, :, None])[:, None]
+            times["library_ms"] = library_ms(
+                sdpa_call(q.transpose(1, 2), kv[0], kv[1], mask), reps)
         results.append(dict(B=B, S=S, live=live, overshoot=overshoot,
                             max_abs_err=err, ok=ok and rows_ok,
-                            rows_identical=rows_ok, **times))
+                            rows_identical=rows_ok, bound_ms=bnd, bound_by=by,
+                            **times))
         del q, nk, nv, k4, v4, kk, vk
     return results
 
@@ -268,9 +348,251 @@ def check_kernel_d(dev, T, H, Dh, reps=30, timed=True):
         return gqa_attention_bounded(q, k, v, q_end, T - 5, q_start=q_start,
                                      live_lo=100)
 
+    fd.flash_decode_bounded.launches = 0
     err, ok = _compare(kernel(), plain())
+    launches = fd.flash_decode_bounded.launches
+    rows = int((q_end - q_start)[:, 0].sum())
+    bnd, by = bound_ms(2 * 2 * B * S * H * Dh + rows * H * Dh * 4,
+                       4 * H * Dh * S * rows)
     times = time_pair(kernel, plain, reps) if timed else {}
-    return dict(max_abs_err=err, ok=ok, **times)
+    if timed:
+        kv = [t[:, 100:T - 5].view(B, T - 105, H, Dh).transpose(1, 2)
+              for t in (k, v)]
+        slot = torch.arange(100, T - 5, device=dev)
+        mask = ((slot >= q_start[:, :, None]) & (slot < q_end[:, :, None]))[:, None]
+        times["library_ms"] = library_ms(
+            sdpa_call(q.transpose(1, 2), kv[0], kv[1], mask), reps)
+    return dict(max_abs_err=err, ok=ok, launches=launches, bound_ms=bnd,
+                bound_by=by, **times)
+
+
+def depth_bundle(dev, plan: str, seed: int = 0):
+    """Kernel B's bundle at the flagship depth decoder (qwen-200m, 16
+    codebooks of 2051, backbone width 1536) from random bf16 weights: the
+    decoder, projection, audio embeddings and audio head, drawn on `dev`."""
+    import torch
+    from fireredtts2_tpu_torch.config import LLMConfig
+    from fireredtts2_tpu_torch.models.lm.transformer import init_transformer_params
+    from fireredtts2_tpu_torch.ops import depth_chain as dc
+
+    cfg = LLMConfig(fused_depth_plan=plan)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    Db, Dd = cfg.backbone.embed_dim, cfg.decoder.embed_dim
+    ncb, V = cfg.audio_num_codebooks, cfg.audio_vocab_size
+
+    def uni(*shape, fan_in):
+        u = torch.rand(shape, generator=gen, device=dev)
+        return ((u * 2 - 1) / fan_in ** 0.5).to(torch.bfloat16)
+
+    params = {
+        "decoder": init_transformer_params(gen, cfg.decoder, torch.bfloat16, dev),
+        "projection": uni(Db, Dd, fan_in=Db),
+        "audio_embeddings": _rnd(gen, ncb * V, Db) * 0.02,
+        "audio_head": uni(ncb - 1, Dd, V, fan_in=Dd),
+    }
+    return cfg, dc.prepare_depth_chain(params, cfg, plan), gen
+
+
+def depth_bytes_ops(bundle, cfg, B: int, plan: str) -> tuple[float, float, str]:
+    """Kernel B's bytes (every input read once, the samples written once)
+    and operations (two per weight per stream per micro-step)."""
+    from fireredtts2_tpu_torch.ops.depth_chain import parse_plan
+
+    modes = parse_plan(plan)
+    ncb, V = cfg.audio_num_codebooks, cfg.audio_vocab_size
+    Db, Dd = cfg.backbone.embed_dim, cfg.decoder.embed_dim
+    nbytes = sum(t.numel() * t.element_size() for k, t in bundle.items()
+                 if k not in ("xla_decoder", "emb_rows"))
+    nbytes += (ncb - 1) * B * Db * 2                 # the embedding rows used
+    nbytes += B * Db * 2 + B * 4 + B * ncb * V * 4 + B * ncb * 4
+    layer_w = sum(bundle[k][0].numel() * (2 if modes.get(k) == "r4" else 1)
+                  for k in ("wqkv", "wo", "w_gate", "w_up", "w_down"))
+    per_step = cfg.decoder.num_layers * layer_w + Db * Dd
+    ops = 2 * B * (ncb * per_step + (ncb - 1) * Dd * V)
+    kind = "int8" if all(m in ("r8a8", "s8a8") for m in modes.values()) else "bf16"
+    return nbytes, ops, kind
+
+
+def race_gap(logits, noise, topk: int, temp: float):
+    """(B, ncb) relative gap of the top two exponential-race scores, from
+    fp32 logits, as the sampler computes them."""
+    import torch
+    from fireredtts2_tpu_torch.ops.sampling import topk_filter
+
+    pr = torch.softmax(topk_filter(logits / temp, topk), dim=-1)
+    top2 = torch.topk(pr / noise, 2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]) / top2[..., 0].clamp(min=1e-30)
+
+
+def check_kernel_b(dev, plans=(PRESET, "gate=r4,up=s8,down=s8",
+                               "gate=r8a8,up=s8a8,down=s8"),
+                   batches=(1, 8), reps=20, timed=True, bundle_fn=None):
+    """Kernel B vs its plain version. With the plain version's samples
+    forced into both, the fp32 logits of every micro-step agree to B_TOL of
+    the plain peak, and a sample may differ only at a near-tie: where the
+    plain version's top two race scores lie closer than that step's logit
+    error can move them. Sampling freely, each stream follows the plain
+    version up to its first such tie. The ties are counted."""
+    import torch
+    from fireredtts2_tpu_torch.ops import depth_chain as dc
+
+    results = []
+    for plan in plans:
+        cfg, bundle, gen = (bundle_fn or depth_bundle)(dev, plan)
+        ncb, V = cfg.audio_num_codebooks, cfg.audio_vocab_size
+        for B in batches:
+            last_h = _rnd(gen, B, cfg.backbone.embed_dim)
+            c0 = torch.randint(0, V, (B,), generator=gen, device=dev,
+                               dtype=torch.int32)
+            noise = torch.empty((B, ncb, V), device=dev).exponential_(generator=gen)
+            ref, ref_logits = dc.fused_depth_decode_plain(bundle, cfg, last_h,
+                                                          c0, noise, plan=plan)
+            forced, logits = dc.fused_depth_decode(bundle, cfg, last_h, c0,
+                                                   noise, plan=plan, forced=ref,
+                                                   return_logits=True)
+            free = dc.fused_depth_decode(bundle, cfg, last_h, c0, noise, plan=plan)
+            if torch.device(dev).type == "cuda":
+                torch.cuda.synchronize()
+            err_bp = (logits - ref_logits).abs().amax(dim=-1)      # (B, ncb)
+            err = float(err_bp.max())
+            peak = float(ref_logits.abs().max())
+            # With the same prefix forced, a sample may differ only where a
+            # logit error of err_bp can change the plain version's decision:
+            # its top two race scores lie within a factor exp(2 err_bp / T)
+            # (race), or the kernel's token could enter the top k or the
+            # plain version's token leave it (top-k), both within 2 err_bp
+            # of the boundary between the k-th and (k+1)-th logits.
+            gap = race_gap(ref_logits, noise, TOPK, TEMP)
+            top = torch.topk(ref_logits, TOPK + 1, dim=-1).values
+            flips = []
+            for b, p in (forced != ref).nonzero().tolist():
+                e, lg = float(err_bp[b, p]), ref_logits[b, p]
+                kt, rt = int(forced[b, p]), int(ref[b, p])
+                rank_k, rank_r = (int((lg > lg[t]).sum()) for t in (kt, rt))
+                enters = rank_k >= TOPK and float(top[b, p, TOPK - 1] - lg[kt]) <= 2 * e
+                leaves = rank_r < TOPK and float(lg[rt] - top[b, p, TOPK]) <= 2 * e
+                why = ("race" if float(gap[b, p]) <= 1 - math.exp(-2 * e / TEMP)
+                       else "top-k" if enters or leaves else "none")
+                flips.append((b, p, float(gap[b, p]), e, why, rank_k, rank_r))
+            tokens_ok = all(p > 0 and why != "none"
+                            for b, p, _, _, why, *_ in flips)
+            # Sampling freely, each stream follows the plain version up to
+            # its first forced-run flip.
+            for b in range(B):
+                fb = [p for bb, p, *_ in flips if bb == b]
+                d = (free[b] != ref[b]).nonzero()
+                tokens_ok &= (int(d[0]) if len(d) else None) == (fb[0] if fb else None)
+            ties = len(flips)
+            ok = (bool(torch.isfinite(logits).all()) and err <= B_TOL * peak
+                  and tokens_ok and bool(torch.equal(free[:, 0], c0)))
+            nbytes, ops, kind = depth_bytes_ops(bundle, cfg, B, plan)
+            bnd, by = bound_ms(nbytes, ops, kind)
+            times = {}
+            if timed:
+                times = time_pair(
+                    lambda: dc.fused_depth_decode(bundle, cfg, last_h, c0, noise,
+                                                  plan=plan),
+                    lambda: dc.fused_depth_decode_plain(bundle, cfg, last_h, c0,
+                                                        noise, plan=plan),
+                    reps)
+                # Each micro-step re-reads the decoder: the floor of a
+                # kernel that streams the weights from device memory at
+                # every step, beside the contract's read-once bound.
+                times["streamed_floor_ms"] = (
+                    (nbytes - sum(t.numel() * t.element_size() for k, t in
+                                  bundle.items() if k == "head_t"))
+                    * ncb / HBM_BYTES_PER_S * 1e3)
+            results.append(dict(plan=plan, B=B, max_abs_err=err, peak=peak,
+                                ok=ok, ties=ties, flips=flips[:8],
+                                tokens_ok=tokens_ok,
+                                bound_ms=bnd, bound_by=by, library_ms=None,
+                                **times))
+        del bundle
+    return results
+
+
+def int4_shapes():
+    """(name, K, O) of every depth-decoder matrix of qwen-200m."""
+    return [("wq", 1536, 1536), ("wk", 1536, 256), ("wv", 1536, 256),
+            ("wo", 1536, 1536), ("w_gate", 1536, 8960), ("w_up", 1536, 8960),
+            ("w_down", 8960, 1536)]
+
+
+def check_kernel_e(dev, shapes=None, ms=(1, 2, 8, 16), reps=50, timed=True):
+    """Kernel E vs its plain version at the int4 depth path's shapes; a bf16
+    torch.matmul on the dequantised weight is timed beside it (a yardstick
+    only: the port never calls it)."""
+    import torch
+    from fireredtts2_tpu_torch.models.lm.transformer import quantize_transformer_int4
+    from fireredtts2_tpu_torch.ops import int4 as i4
+
+    results = []
+    for name, K, O in shapes or int4_shapes():
+        gen = torch.Generator(device=dev).manual_seed(K + O)
+        w = torch.randn((1, K, O), generator=gen, device=dev) * 0.02
+        q = quantize_transformer_int4({"w_gate": w})
+        packed, scales = q["w_gate"][0], q["w_gate_scale4"][0]
+        pt, st = i4.output_major_int4(packed, scales)
+        wd = i4.unpack_int4(packed, scales, torch.float32).to(torch.bfloat16)
+        for M in ms:
+            x = _rnd(gen, M, K)
+            out = i4.int4_matmul(x, packed, scales, pt, st)
+            ref = i4.int4_matmul_plain(x, packed, scales)
+            err, ok = _compare(out, ref)
+            bnd, by = bound_ms(packed.numel() + scales.numel() * 4
+                               + 2 * M * (K + O), 2 * M * K * O)
+            times = {}
+            if timed:
+                times = time_pair(lambda: i4.int4_matmul(x, packed, scales, pt, st),
+                                  lambda: i4.int4_matmul_plain(x, packed, scales),
+                                  reps)
+                times["bf16_matmul_ms"] = event_ms(lambda: x @ wd, reps)
+            results.append(dict(name=name, K=K, O=O, M=M, max_abs_err=err,
+                                ok=ok, bound_ms=bnd, bound_by=by,
+                                library_ms=None, **times))
+        del w, wd
+    return results
+
+
+def check_kernel_f(dev, T=4096, Hkv=2, G=6, Dh=128, reps=50, timed=True,
+                   cases=((1, 200), (1, 3000), (8, 200), (8, 3000))):
+    """Kernel F (pallas_decode_attention on kernel A's code) vs its plain
+    version over unmerged (B, T, Hkv, Dh) slabs, left-padded windows."""
+    import torch
+    from fireredtts2_tpu_torch.ops import flash_decode as fd
+
+    rng = np.random.default_rng(3)
+    launches = 0
+    results = []
+    for B, live in cases:
+        gen = torch.Generator(device=dev).manual_seed(B * 13 + live)
+        q = _rnd(gen, B, Hkv * G, Dh)
+        k, v = _rnd(gen, B, T, Hkv, Dh), _rnd(gen, B, T, Hkv, Dh)
+        start = rng.integers(0, 60, B)
+        end = np.minimum(start + live + rng.integers(-20, 20, B), T)
+        st = torch.tensor(start, dtype=torch.int32, device=dev)
+        en = torch.tensor(end, dtype=torch.int32, device=dev)
+        before = fd.pallas_decode_attention.launches
+        out = fd.pallas_decode_attention(q, k, v, st, en)
+        launches += fd.pallas_decode_attention.launches - before
+        err, ok = _compare(out, fd.pallas_decode_attention_plain(q, k, v, st, en))
+        slots = int((end - start).sum())
+        bnd, by = bound_ms(4 * B * Hkv * G * Dh + slots * Hkv * Dh * 4,
+                           4 * Hkv * G * Dh * slots)
+        times = {}
+        if timed:
+            times = time_pair(
+                lambda: fd.pallas_decode_attention(q, k, v, st, en),
+                lambda: fd.pallas_decode_attention_plain(q, k, v, st, en), reps)
+            w0, w1 = int(start.min()), int(end.max())
+            kv = [t[:, w0:w1].transpose(1, 2) for t in (k, v)]
+            slot = torch.arange(w0, w1, device=dev)
+            mask = ((slot >= st[:, None]) & (slot < en[:, None]))[:, None, None]
+            times["library_ms"] = library_ms(
+                sdpa_call(q[:, :, None], kv[0], kv[1], mask), reps)
+        results.append(dict(B=B, live=live, max_abs_err=err, ok=ok,
+                            bound_ms=bnd, bound_by=by, **times))
+    return results, launches
 
 
 def check_small_model(dev):
@@ -380,18 +702,57 @@ def trace_generate(eng, dev, max_ms: float = 800.0) -> dict:
                 top=[(name[:90], us / 1e3) for name, us in top])
 
 
-def run_engine(dev, card: str, config=None, max_ms: float = 4000.0):
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    from fireredtts2_tpu_torch.ops import depth_chain as dc
+    from fireredtts2_tpu_torch.ops import flash_decode as fd
+    from fireredtts2_tpu_torch.ops import int4 as i4
+    fd.reset_launch_counts()
+    dc.fused_depth_decode.launches = 0
+    i4.int4_matmul.launches = 0
+
+
+def read_counts() -> dict:
+    from fireredtts2_tpu_torch.ops import depth_chain as dc
+    from fireredtts2_tpu_torch.ops import flash_decode as fd
+    from fireredtts2_tpu_torch.ops import int4 as i4
+    counts = fd.launch_counts()
+    counts["fused_depth_decode"] = dc.fused_depth_decode.launches
+    counts["int4_matmul"] = i4.int4_matmul.launches
+    return counts
+
+
+def stream_lm_frames(max_len: int, cap: int) -> int:
+    """LM frames generate_stream decodes for max_len frames without EOS:
+    the prefill's frame, then blocks of 1, 4, 16, ... (capped) frames."""
+    total, g, block = 1, 0, 1
+    while g < max_len:
+        total += block
+        g += block
+        block = min(block * 4, cap)
+    return total
+
+
+def run_engine(dev, card: str, config=None, max_ms: float = 4000.0,
+               stream: bool = True, must_launch=("flash_decode_gqa1",
+                                                  "flash_decode_update_bounded"),
+               per_frame=(), trace: bool = True):
+    """The engine at `config` (default: the flagship EngineConfig()) on one
+    text and one utterance seed: generate_stream (when `stream`), then
+    generate, each with every launch count set to 0 just before it and read
+    just after. Kernels in `must_launch` must have launched in each run;
+    those in `per_frame` exactly once per LM frame decoded."""
     import torch
     from fireredtts2_tpu_torch.config import EngineConfig
     from fireredtts2_tpu_torch.engine import FireRedTTS2Engine
-    from fireredtts2_tpu_torch.ops import flash_decode as fd
 
     def sync():
         if torch.device(dev).type == "cuda":
             torch.cuda.synchronize()
 
+    config = config or EngineConfig()
     t0 = time.perf_counter()
-    eng = FireRedTTS2Engine(config or EngineConfig(), seed=0, device=dev)
+    eng = FireRedTTS2Engine(config, seed=0, device=dev)
     sync()
     init_s = time.perf_counter() - t0
     log(f"engine: random weights on {dev} in {init_s:.1f} s")
@@ -400,56 +761,67 @@ def run_engine(dev, card: str, config=None, max_ms: float = 4000.0):
     sync()
     sr = eng.output_sample_rate
     seed = 2024
+    cap = int(max_ms / 80)
+    checks = {}
+    result = dict(card=card, init_s=init_s)
 
-    fd.reset_launch_counts()
-    t0 = time.perf_counter()
-    chunks = list(eng.generate_stream(TEXT, "[S1]", max_audio_length_ms=max_ms,
-                                      utt_seed=seed))
-    sync()
-    stream_wall = time.perf_counter() - t0
-    stream_counts = fd.launch_counts()
-    fpl = eng._first_packet_s
-    stream_audio = np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
-    stream_tokens = eng.last_tokens
+    if stream:
+        reset_counts()
+        t0 = time.perf_counter()
+        chunks = list(eng.generate_stream(TEXT, "[S1]", max_audio_length_ms=max_ms,
+                                          utt_seed=seed))
+        sync()
+        stream_wall = time.perf_counter() - t0
+        stream_counts = read_counts()
+        fpl = eng._first_packet_s
+        stream_audio = np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
+        stream_tokens = eng.last_tokens
+        checks["stream_finite"] = bool(np.isfinite(stream_audio).all())
+        checks["stream_len"] = len(stream_audio) == len(stream_tokens) * 1920 > 0
+        for k in must_launch:
+            checks[f"stream_{k}_launched"] = stream_counts[k] > 0
+        if len(stream_tokens) == cap:
+            want = stream_lm_frames(cap, config.stream_block_cap)
+            for k in per_frame:
+                checks[f"stream_{k}_once_per_frame"] = stream_counts[k] == want
+        result["stream"] = dict(
+            wall_s=stream_wall, first_packet_ms=fpl * 1e3 if fpl else None,
+            audio_s=len(stream_audio) / sr,
+            rtf=len(stream_audio) / sr / stream_wall, launches=stream_counts)
 
-    fd.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     audio = eng.generate(TEXT, "[S1]", max_audio_length_ms=max_ms, utt_seed=seed)
     sync()
     gen_wall = time.perf_counter() - t0
-    gen_counts = fd.launch_counts()
+    gen_counts = read_counts()
     stats = dict(eng.last_stats)
     gen_tokens = eng.last_tokens
-
     frames = stats["frames"]
-    checks = {
-        "stream_finite": bool(np.isfinite(stream_audio).all()),
-        "generate_finite": bool(np.isfinite(audio).all()),
-        "stream_len": len(stream_audio) == len(stream_tokens) * 1920 > 0,
-        "generate_len": len(audio) == frames * 1920 > 0,
-        "same_frames": stream_tokens.shape == gen_tokens.shape
-        and bool(np.array_equal(stream_tokens, gen_tokens)),
-    }
-    for name, counts in (("stream", stream_counts), ("generate", gen_counts)):
-        for k in ("flash_decode_gqa1", "flash_decode_update_bounded"):
-            checks[f"{name}_{k}_launched"] = counts[k] > 0
+    checks["generate_finite"] = bool(np.isfinite(audio).all())
+    checks["generate_len"] = len(audio) == frames * 1920 > 0
+    for k in must_launch:
+        checks[f"generate_{k}_launched"] = gen_counts[k] > 0
+    for k in per_frame:        # an early EOS decodes one frame more
+        checks[f"generate_{k}_once_per_frame"] = \
+            gen_counts[k] == frames + (frames < cap)
     wave_err = None
-    if len(stream_audio) == len(audio) > 0:
-        wave_err = float(np.abs(stream_audio - audio).max()
-                         / max(np.abs(audio).max(), 1e-9))
-    profile = trace_generate(eng, dev)
-    result = dict(
-        card=card, init_s=init_s, frames=frames, profile=profile,
-        stream=dict(wall_s=stream_wall, first_packet_ms=fpl * 1e3 if fpl else None,
-                    audio_s=len(stream_audio) / sr,
-                    rtf=len(stream_audio) / sr / stream_wall,
-                    launches=stream_counts),
+    if stream:
+        checks["same_frames"] = stream_tokens.shape == gen_tokens.shape \
+            and bool(np.array_equal(stream_tokens, gen_tokens))
+        if len(stream_audio) == len(audio) > 0:
+            wave_err = float(np.abs(stream_audio - audio).max()
+                             / max(np.abs(audio).max(), 1e-9))
+    result.update(
+        frames=frames, profile=trace_generate(eng, dev) if trace else {},
         generate=dict(wall_s=gen_wall, audio_s=len(audio) / sr,
                       rtf=len(audio) / sr / gen_wall,
                       lm_ms_per_frame=stats["lm_s"] / max(frames, 1) * 1e3,
                       vocode_s=stats["vocode_s"], launches=gen_counts),
         stream_vs_generate_rel_err=wave_err, checks=checks,
         ok=all(checks.values()))
+    del eng
+    torch.cuda.empty_cache() if torch.device(dev).type == "cuda" else None
     return result
 
 
@@ -523,7 +895,41 @@ def main() -> int:
     ok &= res_d["ok"]
     report["kernel_d"] = res_d
 
-    # 5. small model vs CPU fp32
+    # 5. kernel B (fused depth chain), flagship qwen-200m depth decoder
+    log(f"kernel B tolerance: logits with the same tokens forced, max |kernel - "
+        f"plain| <= {B_TOL} * max |plain|; a sample may differ only where the "
+        f"plain version's top two race scores are within 1 - exp(-2 err / T) "
+        f"of each other, or its k-th and (k+1)-th logits within 2 err (err: "
+        f"that step's logit error, T: temperature, k: top-k)")
+    res_b = check_kernel_b(dev)
+    for r in res_b:
+        log(f"kernel B {r['plan']} B={r['B']}: logits max_abs_err "
+            f"{r['max_abs_err']:.3e} (peak {r['peak']:.3f}), near-ties "
+            f"{r['ties']} {r['flips']}, ok={r['ok']}  {fmt_times(r)}; streamed floor "
+            f"{r.get('streamed_floor_ms', 0):.4f} ms  [{card}]")
+        ok &= r["ok"]
+    report["kernel_b"] = res_b
+    torch.cuda.empty_cache()
+
+    # 6. kernel E (int4 matmul) at the depth decoder's matrices
+    res_e = check_kernel_e(dev)
+    for r in res_e:
+        log(f"kernel E {r['name']} {r['K']}x{r['O']} M={r['M']}: max_abs_err "
+            f"{r['max_abs_err']:.3e} ok={r['ok']}  {fmt_times(r)}; bf16 "
+            f"torch.matmul on the dequantised weight {r.get('bf16_matmul_ms', 0):.4f}"
+            f" ms  [{card}]")
+        ok &= r["ok"]
+    report["kernel_e"] = res_e
+
+    # 7. kernel F (decode attention over unmerged slabs, kernel A's code)
+    res_f, f_launches = check_kernel_f(dev)
+    for r in res_f:
+        log(f"kernel F B={r['B']} live~{r['live']}: max_abs_err "
+            f"{r['max_abs_err']:.3e} ok={r['ok']}  {fmt_times(r)}  [{card}]")
+        ok &= r["ok"]
+    report["kernel_f"] = res_f
+
+    # 8. small model vs CPU fp32
     small = check_small_model(dev)
     log(f"small model on the card vs CPU fp32 (of peak, limit {REF_TOL}): "
         f"lm {small['lm_rel_err']:.3e}, vocoder middles "
@@ -531,27 +937,55 @@ def main() -> int:
         f"{small['voc_tails_rel_err']:.3e} ok={small['ok']}")
     ok &= small["ok"]
     report["small_model"] = small
+    torch.cuda.empty_cache()
 
-    # 6. the main path at flagship width
-    eng = run_engine(dev, card)
-    s, g = eng["stream"], eng["generate"]
-    log(f"generate_stream: first packet {s['first_packet_ms']} ms, RTF "
-        f"{s['rtf']:.3f} ({s['audio_s']:.2f} s audio), launches "
-        f"{s['launches']}  [{card}]")
-    log(f"generate: {eng['frames']} frames, RTF {g['rtf']:.3f}, LM "
-        f"{g['lm_ms_per_frame']:.2f} ms/frame, "
-        f"vocoder {g['vocode_s'] * 1e3:.1f} ms, launches {g['launches']}  [{card}]")
-    log(f"stream vs generate audio (of peak): {eng['stream_vs_generate_rel_err']}")
-    pr = eng["profile"]
-    if pr:
-        log(f"traced generate: {pr['frames']} frames, wall {pr['wall_s']:.3f} s, "
-            f"device {pr['device_s']:.3f} s, busy share {pr['busy_share']:.3f}, "
-            f"{pr['kernel_launches']} kernel launches  [{card}]")
-        for name, ms in pr["top"]:
-            log(f"  {ms:9.3f} ms  {name}")
-    log(f"engine checks: {eng['checks']}")
-    ok &= eng["ok"]
-    report["engine"] = eng
+    # 9. the main paths at flagship width: the serving preset, the bf16
+    # path of slice 1, the int4 depth decoder
+    import dataclasses
+    from fireredtts2_tpu_torch.config import EngineConfig
+
+    base = EngineConfig()
+    runs = {
+        "preset": dict(config=dataclasses.replace(base, llm=dataclasses.replace(
+            base.llm, quantize_backbone=True, fused_depth_plan=PRESET)),
+            max_ms=4000.0, per_frame=("fused_depth_decode",)),
+        "bf16": dict(config=base, max_ms=2000.0, trace=False),
+        "int4_depth": dict(config=dataclasses.replace(base, llm=dataclasses.replace(
+            base.llm, quantize_depth=True, quantize_depth_bits=4)),
+            max_ms=800.0, stream=False, trace=False,
+            must_launch=("flash_decode_gqa1", "flash_decode_update_bounded",
+                         "int4_matmul")),
+    }
+    main_launches: dict = {}
+    for label, kw in runs.items():
+        eng = run_engine(dev, card, **kw)
+        g = eng["generate"]
+        for part in ("stream", "generate"):
+            for k, n in eng.get(part, {}).get("launches", {}).items():
+                main_launches[k] = main_launches.get(k, 0) + n
+        if "stream" in eng:
+            s = eng["stream"]
+            log(f"[{label}] generate_stream: first packet {s['first_packet_ms']} "
+                f"ms, RTF {s['rtf']:.3f} ({s['audio_s']:.2f} s audio), launches "
+                f"{s['launches']}  [{card}]")
+        log(f"[{label}] generate: {eng['frames']} frames, RTF {g['rtf']:.3f}, LM "
+            f"{g['lm_ms_per_frame']:.2f} ms/frame, vocoder "
+            f"{g['vocode_s'] * 1e3:.1f} ms, launches {g['launches']}  [{card}]")
+        log(f"[{label}] stream vs generate audio (of peak): "
+            f"{eng['stream_vs_generate_rel_err']}")
+        pr = eng["profile"]
+        if pr:
+            log(f"[{label}] traced generate: {pr['frames']} frames, wall "
+                f"{pr['wall_s']:.3f} s, device {pr['device_s']:.3f} s, busy share "
+                f"{pr['busy_share']:.3f}, {pr['kernel_launches']} CUDA kernel "
+                f"launches ({pr['kernel_launches'] / max(pr['frames'] or 1, 1):.0f}"
+                f" per frame)  [{card}]")
+            for name, ms in pr["top"]:
+                log(f"  {ms:9.3f} ms  {name}")
+        log(f"[{label}] engine checks: {eng['checks']}")
+        ok &= eng["ok"]
+        report[f"engine_{label}"] = eng
+        torch.cuda.empty_cache()
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -563,26 +997,43 @@ def main() -> int:
     def pick(rows, **want):
         return next(r for r in rows if all(r[k] == v for k, v in want.items()))
 
-    a_main = pick(res_a, B=1, live=3000)
-    c_main = pick(res_c, B=1, S=64, live=2900)
-    launches = {k: s["launches"][k] + g["launches"][k] for k in s["launches"]}
+    def entry(name, source, replaces, launches, rows, main, **extra):
+        return dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches, ok=all(r["ok"] for r in rows),
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            ms=main["ms"] if main["ms"] is not None else main["wall_ms"],
+            plain_ms=(main["plain_ms"] if main["plain_ms"] is not None
+                      else main["plain_wall_ms"]),
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=main.get("library_ms"), **extra)
+
+    csrc = "fireredtts2_tpu_torch/csrc/"
     kernels = [
-        dict(name="flash_decode_gqa1", route="cuda",
-             source="fireredtts2_tpu_torch/csrc/flash_decode_gqa1.cu",
-             replaces="fireredtts2_tpu/ops/pallas_flash.py:600",
-             launches=launches["flash_decode_gqa1"],
-             ok=all(r["ok"] for r in res_a),
-             max_abs_err=max(r["max_abs_err"] for r in res_a),
-             ms=a_main["ms"] or a_main["wall_ms"],
-             plain_ms=a_main["plain_ms"] or a_main["plain_wall_ms"]),
-        dict(name="flash_decode_update_bounded", route="cuda",
-             source="fireredtts2_tpu_torch/csrc/flash_decode_update.cu",
-             replaces="fireredtts2_tpu/ops/pallas_flash.py:352",
-             launches=launches["flash_decode_update_bounded"],
-             ok=all(r["ok"] for r in res_c) and res_d["ok"],
-             max_abs_err=max(r["max_abs_err"] for r in res_c),
-             ms=c_main["ms"] or c_main["wall_ms"],
-             plain_ms=c_main["plain_ms"] or c_main["plain_wall_ms"]),
+        entry("flash_decode_gqa1", csrc + "flash_decode_gqa1.cu",
+              "fireredtts2_tpu/ops/pallas_flash.py:600",
+              main_launches["flash_decode_gqa1"], res_a,
+              pick(res_a, B=1, live=3000)),
+        entry("fused_depth_decode", csrc + "fused_depth_decode.cu",
+              "fireredtts2_tpu/ops/pallas_depth.py:749",
+              main_launches["fused_depth_decode"], res_b,
+              pick(res_b, plan=PRESET, B=1)),
+        entry("flash_decode_update_bounded", csrc + "flash_decode_update.cu",
+              "fireredtts2_tpu/ops/pallas_flash.py:352",
+              main_launches["flash_decode_update_bounded"], res_c,
+              pick(res_c, B=1, S=64, live=2900)),
+        entry("flash_decode_bounded", csrc + "flash_decode_update.cu",
+              "fireredtts2_tpu/ops/pallas_flash.py:323",
+              res_d["launches"], [res_d], res_d, launched_in="check",
+              served_by="flash_decode_update_bounded"),
+        entry("int4_matmul", csrc + "int4_matmul.cu",
+              "fireredtts2_tpu/ops/pallas_int4.py:74",
+              main_launches["int4_matmul"], res_e,
+              pick(res_e, name="w_gate", M=1)),
+        entry("pallas_decode_attention", csrc + "flash_decode_gqa1.cu",
+              "fireredtts2_tpu/ops/pallas_attention.py:176", f_launches, res_f,
+              pick(res_f, B=1, live=3000), launched_in="check",
+              served_by="flash_decode_gqa1"),
     ]
     log(card_line())
     log(json.dumps({"kernels": kernels}))

@@ -6,6 +6,13 @@ pass), ``generate_stream`` (K-frame LM + vocoder blocks, ~80 ms chunks)
 and ``generate_batch`` (several texts decoded together). Prompt audio,
 voice cloning, dialogue and the voice-state cache come later.
 
+Serving transforms (``_apply_serving_transforms``) follow the JAX engine:
+a fused-depth plan installs kernel B's bundle, ``quantize_depth`` makes the
+depth decoder int8 or int4 (int4 matmuls run kernel E),
+``quantize_backbone`` the backbone int8 and ``quantize_vocoder`` the
+vocoder's transformer int8. The measured JAX serving preset is
+``quantize_backbone=True, fused_depth_plan="gate=r8,up=s8,down=s8"``.
+
 Prompts are left-padded into static buckets, as in the JAX package (RoPE
 shift invariance keeps this exact). Sampling noise of global frame t comes
 from a generator seeded by (utterance seed, t), so ``generate`` and
@@ -26,12 +33,20 @@ from fireredtts2_tpu_torch.config import EngineConfig
 from fireredtts2_tpu_torch.models.codec.model import (
     assemble_chunks, codec_decode_chunks, stream_decode_init,
 )
+from fireredtts2_tpu_torch.models.codec.whisper_nn import (
+    quantize_whisper_layers_int8,
+)
 from fireredtts2_tpu_torch.models.lm.model import (
     init_lm_state, lm_generate_frame, lm_generate_loop,
 )
+from fireredtts2_tpu_torch.models.lm.transformer import (
+    quantize_transformer_int4, quantize_transformer_int8,
+)
 from fireredtts2_tpu_torch.models.pipeline import stream_block
+from fireredtts2_tpu_torch.ops.depth_chain import enable_fused_depth
+from fireredtts2_tpu_torch.ops.int4 import prepare_int4_layout
 from fireredtts2_tpu_torch.utils.tokenizer import load_tokenizer
-from fireredtts2_tpu_torch.weights import dtype_of, init_random
+from fireredtts2_tpu_torch.weights import dtype_of, init_random, resolve_device
 
 
 def _frame_seed(utt_seed: int, t: int) -> int:
@@ -46,27 +61,27 @@ class FireRedTTS2Engine:
                  codec_params: Optional[dict] = None):
         """config: the model and engine configuration (default: the
         flagship EngineConfig()). device: where weights, state and kernels
-        live ("cuda" on the card; default "cuda" when one is available,
-        else "cpu"). lm_params / codec_params: parameter trees in the JAX
-        layout (e.g. ``weights.from_jax`` of the JAX engine's); when absent
-        the engine draws random weights from `seed`."""
+        live: "cuda" by default; "cpu" runs the plain versions and must be
+        asked for (without a CUDA device anything else raises).
+        lm_params / codec_params: unquantised parameter trees in the JAX
+        layout (e.g. ``weights.from_jax`` of the JAX package's
+        initialisers); when absent the engine draws random weights from
+        `seed`. The config's serving transforms are applied to them."""
         config = config or EngineConfig()
         llm = config.llm
-        if (llm.quantize_backbone or llm.quantize_depth or llm.fused_depth_plan
-                or llm.speculative_depth or config.codec.quantize_vocoder
+        if ((llm.speculative_depth and not llm.fused_depth_plan)
                 or not config.codec.acoustic_decoder.causal):
             raise NotImplementedError(
                 "this configuration needs a path that is not ported yet "
-                "(int8/int4 weights, the fused depth kernel, speculative "
-                "depth, or the non-causal vocoder)")
+                "(speculative depth, or the non-causal vocoder)")
         self.config = config
-        self.device = torch.device(
-            device or ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = resolve_device(device)
         if lm_params is None or codec_params is None:
             rand_lm, rand_codec = init_random(config, seed, self.device)
             lm_params = lm_params or rand_lm
             codec_params = codec_params or rand_codec
-        self.lm_params, self.codec_params = lm_params, codec_params
+        self.lm_params, self.codec_params = self._apply_serving_transforms(
+            lm_params, codec_params)
         self.tokenizer = load_tokenizer(None)
 
         acfg = config.codec.acoustic_decoder
@@ -85,6 +100,34 @@ class FireRedTTS2Engine:
         # and the host-clock split of the last generate call.
         self.last_tokens: Optional[np.ndarray] = None
         self.last_stats: dict = {}
+
+    def _apply_serving_transforms(self, lm_params: dict, codec_params: dict
+                                  ) -> tuple[dict, dict]:
+        """Quantisation and the fused depth chain per the config, on copies
+        of the trees (engine.py:_apply_serving_transforms of the JAX
+        package). The fused plan takes precedence over quantize_depth, and
+        speculative depth is then ignored, as there."""
+        llm = self.config.llm
+        if llm.fused_depth_plan or llm.quantize_depth or llm.quantize_backbone:
+            lm_params = dict(lm_params)
+            if llm.fused_depth_plan:
+                lm_params = enable_fused_depth(lm_params, llm)
+            elif llm.quantize_depth:
+                if llm.quantize_depth_bits == 4:
+                    lm_params["decoder"] = prepare_int4_layout(
+                        quantize_transformer_int4(lm_params["decoder"]))
+                else:
+                    lm_params["decoder"] = quantize_transformer_int8(
+                        lm_params["decoder"])
+            if llm.quantize_backbone:
+                lm_params["backbone"] = quantize_transformer_int8(
+                    lm_params["backbone"])
+        if self.config.codec.quantize_vocoder:
+            codec_params = dict(codec_params)
+            ad = dict(codec_params["acoustic_decoder"])
+            ad["layers"] = quantize_whisper_layers_int8(ad["layers"])
+            codec_params["acoustic_decoder"] = ad
+        return lm_params, codec_params
 
     # ------------------------------------------------------------------
     # Prompt building

@@ -2,10 +2,11 @@
 generation path.
 
 Counterpart of ``fireredtts2_tpu/models/lm/model.py`` (generation subset:
-no training loss, speculative depth, fused depth kernel, slot admission or
-append-prefill yet). Frames interleave audio_num_codebooks audio columns
-and one text column; the backbone samples codebook 0, the depth decoder
-codebooks 1..N-1.
+no training loss, speculative depth, slot admission or append-prefill
+yet). With a fused-depth plan and a ``depth_chain`` bundle in the tree the
+depth decode is one launch of kernel B per frame (``ops.depth_chain``).
+Frames interleave audio_num_codebooks audio columns and one text column;
+the backbone samples codebook 0, the depth decoder codebooks 1..N-1.
 
 Sampling noise is an input: every frame takes a (B, ncb, V_audio) tensor of
 Exp(1) draws, column 0 for codebook 0 and column i for depth codebook i.
@@ -28,6 +29,7 @@ import torch
 
 from fireredtts2_tpu_torch.config import LLMConfig
 from fireredtts2_tpu_torch.ops import masks as mask_ops
+from fireredtts2_tpu_torch.ops.depth_chain import fused_depth_decode
 from fireredtts2_tpu_torch.ops.sampling import sample_topk
 from fireredtts2_tpu_torch.models.lm.transformer import (
     _normal, init_kv_cache, init_transformer_params, transformer_forward,
@@ -128,9 +130,14 @@ def _depth_decode(params: Params, cfg: LLMConfig, last_h: torch.Tensor,
                   c0: torch.Tensor, noise: torch.Tensor, depth_topk: int,
                   depth_temperature: float) -> torch.Tensor:
     """Sample codebooks 1..N-1 with the depth transformer over a fresh
-    16-slot cache: an S=2 prefill of [last_h, embed(c0)], then single steps.
-    Plain PyTorch (the JAX package's XLA loop; its fused Pallas chain is an
-    opt-in serving preset, not ported yet). Returns (B, ncb) int32."""
+    16-slot cache: an S=2 prefill of [last_h, embed(c0)], then single steps,
+    in plain PyTorch (the JAX package's XLA loop). When the tree carries a
+    ``depth_chain`` bundle for ``cfg.fused_depth_plan``, the whole chain is
+    kernel B instead, with the same noise. Returns (B, ncb) int32."""
+    if cfg.fused_depth_plan and "depth_chain" in params:
+        return fused_depth_decode(params["depth_chain"], cfg, last_h, c0, noise,
+                                  depth_topk, depth_temperature,
+                                  plan=cfg.fused_depth_plan)
     dec_cfg = cfg.decoder
     ncb = cfg.audio_num_codebooks
     B = last_h.shape[0]

@@ -42,7 +42,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    """The library's path, named by a hash of its source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 

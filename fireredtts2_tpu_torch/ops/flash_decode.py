@@ -18,7 +18,13 @@ Kernels:
   into one layer of its (L, B, T, H*Dh) slab in place, then bounded
   attention with per-query bounds;
 - D ``flash_decode_bounded``: kernel C's read-only mode over a
-  (B, T, H*Dh) slab with optional lower bounds.
+  (B, T, H*Dh) slab with optional lower bounds;
+- F ``pallas_decode_attention``: S=1 GQA decode over unmerged
+  (B, T, Hkv, Dh) slabs with a per-stream window. It computes what kernel A
+  computes, so it runs kernel A's CUDA code over a (1, B, T, Hkv*Dh) view
+  of the slabs (no copy). In the JAX package it is an opt-in
+  (FRTTS2_PALLAS=1) that the measured default does not take; here, too, no
+  model path calls it.
 """
 
 from __future__ import annotations
@@ -103,6 +109,37 @@ def _gqa1_lib() -> ctypes.CDLL:
     return lib
 
 
+def _gqa1_launch(q, k3, v3, q_start, q_end, live_lo, live_hi) -> torch.Tensor:
+    """Shared launch of csrc/flash_decode_gqa1.cu on (B, T, Hkv*Dh) views
+    of one layer's slabs."""
+    dev = q.device
+    B, Hq, Dh = q.shape
+    _, T, W = k3.shape
+    Hkv = W // Dh
+    lib = _gqa1_lib()
+    G = Hq // Hkv
+    _require(G <= lib.frt_gqa1_max_group(), f"group {G} too large")
+    C = pick_chunk(T)
+    _require(C is not None, f"slab length {T} has no 16-aligned chunking")
+    q_start = _index(q_start, (B,), "q_start", dev)
+    q_end = _index(q_end, (B,), "q_end", dev)
+    lo, hi = _scalar(live_lo, dev), _scalar(live_hi, dev)
+    NS = -(-T // lib.frt_gqa1_split_size())
+    part_m = torch.empty((B, Hkv, NS, G), dtype=torch.float32, device=dev)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty((B, Hkv, NS, G, Dh), dtype=torch.float32, device=dev)
+    out = torch.empty_like(q)
+    err = lib.frt_flash_decode_gqa1(
+        q.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+        q_start.data_ptr(), q_end.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+        out.data_ptr(), B, Hkv, G, Dh, T, C, NS, 1.0 / math.sqrt(Dh),
+        _stream(dev))
+    if err:
+        raise RuntimeError(f"flash_decode_gqa1 launch failed: CUDA error {err}")
+    return out
+
+
 def flash_decode_gqa1(q: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor,
                       layer: int, q_start: torch.Tensor, q_end: torch.Tensor,
                       live_lo, live_hi) -> torch.Tensor:
@@ -133,28 +170,8 @@ def flash_decode_gqa1(q: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor,
     _require(Dh in (64, 128) and W % Dh == 0, f"head dim {Dh}, slab width {W}")
     Hkv = W // Dh
     _require(Hq % Hkv == 0, f"Hq {Hq} not a multiple of Hkv {Hkv}")
-    lib = _gqa1_lib()
-    G = Hq // Hkv
-    _require(G <= lib.frt_gqa1_max_group(), f"group {G} too large")
-    C = pick_chunk(T)
-    _require(C is not None, f"slab length {T} has no 16-aligned chunking")
     _require(0 <= layer < L, f"layer {layer} outside [0, {L})")
-    q_start = _index(q_start, (B,), "q_start", dev)
-    q_end = _index(q_end, (B,), "q_end", dev)
-    lo, hi = _scalar(live_lo, dev), _scalar(live_hi, dev)
-    NS = -(-T // lib.frt_gqa1_split_size())
-    part_m = torch.empty((B, Hkv, NS, G), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B, Hkv, NS, G, Dh), dtype=torch.float32, device=dev)
-    out = torch.empty_like(q)
-    err = lib.frt_flash_decode_gqa1(
-        q.data_ptr(), k4[layer].data_ptr(), v4[layer].data_ptr(),
-        q_start.data_ptr(), q_end.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-        out.data_ptr(), B, Hkv, G, Dh, T, C, NS, 1.0 / math.sqrt(Dh),
-        _stream(dev))
-    if err:
-        raise RuntimeError(f"flash_decode_gqa1 launch failed: CUDA error {err}")
+    out = _gqa1_launch(q, k4[layer], v4[layer], q_start, q_end, live_lo, live_hi)
     flash_decode_gqa1.launches += 1
     return out
 
@@ -304,7 +321,73 @@ def flash_decode_bounded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_decode_bounded.launches = 0
 
-KERNELS = (flash_decode_gqa1, flash_decode_update_bounded, flash_decode_bounded)
+# ---------------------------------------------------------------------------
+# Kernel F: S=1 GQA decode over unmerged (B, T, Hkv, Dh) slabs, on kernel A
+# ---------------------------------------------------------------------------
+
+
+def pallas_decode_attention_plain(q, k_slab, v_slab, start, end) -> torch.Tensor:
+    """Kernel F's plain version (pallas_attention.py:_decode_attn_kernel):
+    fp32 scores over the window [start, end) of each stream, -1e30 outside,
+    softmax, an fp32 product with V, the output in q's dtype."""
+    B, Hq, D = q.shape
+    T, Hkv = k_slab.shape[1], k_slab.shape[2]
+    G = Hq // Hkv
+    qf = q.to(torch.float32).reshape(B, Hkv, G, D) * (1.0 / math.sqrt(D))
+    kf = k_slab.to(torch.float32)
+    vf = v_slab.to(torch.float32)
+    s = torch.einsum("bhgd,bthd->bhgt", qf, kf)
+    t = torch.arange(T, device=q.device)
+    valid = (t[None] >= start.to(torch.int64)[:, None]) \
+        & (t[None] < end.to(torch.int64)[:, None])
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgt,bthd->bhgd", p, vf)
+    return o.reshape(B, Hq, D).to(q.dtype)
+
+
+def pallas_decode_attention(q: torch.Tensor, k_slab: torch.Tensor,
+                            v_slab: torch.Tensor, start: torch.Tensor,
+                            end: torch.Tensor) -> torch.Tensor:
+    """Single-token GQA decode attention over each stream's live window.
+
+    Args:
+        q: (B, Hq, D) queries; query head h reads kv head h // (Hq // Hkv).
+        k_slab / v_slab: (B, T, Hkv, D) slabs.
+        start / end: (B,) int first live slot and one past the newest.
+    Returns:
+        (B, Hq, D) in q's dtype.
+
+    On the card it runs kernel A's code over (1, B, T, Hkv*D) views, with
+    q_start = start, q_end = end, live_lo = min(start), live_hi = max(end)
+    (both reduced on the device). Kernel A rounds the probabilities to bf16
+    before the product with V, as pallas_flash.py does; the plain version
+    keeps them in fp32, as pallas_attention.py does.
+    """
+    if q.device.type == "cpu":
+        return pallas_decode_attention_plain(q, k_slab, v_slab, start, end)
+    dev = q.device
+    _require(q.is_cuda, f"pallas_decode_attention: unsupported device {dev}")
+    _check_slab("q", q, dev, 3)
+    _check_slab("k_slab", k_slab, dev, 4)
+    _check_slab("v_slab", v_slab, dev, 4)
+    B, Hq, D = q.shape
+    _, T, Hkv, Dk = k_slab.shape
+    _require(v_slab.shape == k_slab.shape and k_slab.shape[0] == B and Dk == D,
+             f"slabs {tuple(k_slab.shape)}, {tuple(v_slab.shape)} vs q {tuple(q.shape)}")
+    _require(D in (64, 128) and Hq % Hkv == 0, f"head dim {D}, heads {Hq}/{Hkv}")
+    start = _index(start, (B,), "start", dev)
+    end = _index(end, (B,), "end", dev)
+    out = _gqa1_launch(q, k_slab.view(B, T, Hkv * D), v_slab.view(B, T, Hkv * D),
+                       start, end, start.min(), end.max())
+    pallas_decode_attention.launches += 1
+    return out
+
+
+pallas_decode_attention.launches = 0
+
+KERNELS = (flash_decode_gqa1, flash_decode_update_bounded, flash_decode_bounded,
+           pallas_decode_attention)
 
 
 def reset_launch_counts() -> None:

@@ -23,9 +23,21 @@ def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: "cuda" unless the caller names
+    one. Without a CUDA device only an explicit CPU device is accepted."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card; pass device='cpu' "
+            "to run its plain PyTorch versions on the CPU")
+    return dev
+
+
 def from_jax(tree: Any, device=None) -> Any:
     """Copy a parameter tree (nested dicts) whose leaves are JAX or numpy
-    arrays into torch tensors of the same layout and dtype."""
+    arrays into torch tensors of the same layout and dtype (int8 leaves of
+    quantised trees and the leaves of a fused-depth bundle included)."""
     if isinstance(tree, dict):
         return {k: from_jax(v, device) for k, v in tree.items()}
     a = np.array(tree)               # a writable host copy
@@ -37,12 +49,13 @@ def from_jax(tree: Any, device=None) -> Any:
 def init_random(config: EngineConfig, seed: int = 0, device=None
                 ) -> tuple[dict, dict]:
     """(lm_params, codec_params) of random weights at the config's widths,
-    drawn on `device` from a generator seeded with `seed`. The codec tree
-    holds the decode side only."""
+    drawn on `device` ("cuda" by default; "cpu" only when asked for) from a
+    generator seeded with `seed`. The codec tree holds the decode side
+    only."""
     from fireredtts2_tpu_torch.models.codec.model import init_codec_params
     from fireredtts2_tpu_torch.models.lm.model import init_lm_params
 
-    device = torch.device(device or "cpu")
+    device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     lm = init_lm_params(gen, config.llm, dtype_of(config.llm.dtype), device)

@@ -135,3 +135,115 @@ def test_small_engine_on_card(cuda):
     np.testing.assert_array_equal(eng.last_tokens, loop_tokens)
     assert np.isfinite(a).all() and np.isfinite(s).all()
     assert len(a) == len(s) == len(loop_tokens) * 1920
+
+
+# ---------------------------------------------------------------------------
+# Kernels B (fused depth chain), E (int4 matmul) and F (decode attention on
+# kernel A's code). Kernel B's logits, with the same tokens forced into
+# both, agree to 5e-2 of the plain version's peak: both round to bf16 at the
+# TPU kernel's points but sum in other orders, and a bf16 rounding step
+# (2^-8) that differs compounds through 4 layers and the 16-slot store.
+# ---------------------------------------------------------------------------
+
+B_TOL = 5e-2
+
+
+def _small_depth_cfg(monkeypatch, plan):
+    """A two-layer depth decoder at Dh = 128 (the kernel's head dim) over
+    the tiny backbone, 16 codebooks, bf16."""
+    from fireredtts2_tpu_torch import config as C
+    monkeypatch.setitem(C.FLAVORS, "gpu-depth", C.TransformerConfig(
+        vocab_size=0, num_layers=2, num_heads=4, num_kv_heads=2,
+        embed_dim=512, intermediate_dim=1024))
+    return C.LLMConfig(backbone_flavor="tiny", decoder_flavor="gpu-depth",
+                       text_vocab_size=300, audio_vocab_size=300,
+                       audio_num_codebooks=16, max_seq_len=256,
+                       dtype="bfloat16", fused_depth_plan=plan)
+
+
+@pytest.mark.parametrize("plan", ["gate=r8,up=s8,down=s8",
+                                  "gate=r4,up=s8,down=s8",
+                                  "gate=r8a8,up=s8a8,down=s8"])
+@pytest.mark.parametrize("B", [1, 3])
+def test_kernel_b_matches_plain(cuda, monkeypatch, plan, B):
+    from fireredtts2_tpu_torch.models.lm.model import init_lm_params
+    from fireredtts2_tpu_torch.ops import depth_chain as dc
+
+    cfg = _small_depth_cfg(monkeypatch, plan)
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    bundle = dc.prepare_depth_chain(
+        init_lm_params(gen, cfg, torch.bfloat16, cuda), cfg, plan)
+    last_h = _rnd(gen, B, cfg.backbone.embed_dim)
+    c0 = torch.randint(0, 300, (B,), generator=gen, device=cuda)
+    noise = torch.empty((B, 16, 300), device=cuda).exponential_(generator=gen)
+    ref, ref_logits = dc.fused_depth_decode_plain(bundle, cfg, last_h, c0,
+                                                  noise, plan=plan)
+    before = dc.fused_depth_decode.launches
+    out, logits = dc.fused_depth_decode(bundle, cfg, last_h, c0, noise,
+                                        plan=plan, forced=ref,
+                                        return_logits=True)
+    torch.cuda.synchronize()
+    assert dc.fused_depth_decode.launches == before + 1
+    assert torch.isfinite(logits).all()
+    peak = float(ref_logits.abs().max())
+    assert float((logits - ref_logits).abs().max()) <= B_TOL * peak
+    assert torch.equal(out[:, 0], c0.to(torch.int32))
+    assert bool(((out >= 0) & (out < 300)).all())
+
+
+@pytest.mark.parametrize("M", [1, 16])
+def test_kernel_e_matches_plain(cuda, M):
+    """int4 x at depth-decoder shapes (K = 1536, group 128): the kernel and
+    its plain version round alike and differ in fp32 summation order."""
+    from fireredtts2_tpu_torch.models.lm.transformer import (
+        quantize_transformer_int4,
+    )
+    from fireredtts2_tpu_torch.ops import int4 as i4
+
+    gen = torch.Generator(device=cuda).manual_seed(M)
+    w = torch.randn((1, 1536, 256), generator=gen, device=cuda) * 0.02
+    q = quantize_transformer_int4({"wq": w})
+    x = _rnd(gen, M, 1536)
+    before = i4.int4_matmul.launches
+    out = i4.int4_matmul(x, q["wq"][0], q["wq_scale4"][0])
+    torch.cuda.synchronize()
+    assert i4.int4_matmul.launches == before + 1
+    _close(out, i4.int4_matmul_plain(x, q["wq"][0], q["wq_scale4"][0]))
+
+
+def test_kernel_f_matches_plain(cuda):
+    """Unmerged (B, T, Hkv, D) slabs, left-padded windows, on kernel A's
+    code."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    B, T, Hkv, G, D = 3, 1024, 2, 6, 128
+    q = _rnd(gen, B, Hkv * G, D)
+    k, v = _rnd(gen, B, T, Hkv, D), _rnd(gen, B, T, Hkv, D)
+    start = torch.tensor([0, 37, 300], dtype=torch.int32, device=cuda)
+    end = torch.tensor([200, 1024, 777], dtype=torch.int32, device=cuda)
+    before = fd.pallas_decode_attention.launches
+    out = fd.pallas_decode_attention(q, k, v, start, end)
+    torch.cuda.synchronize()
+    assert fd.pallas_decode_attention.launches == before + 1
+    _close(out, fd.pallas_decode_attention_plain(q, k, v, start, end))
+
+
+def test_preset_engine_launches_kernel_b_once_per_frame(cuda):
+    """The serving preset (int8 backbone, fused depth chain) on a small
+    engine: kernel B once per generated frame, and stream == generate."""
+    from fireredtts2_tpu_torch.engine import FireRedTTS2Engine
+    from fireredtts2_tpu_torch.ops import depth_chain as dc
+
+    cfg = _small_gpu_config()
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, decoder_flavor="qwen-200m", quantize_backbone=True,
+        fused_depth_plan="gate=r8,up=s8,down=s8"))
+    eng = FireRedTTS2Engine(cfg, seed=0, device=cuda)
+    dc.fused_depth_decode.launches = 0
+    a = eng.generate("Hello.", "[S1]", max_audio_length_ms=800, utt_seed=4)
+    frames = len(eng.last_tokens)
+    assert dc.fused_depth_decode.launches == frames + (frames < 10)
+    loop_tokens = eng.last_tokens
+    list(eng.generate_stream("Hello.", "[S1]", max_audio_length_ms=800,
+                             utt_seed=4))
+    np.testing.assert_array_equal(eng.last_tokens, loop_tokens)
+    assert np.isfinite(a).all()
