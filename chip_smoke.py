@@ -23,7 +23,8 @@ Phases (any failure exits non-zero and prints no result line):
    gate=r8a8,up=s8a8,...: logits with the same tokens forced into both,
    then free sampling (equal up to a counted near-tie);
 6. kernel E (int4_matmul) at every qwen-200m depth matrix, M in
-   {1, 2, 8, 16}, beside a bf16 torch.matmul on the dequantised weight;
+   {1, 2, 8, 16}, beside torch._weight_int4pack_mm on the same int4
+   weights and a bf16 torch.matmul on the dequantised weight;
 7. kernel F (pallas_decode_attention, on kernel A's code) over unmerged
    slabs with left-padded windows;
 8. a small-width model through the kernels on the card against the same
@@ -41,8 +42,9 @@ Phases (any failure exits non-zero and prints no result line):
 Bounds are the larger of the bytes a call must move (each input read once,
 each output written once) over 3.35 TB/s and its operations over the bf16
 (or int8) peak of the card's data sheet. `library_ms` times one PyTorch
-call computing the same function (F.scaled_dot_product_attention over the
-same window with a mask) where there is one; the port never calls it.
+call computing the same function where there is one, and the port never
+calls it: F.scaled_dot_product_attention over the same window with a mask
+for A, C, D and F, torch._weight_int4pack_mm for E.
 
 Tolerance of a kernel against its plain version (bf16 in, bf16 out, fp32
 inside both): |kernel - plain| <= 1e-2 + 2e-2 * |plain| elementwise. Both
@@ -52,8 +54,11 @@ split or tile before normalising, the plain version after).
 
 Kernel times are taken in turns (plain, kernel, kernel, plain) in this one
 process after warm-up: the device time of the CUDA kernels a call
-launches (torch.profiler), and the CUDA-event time per call, which also
-counts the host's launch gaps. Timed calls of kernels A and C walk the
+launches (torch.profiler), the CUDA-event time per call of calls queued
+behind a device-side spin (device time while the host keeps ahead; the
+kernels line falls back to it, marked "queued", where the profiler's trace
+lost a kernel launched from the port's own libraries), and the CUDA-event
+time per call, which also counts the host's launch gaps. Timed calls of kernels A and C walk the
 slab's layers in turn, as the model does, so each layer's K/V comes from
 device memory and not from the 50 MB L2 cache (the LM slab is ~100 MB at
 B=1, the vocoder slab ~150 MB). After the main path, one short generate
@@ -109,22 +114,30 @@ def card_line() -> str:
 
 def device_ms(fn, reps: int):
     """Mean device time (ms) of the CUDA kernels one call of fn launches,
-    from a torch.profiler trace; None when the trace shows no device time."""
+    from a torch.profiler trace; None when the trace shows no device time
+    (the reason is logged)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     try:
+        # CUDA activity only: recording the CPU ops too costs minutes over
+        # the plain versions' thousands of launches.
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
+        events = prof.events()
+        us = sum(e.time_range.elapsed_us() for e in events
                  if e.device_type == DeviceType.CUDA)
     except Exception as e:   # the profiler is optional here
         log(f"profiler unavailable: {e!r}")
         return None
-    return us / reps / 1e3 if us > 0 else None
+    if us <= 0:
+        names = sorted({e.name for e in events})[:12]
+        log(f"profiler: no device time in {len(events)} events {names}")
+        return None
+    return us / reps / 1e3
 
 
 def event_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -143,6 +156,27 @@ def event_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def queued_ms(fn, reps: int, warmup: int = 3) -> float:
+    """CUDA-event time per call of fn with the calls queued behind a ~25 ms
+    device-side spin: while the queue lasts the card runs them back to back,
+    so for calls the host enqueues faster than the card runs them this is
+    device time without the host's launch gaps."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound_ms(nbytes: float, ops: float, kind: str = "bf16") -> tuple[float, str]:
     """The least time the card could take: the larger of the bytes over the
     memory rate and the operations over the peak rate of their type."""
@@ -153,13 +187,33 @@ def bound_ms(nbytes: float, ops: float, kind: str = "bf16") -> tuple[float, str]
 
 def library_ms(fn, reps: int):
     """CUDA-event time of one PyTorch library call (a yardstick the port
-    never calls); None when this PyTorch lacks the call's options."""
+    never calls); None when this PyTorch lacks the call or its options."""
     try:
         fn()
-    except (TypeError, RuntimeError) as e:
+    except (AttributeError, TypeError, RuntimeError) as e:
         log(f"library call unavailable: {e!r}")
         return None
     return event_ms(fn, reps)
+
+
+def int4pack_weights(packed, scales):
+    """Kernel E's int4 weights for torch._weight_int4pack_mm (tinygemm: bf16
+    x, int4 weights, scales per group of input rows, fp32 sums), which
+    dequantises code u as (u - 8) * scale + zero: u = q + 8 with zero 0,
+    the scales rounded to bf16. Returns (packed weights, group, scales and
+    zeros), or None (logged) when this PyTorch lacks the op."""
+    import torch
+    p = packed.to(torch.int16)
+    q = torch.cat([((p & 15) ^ 8) - 8, p >> 4], dim=0)            # (K, O)
+    u = (q + 8).T.contiguous().to(torch.int32)                      # (O, K)
+    sz = torch.stack([scales, torch.zeros_like(scales)], dim=-1)
+    try:
+        w = torch._convert_weight_to_int4pack(
+            (u[:, ::2] << 4 | u[:, 1::2]).to(torch.uint8), 8)
+    except (AttributeError, TypeError, RuntimeError) as e:
+        log(f"library call unavailable: {e!r}")
+        return None
+    return w, q.shape[0] // scales.shape[0], sz.to(torch.bfloat16).contiguous()
 
 
 def sdpa_call(q, k, v, mask):
@@ -172,24 +226,26 @@ def sdpa_call(q, k, v, mask):
 
 def time_pair(kernel, plain, reps: int, warmup: int = 3) -> dict:
     """Per call, kernel vs plain, in turns P K K P: `ms`/`plain_ms` are the
-    device time of the launched CUDA kernels (profiler), `wall_ms`/
-    `plain_wall_ms` CUDA-event time per call including the host's launch
-    gaps."""
-    def events(fn):
-        return event_ms(fn, reps, warmup)
-
-    p1, k1, k2, p2 = events(plain), events(kernel), events(kernel), events(plain)
-    pd1, kd1, kd2, pd2 = (device_ms(plain, reps), device_ms(kernel, reps),
-                          device_ms(kernel, reps), device_ms(plain, reps))
+    device time of the launched CUDA kernels (profiler; None where the
+    trace held none), `queued_ms`/`plain_queued_ms` the CUDA-event time of
+    calls queued behind a device-side spin, `wall_ms`/`plain_wall_ms` the
+    CUDA-event time per call including the host's launch gaps."""
     mean = (lambda a, b: None if a is None or b is None else (a + b) / 2)
-    return dict(ms=mean(kd1, kd2), plain_ms=mean(pd1, pd2),
-                wall_ms=(k1 + k2) / 2, plain_wall_ms=(p1 + p2) / 2)
+    out = {}
+    for key, how in (("wall_ms", lambda f: event_ms(f, reps, warmup)),
+                     ("queued_ms", lambda f: queued_ms(f, reps, warmup)),
+                     ("ms", lambda f: device_ms(f, reps))):
+        p1, k1, k2, p2 = how(plain), how(kernel), how(kernel), how(plain)
+        out[key], out["plain_" + key] = mean(k1, k2), mean(p1, p2)
+    return out
 
 
 def fmt_times(r: dict) -> str:
     def f(x):
         return "n/a" if x is None else f"{x:.4f}"
     return (f"device ms: kernel {f(r.get('ms'))}, plain {f(r.get('plain_ms'))}; "
+            f"queued ms: kernel {f(r.get('queued_ms'))}, "
+            f"plain {f(r.get('plain_queued_ms'))}; "
             f"per-call wall ms: kernel {f(r.get('wall_ms'))}, "
             f"plain {f(r.get('plain_wall_ms'))}; bound {f(r.get('bound_ms'))} "
             f"({r.get('bound_by')}); library {f(r.get('library_ms'))}")
@@ -402,7 +458,7 @@ def depth_bytes_ops(bundle, cfg, B: int, plan: str) -> tuple[float, float, str]:
     ncb, V = cfg.audio_num_codebooks, cfg.audio_vocab_size
     Db, Dd = cfg.backbone.embed_dim, cfg.decoder.embed_dim
     nbytes = sum(t.numel() * t.element_size() for k, t in bundle.items()
-                 if k not in ("xla_decoder", "emb_rows"))
+                 if k != "emb_rows")
     nbytes += (ncb - 1) * B * Db * 2                 # the embedding rows used
     nbytes += B * Db * 2 + B * 4 + B * ncb * V * 4 + B * ncb * 4
     layer_w = sum(bundle[k][0].numel() * (2 if modes.get(k) == "r4" else 1)
@@ -519,9 +575,11 @@ def int4_shapes():
 
 
 def check_kernel_e(dev, shapes=None, ms=(1, 2, 8, 16), reps=50, timed=True):
-    """Kernel E vs its plain version at the int4 depth path's shapes; a bf16
-    torch.matmul on the dequantised weight is timed beside it (a yardstick
-    only: the port never calls it)."""
+    """Kernel E vs its plain version at the int4 depth path's shapes. Timed
+    beside it, as yardsticks the port never calls: torch._weight_int4pack_mm
+    on the same int4 weights (`library_ms`; its largest difference from
+    the plain version, from its bf16 scales and output, as `library_err`)
+    and a bf16 torch.matmul on the dequantised weight."""
     import torch
     from fireredtts2_tpu_torch.models.lm.transformer import quantize_transformer_int4
     from fireredtts2_tpu_torch.ops import int4 as i4
@@ -533,7 +591,8 @@ def check_kernel_e(dev, shapes=None, ms=(1, 2, 8, 16), reps=50, timed=True):
         q = quantize_transformer_int4({"w_gate": w})
         packed, scales = q["w_gate"][0], q["w_gate_scale4"][0]
         pt, st = i4.output_major_int4(packed, scales)
-        wd = i4.unpack_int4(packed, scales, torch.float32).to(torch.bfloat16)
+        wd = i4.unpack_int4(packed, scales).to(torch.bfloat16)
+        lib = int4pack_weights(packed, scales) if timed else None
         for M in ms:
             x = _rnd(gen, M, K)
             out = i4.int4_matmul(x, packed, scales, pt, st)
@@ -547,9 +606,16 @@ def check_kernel_e(dev, shapes=None, ms=(1, 2, 8, 16), reps=50, timed=True):
                                   lambda: i4.int4_matmul_plain(x, packed, scales),
                                   reps)
                 times["bf16_matmul_ms"] = event_ms(lambda: x @ wd, reps)
+                times["library_ms"] = times["library_err"] = None
+                if lib is not None:
+                    def tinygemm():
+                        return torch._weight_int4pack_mm(x, *lib)
+                    times["library_ms"] = library_ms(tinygemm, reps)
+                    if times["library_ms"] is not None:
+                        times["library_err"] = float(
+                            (tinygemm().float() - ref.float()).abs().max())
             results.append(dict(name=name, K=K, O=O, M=M, max_abs_err=err,
-                                ok=ok, bound_ms=bnd, bound_by=by,
-                                library_ms=None, **times))
+                                ok=ok, bound_ms=bnd, bound_by=by, **times))
         del w, wd
     return results
 
@@ -915,9 +981,10 @@ def main() -> int:
     res_e = check_kernel_e(dev)
     for r in res_e:
         log(f"kernel E {r['name']} {r['K']}x{r['O']} M={r['M']}: max_abs_err "
-            f"{r['max_abs_err']:.3e} ok={r['ok']}  {fmt_times(r)}; bf16 "
-            f"torch.matmul on the dequantised weight {r.get('bf16_matmul_ms', 0):.4f}"
-            f" ms  [{card}]")
+            f"{r['max_abs_err']:.3e} ok={r['ok']}  {fmt_times(r)} (library: "
+            f"torch._weight_int4pack_mm, max |library - plain| "
+            f"{r.get('library_err')}); bf16 torch.matmul on the dequantised "
+            f"weight {r.get('bf16_matmul_ms', 0):.4f} ms  [{card}]")
         ok &= r["ok"]
     report["kernel_e"] = res_e
 
@@ -998,13 +1065,20 @@ def main() -> int:
         return next(r for r in rows if all(r[k] == v for k, v in want.items()))
 
     def entry(name, source, replaces, launches, rows, main, **extra):
+        """`ms`/`plain_ms`: device time from the profiler ("device"), or
+        where the trace held none the CUDA-event time of calls queued
+        behind a device-side spin ("queued"); `ms_kind`/`plain_ms_kind`
+        say which."""
+        def timed(key):
+            if main[key] is not None:
+                return main[key], "device"
+            return main[key.replace("ms", "queued_ms")], "queued"
+        (ms, ms_kind), (plain_ms, plain_kind) = timed("ms"), timed("plain_ms")
         return dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches, ok=all(r["ok"] for r in rows),
             max_abs_err=max(r["max_abs_err"] for r in rows),
-            ms=main["ms"] if main["ms"] is not None else main["wall_ms"],
-            plain_ms=(main["plain_ms"] if main["plain_ms"] is not None
-                      else main["plain_wall_ms"]),
+            ms=ms, ms_kind=ms_kind, plain_ms=plain_ms, plain_ms_kind=plain_kind,
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=main.get("library_ms"), **extra)
 

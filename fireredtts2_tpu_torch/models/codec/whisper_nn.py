@@ -8,9 +8,8 @@ The streaming KV cache is a MERGED (L, B, T, H*Dh) slab pair written in
 place by kernel C (``ops.flash_decode.flash_decode_update_bounded``).
 
 ``quantize_whisper_layers_int8`` makes the vocoder's matmuls weight-only
-int8; ``_wmm`` then computes ``(x @ w.to(x.dtype)) * scale`` in plain
-PyTorch, as the JAX package leaves it to XLA (each call materialises a
-dtype copy of the matrix: see models/lm/transformer.py).
+int8; they then take ``ops.quant.quantized_matmul``'s plain dequant route,
+as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -21,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from fireredtts2_tpu_torch.ops.flash_decode import flash_decode_update_bounded
+from fireredtts2_tpu_torch.ops.quant import quantize_tree, quantized_matmul
 
 Params = dict[str, Any]
 
@@ -66,26 +66,7 @@ def quantize_whisper_layers_int8(params: Params) -> Params:
     """Weight-only int8 (per-output-channel symmetric) for a stacked
     whisper layer tree: each matmul becomes int8 plus ``name + "_scale"``
     (L, 1, out) float32. Norms and biases stay."""
-    out: Params = {}
-    for k, v in params.items():
-        if k in _WHISPER_MATMUL_KEYS:
-            w = v.to(torch.float32)
-            scale = torch.clamp(w.abs().amax(dim=1, keepdim=True) / 127.0,
-                                min=1e-8)
-            out[k] = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
-            out[k + "_scale"] = scale
-        else:
-            out[k] = v
-    return out
-
-
-def _wmm(x: torch.Tensor, lp: Params, name: str) -> torch.Tensor:
-    """x @ W with transparent weight-only int8."""
-    w = lp[name]
-    if w.dtype == torch.int8:
-        y = x @ w.to(x.dtype)
-        return y * lp[name + "_scale"][0].to(y.dtype)
-    return x @ w
+    return quantize_tree(params, _WHISPER_MATMUL_KEYS, bits=8)
 
 
 def _whisper_layer_slab4(h: torch.Tensor, lp: Params, layer: int,
@@ -97,15 +78,16 @@ def _whisper_layer_slab4(h: torch.Tensor, lp: Params, layer: int,
     B, S, D = h.shape
     Dh = D // num_heads
     x = layer_norm(h, lp["attn_ln_w"], lp["attn_ln_b"])
-    q = (_wmm(x, lp, "wq") + lp["bq"]).reshape(B, S, num_heads, Dh)
-    kw = _wmm(x, lp, "wk")
-    vw = _wmm(x, lp, "wv") + lp["bv"]
+    q = (quantized_matmul(x, lp, "wq") + lp["bq"]).reshape(B, S, num_heads, Dh)
+    kw = quantized_matmul(x, lp, "wk")
+    vw = quantized_matmul(x, lp, "wv") + lp["bv"]
     attn = flash_decode_update_bounded(q, kw, vw, k4, v4, layer, pos, q_end,
                                        live_hi)
-    h = h + (_wmm(attn.reshape(B, S, D), lp, "wo") + lp["bo"]).to(h.dtype)
+    o = quantized_matmul(attn.reshape(B, S, D), lp, "wo")
+    h = h + (o + lp["bo"]).to(h.dtype)
     x = layer_norm(h, lp["ffn_ln_w"], lp["ffn_ln_b"])
-    x = F.gelu(_wmm(x, lp, "fc1_w") + lp["fc1_b"])
-    return h + (_wmm(x, lp, "fc2_w") + lp["fc2_b"]).to(h.dtype)
+    x = F.gelu(quantized_matmul(x, lp, "fc1_w") + lp["fc1_b"])
+    return h + (quantized_matmul(x, lp, "fc2_w") + lp["fc2_b"]).to(h.dtype)
 
 
 def whisper_layers_forward(params: Params, num_heads: int, h: torch.Tensor,

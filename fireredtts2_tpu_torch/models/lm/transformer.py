@@ -13,16 +13,8 @@ Routing inside a cached layer:
   ``ops.flash_decode.flash_decode_gqa1``, which reads only the live chunks.
 
 Weight-only quantisation (``quantize_transformer_int8`` / ``_int4``) and
-the matmul routing of ``_mm`` follow the JAX package:
-- int8 (per-output-channel scales): ``(x @ w.to(x.dtype)) * scale``, plain
-  PyTorch, as the JAX package leaves it to XLA. Its cost here: every call
-  converts the whole int8 matrix to a bf16 copy in device memory (read 1 B,
-  write 2 B, read 2 B per weight where bf16 weights read 2 B) and adds two
-  launches per matmul;
-- int4 (group scales, halves-packed): always kernel E,
-  ``ops.int4.int4_matmul`` (its plain version on the CPU), reading the
-  output-major layout that ``ops.int4.prepare_int4_layout`` adds (the
-  nibble unpack, JAX's ``_unpack_int4``, is ``ops.int4.unpack_int4``).
+the matmul route follow the JAX package; both live in ``ops.quant``
+(int8: a plain dequant matmul; int4: kernel E).
 """
 
 from __future__ import annotations
@@ -35,7 +27,7 @@ import torch.nn.functional as F
 from fireredtts2_tpu_torch.config import TransformerConfig
 from fireredtts2_tpu_torch.ops.attention import gqa_attention
 from fireredtts2_tpu_torch.ops.flash_decode import flash_decode_gqa1
-from fireredtts2_tpu_torch.ops.int4 import int4_matmul
+from fireredtts2_tpu_torch.ops.quant import quantize_tree, quantized_matmul
 from fireredtts2_tpu_torch.ops.rope import apply_rope, rope_angles
 
 Params = dict[str, Any]
@@ -93,17 +85,7 @@ def quantize_transformer_int8(params: Params) -> Params:
     """Weight-only int8, per-output-channel symmetric, for a stacked tree:
     each matmul becomes int8 plus ``name + "_scale"`` (L, 1, out) float32.
     Norms and biases stay."""
-    out: Params = {}
-    for k, v in params.items():
-        if k in _MATMUL_KEYS:
-            w = v.to(torch.float32)
-            scale = torch.clamp(w.abs().amax(dim=1, keepdim=True) / 127.0,
-                                min=1e-8)
-            out[k] = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
-            out[k + "_scale"] = scale
-        else:
-            out[k] = v
-    return out
+    return quantize_tree(params, _MATMUL_KEYS, bits=8)
 
 
 def quantize_transformer_int4(params: Params, group: int = 128) -> Params:
@@ -112,38 +94,7 @@ def quantize_transformer_int4(params: Params, group: int = 128) -> Params:
     byte: packed row i holds input rows i (low) and i + I/2 (high). Each
     matmul becomes (L, I/2, O) int8 plus ``name + "_scale4"`` (L, I/g, O)
     float32."""
-    out: Params = {}
-    for k, v in params.items():
-        if k in _MATMUL_KEYS:
-            w = v.to(torch.float32)
-            L, I, O = w.shape
-            g = min(group, I)
-            while I % g:
-                g //= 2
-            wg = w.reshape(L, I // g, g, O)
-            scale = torch.clamp(wg.abs().amax(dim=2, keepdim=True) / 7.0,
-                                min=1e-8)
-            q = torch.clamp(torch.round(wg / scale), -7, 7).to(torch.int32)
-            q = q.reshape(L, I, O)
-            lo, hi = q[:, : I // 2], q[:, I // 2:]
-            out[k] = ((lo & 0x0F) | (hi << 4)).to(torch.int8)
-            out[k + "_scale4"] = scale[:, :, 0, :]
-        else:
-            out[k] = v
-    return out
-
-
-def _mm(x: torch.Tensor, lp: Params, name: str) -> torch.Tensor:
-    """x @ W with transparent weight-only int8/int4 (see the module
-    docstring for the routes)."""
-    w = lp[name]
-    if name + "_scale4" in lp:
-        return int4_matmul(x, w, lp[name + "_scale4"], lp.get(name + "_t4"),
-                           lp.get(name + "_s4t"))
-    if w.dtype == torch.int8:
-        y = x @ w.to(x.dtype)
-        return y * lp[name + "_scale"][0].to(y.dtype)
-    return x @ w
+    return quantize_tree(params, _MATMUL_KEYS, bits=4, group=group)
 
 
 def _layer(h: torch.Tensor, lp: Params, cfg: TransformerConfig,
@@ -157,9 +108,9 @@ def _layer(h: torch.Tensor, lp: Params, cfg: TransformerConfig,
     Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
     x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-    q = (_mm(x, lp, "wq") + lp["bq"]).reshape(B, S, Hq, Dh)
-    k = (_mm(x, lp, "wk") + lp["bk"]).reshape(B, S, Hkv, Dh)
-    v = (_mm(x, lp, "wv") + lp["bv"]).reshape(B, S, Hkv, Dh)
+    q = (quantized_matmul(x, lp, "wq") + lp["bq"]).reshape(B, S, Hq, Dh)
+    k = (quantized_matmul(x, lp, "wk") + lp["bk"]).reshape(B, S, Hkv, Dh)
+    v = (quantized_matmul(x, lp, "wv") + lp["bv"]).reshape(B, S, Hkv, Dh)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
@@ -184,11 +135,11 @@ def _layer(h: torch.Tensor, lp: Params, cfg: TransformerConfig,
             q, k4[layer].reshape(B, T, Hkv, Dh).to(h.dtype),
             v4[layer].reshape(B, T, Hkv, Dh).to(h.dtype), mask)
 
-    h = h + _mm(attn.reshape(B, S, Hq * Dh), lp, "wo").to(h.dtype)
+    h = h + quantized_matmul(attn.reshape(B, S, Hq * Dh), lp, "wo").to(h.dtype)
     x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
-    gate = F.silu(_mm(x, lp, "w_gate").to(torch.float32)).to(h.dtype)
-    up = _mm(x, lp, "w_up")
-    return h + _mm(gate * up, lp, "w_down").to(h.dtype)
+    gate = F.silu(quantized_matmul(x, lp, "w_gate").to(torch.float32)).to(h.dtype)
+    up = quantized_matmul(x, lp, "w_up")
+    return h + quantized_matmul(gate * up, lp, "w_down").to(h.dtype)
 
 
 def transformer_forward(params: Params, cfg: TransformerConfig,

@@ -21,9 +21,10 @@ unquantised decoder, per a plan (``parse_plan``) of the three MLP matrices:
 The attention projections are always int8 (Q, K and V merged into one
 matrix). Every quantised matrix of the bundle is stored output-major,
 (out, in) or (out, in/2) for int4, which is what the CUDA kernel streams.
-The bundle also carries, under ``xla_decoder``, the same quantised decoder
-in the JAX tree's layout, so that ``models/lm/model.py: _depth_decode``
-computes the same numbers without the bundle.
+Asked for (``with_decoder=True``), ``prepare_depth_chain`` also returns,
+under ``xla_decoder``, the same quantised decoder in the JAX tree's
+layout, with which ``models/lm/model.py: _depth_decode`` computes the same
+numbers without the bundle. The serving tree holds the bundle only.
 
 ``fused_depth_decode`` runs the CUDA kernel (``csrc/fused_depth_decode.cu``)
 on CUDA tensors and its plain version on CPU tensors; it never falls back
@@ -40,6 +41,8 @@ import torch
 
 from fireredtts2_tpu_torch.config import LLMConfig
 from fireredtts2_tpu_torch.ops import cuda_build
+from fireredtts2_tpu_torch.ops.int4 import unpack_int4
+from fireredtts2_tpu_torch.ops.quant import quantize_int4, quantize_int8
 
 _NEG = -1e30
 _MATMUL = ("wq", "wk", "wv", "wo")
@@ -70,35 +73,14 @@ def parse_plan(plan: str) -> dict[str, str]:
     return out
 
 
-def _quant8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-output-channel symmetric int8 of (L, I, O) -> (int8, (L, 1, O))."""
-    wf = w.to(torch.float32)
-    scale = torch.clamp(wf.abs().amax(dim=-2, keepdim=True) / 127.0, min=1e-8)
-    return torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8), scale
-
-
-def _quant4(w: torch.Tensor, group: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Group-wise symmetric int4 of (L, I, O), halves-packed ->
-    ((L, I/2, O) int8, (L, I/g, O) float32); the group divides I/2."""
-    wf = w.to(torch.float32)
-    L, I, O = wf.shape
-    g = max(min(group, I // 2), 1)
-    while (I // 2) % g:
-        g //= 2
-    wg = wf.reshape(L, I // g, g, O)
-    scale = torch.clamp(wg.abs().amax(dim=2, keepdim=True) / 7.0, min=1e-8)
-    q = torch.clamp(torch.round(wg / scale), -7, 7).to(torch.int32).reshape(L, I, O)
-    lo, hi = q[:, : I // 2], q[:, I // 2:]
-    return ((lo & 0x0F) | (hi << 4)).to(torch.int8), scale[:, :, 0, :]
-
-
 def _om(t: torch.Tensor) -> torch.Tensor:
     """(..., in, out) -> contiguous (..., out, in)."""
     return t.transpose(-1, -2).contiguous()
 
 
 def prepare_depth_chain(params: dict[str, Any], cfg: LLMConfig,
-                        plan: str = "", group: int = 128) -> dict[str, Any]:
+                        plan: str = "", group: int = 128,
+                        with_decoder: bool = False) -> dict[str, Any]:
     """The kernel's bundle from an LM tree whose ``decoder`` is not
     quantised, with the quantised values of pallas_depth.py:
     prepare_depth_chain (bit for bit) in output-major layout:
@@ -111,7 +93,8 @@ def prepare_depth_chain(params: dict[str, Any], cfg: LLMConfig,
     - norms and the QKV bias, ``proj_t`` (Dd, Db), ``emb_rows`` (the flat
       audio embeddings of codebooks 0..ncb-2), ``head_t`` (ncb-1, V, Dd),
       RoPE tables ``rope_cos``/``rope_sin`` (ncb, Dh/2) fp32;
-    - ``xla_decoder``: the quantised decoder in the JAX layout.
+    - with ``with_decoder``, ``xla_decoder``: the quantised decoder in the
+      JAX layout.
     """
     dec = params["decoder"]
     if dec["wq"].dtype == torch.int8:
@@ -125,14 +108,14 @@ def prepare_depth_chain(params: dict[str, Any], cfg: LLMConfig,
     xla: dict[str, Any] = {}
     for k, v in dec.items():
         if k in _MATMUL:
-            xla[k], xla[k + "_scale"] = _quant8(v)
+            xla[k], xla[k + "_scale"] = quantize_int8(v)
         elif k in _MLP and p[k] == "r4":
-            q, s4 = _quant4(v, group)
+            q, s4 = quantize_int4(v, group, v.shape[1] // 2)
             s4 = s4.to(dtype)
             xla[k], xla[k + "_scale4"] = q, s4
             bundle[k], bundle[k + "_s4"] = _om(q), _om(s4.to(torch.float32))
         elif k in _MLP:
-            q, s = _quant8(v)
+            q, s = quantize_int8(v)
             xla[k], xla[k + "_scale"] = q, s
             bundle[k], bundle[k + "_s"] = _om(q), s[:, 0].contiguous()
         else:
@@ -157,20 +140,21 @@ def prepare_depth_chain(params: dict[str, Any], cfg: LLMConfig,
         / dcfg.head_dim))
     ang = torch.arange(ncb, dtype=torch.float32, device=dev)[:, None] * inv
     bundle["rope_cos"], bundle["rope_sin"] = torch.cos(ang), torch.sin(ang)
-    bundle["xla_decoder"] = xla
+    if with_decoder:
+        bundle["xla_decoder"] = xla
     return bundle
 
 
 def enable_fused_depth(params: dict[str, Any], cfg: LLMConfig
                        ) -> dict[str, Any]:
     """Serving transform: install the bundle for ``cfg.fused_depth_plan``
-    as ``depth_chain`` and swap the decoder for its quantised tree."""
+    as ``depth_chain`` in place of the decoder, which the fused path never
+    reads (the JAX package keeps a quantised decoder beside the bundle for
+    its XLA fallback; the port has none)."""
     if not cfg.fused_depth_plan:
         raise ValueError("set LLMConfig.fused_depth_plan first")
-    bundle = prepare_depth_chain(params, cfg, cfg.fused_depth_plan)
-    out = dict(params)
-    out["decoder"] = bundle.pop("xla_decoder")
-    out["depth_chain"] = bundle
+    out = {k: v for k, v in params.items() if k != "decoder"}
+    out["depth_chain"] = prepare_depth_chain(params, cfg, cfg.fused_depth_plan)
     return out
 
 
@@ -203,15 +187,6 @@ def _dot_s8(xq: torch.Tensor, w_om: torch.Tensor) -> torch.Tensor:
     return (xq @ w_om.to(torch.float64).T).to(torch.float32)
 
 
-def _deq4(packed_om: torch.Tensor, s4_om: torch.Tensor, dtype) -> torch.Tensor:
-    """(O, K/2) packed + (O, K/g) scales -> (O, K) weights, q * scale in
-    fp32 rounded to dtype (pallas_depth.py:_unpack4_rows)."""
-    p = packed_om.to(torch.int16)
-    q = torch.cat([((p & 15) ^ 8) - 8, p >> 4], dim=-1).to(torch.float32)
-    g = q.shape[-1] // s4_om.shape[-1]
-    return (q * s4_om.to(torch.float32).repeat_interleave(g, dim=-1)).to(dtype)
-
-
 def fused_depth_decode_plain(bundle: dict[str, Any], cfg: LLMConfig,
                              last_h: torch.Tensor, c0: torch.Tensor,
                              noise: torch.Tensor, depth_topk: int = 10,
@@ -233,25 +208,26 @@ def fused_depth_decode_plain(bundle: dict[str, Any], cfg: LLMConfig,
     B = last_h.shape[0]
     dtype, dev = last_h.dtype, last_h.device
     p_modes = parse_plan(plan)
-    bd = {k: v for k, v in bundle.items() if k != "xla_decoder"}
+
+    def deq4(name: str, l: int) -> torch.Tensor:
+        """q * scale in fp32 rounded to dtype (pallas_depth.py:_unpack4_rows)."""
+        return unpack_int4(bundle[name][l], bundle[name + "_s4"][l],
+                           axis=-1).to(dtype)
 
     def mlp_in(name: str, x2: torch.Tensor, l: int) -> torch.Tensor:
         mode = p_modes[name]
         if mode == "r4":
-            return _dot(x2, _deq4(bd[name][l], bd[name + "_s4"][l], dtype)).to(dtype)
+            return _dot(x2, deq4(name, l)).to(dtype)
         if mode in ("r8a8", "s8a8"):
             xq, xs = _quant_act(x2)
-            y = (_dot_s8(xq, bd[name][l]) * xs).to(dtype)
+            y = (_dot_s8(xq, bundle[name][l]) * xs).to(dtype)
         else:
-            y = _dot(x2, bd[name][l]).to(dtype)
-        return y * bd[name + "_s"][l].to(dtype)
+            y = _dot(x2, bundle[name][l]).to(dtype)
+        return y * bundle[name + "_s"][l].to(dtype)
 
     def mlp_down(t: torch.Tensor, l: int) -> torch.Tensor:
         mode = p_modes["w_down"]
-        if mode == "r4":
-            w = _deq4(bd["w_down"][l], bd["w_down_s4"][l], dtype)
-        else:
-            w = bd["w_down"][l]
+        w = deq4("w_down", l) if mode == "r4" else bundle["w_down"][l]
         acc = torch.zeros((B, w.shape[0]), dtype=torch.float32, device=dev)
         for half in range(2):
             th, wh = t[:, half * Ih:(half + 1) * Ih], w[:, half * Ih:(half + 1) * Ih]
@@ -262,12 +238,12 @@ def fused_depth_decode_plain(bundle: dict[str, Any], cfg: LLMConfig,
                 acc = acc + _dot(th, wh)
         d = acc.to(dtype)
         if mode != "r4":
-            d = d * bd["w_down_s"][l].to(dtype)
+            d = d * bundle["w_down_s"][l].to(dtype)
         return d
 
     def mm8(x: torch.Tensor, name: str, l: int) -> torch.Tensor:
-        y = _dot(x, bd[name][l]).to(dtype)
-        return y * bd[name + "_s"][l].to(dtype)
+        y = _dot(x, bundle[name][l]).to(dtype)
+        return y * bundle[name + "_s"][l].to(dtype)
 
     def rope(x: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.float32)
@@ -285,12 +261,12 @@ def fused_depth_decode_plain(bundle: dict[str, Any], cfg: LLMConfig,
         if p == 0:
             src = last_h
         else:
-            src = bd["emb_rows"][prev.clamp(0, V - 1) + (p - 1) * V]
-        h = _dot(src.to(dtype), bd["proj_t"]).to(dtype)
-        c, s = bd["rope_cos"][p], bd["rope_sin"][p]
+            src = bundle["emb_rows"][prev.clamp(0, V - 1) + (p - 1) * V]
+        h = _dot(src.to(dtype), bundle["proj_t"]).to(dtype)
+        c, s = bundle["rope_cos"][p], bundle["rope_sin"][p]
         for l in range(L):
-            x = _rms(h, bd["attn_norm"][l], eps)
-            qkv = mm8(x, "wqkv", l) + bd["bqkv"][l].to(dtype)
+            x = _rms(h, bundle["attn_norm"][l], eps)
+            qkv = mm8(x, "wqkv", l) + bundle["bqkv"][l].to(dtype)
             q = rope(qkv[:, :Wq].reshape(B, Hq, Dh), c, s)
             k = rope(qkv[:, Wq:Wq + Wkv].reshape(B, Hkv, Dh), c, s)
             k_store[l, :, p] = k
@@ -303,14 +279,14 @@ def fused_depth_decode_plain(bundle: dict[str, Any], cfg: LLMConfig,
             o = torch.einsum("bhgt,bthd->bhgd", probs.to(torch.float32),
                              v_store[l, :, : p + 1].to(torch.float32))
             h = h + mm8(o.to(dtype).reshape(B, Wq), "wo", l).to(dtype)
-            x2 = _rms(h, bd["mlp_norm"][l], eps)
+            x2 = _rms(h, bundle["mlp_norm"][l], eps)
             g_act = torch.nn.functional.silu(
                 mlp_in("w_gate", x2, l).to(torch.float32)).to(dtype)
             h = h + mlp_down(g_act * mlp_in("w_up", x2, l), l)
         if p == 0:
             continue
-        hh = _rms(h, bd["final_norm"], eps)
-        logits = _dot(hh, bd["head_t"][p - 1])
+        hh = _rms(h, bundle["final_norm"], eps)
+        logits = _dot(hh, bundle["head_t"][p - 1])
         logits_all[:, p] = logits
         if greedy:
             tok = torch.argmax(logits, dim=-1)
@@ -466,7 +442,6 @@ def fused_depth_decode(bundle: dict[str, Any], cfg: LLMConfig,
                          f"that are multiples of 32 and <= 16 codebooks, got "
                          f"Dh={Dh}, Db={Db}, Dd={Dd}, I={I}, ncb={ncb}")
     modes = parse_plan(plan)
-    bd = {k: v for k, v in bundle.items() if k != "xla_decoder"}
     last_h, noise = last_h.contiguous(), noise.contiguous()
     _check("last_h", last_h, dev, bf, (B, Db))
     c0 = c0.to(torch.int32).contiguous()
@@ -483,28 +458,28 @@ def fused_depth_decode(bundle: dict[str, Any], cfg: LLMConfig,
             ("bqkv", bf, (L, Wqkv)), ("wqkv", i8, (L, Wqkv, Dd)),
             ("wqkv_s", f32, (L, Wqkv)), ("wo", i8, (L, Dd, Hq * Dh)),
             ("wo_s", f32, (L, Dd))):
-        _check(name, bd[name], dev, dt, shape)
+        _check(name, bundle[name], dev, dt, shape)
     groups = {}
     for m, (O, K) in (("w_gate", (I, Dd)), ("w_up", (I, Dd)), ("w_down", (Dd, I))):
         if modes[m] == "r4":
-            ng = bd[m + "_s4"].shape[-1]
+            ng = bundle[m + "_s4"].shape[-1]
             groups[m] = K // ng
             if groups[m] % 16 or K % groups[m]:
                 raise ValueError(f"fused_depth_decode: {m} int4 group "
                                  f"{groups[m]} must be a multiple of 16")
-            _check(m, bd[m], dev, i8, (L, O, K // 2))
-            _check(m + "_s4", bd[m + "_s4"], dev, f32, (L, O, ng))
+            _check(m, bundle[m], dev, i8, (L, O, K // 2))
+            _check(m + "_s4", bundle[m + "_s4"], dev, f32, (L, O, ng))
         else:
             groups[m] = 0
-            _check(m, bd[m], dev, i8, (L, O, K))
-            _check(m + "_s", bd[m + "_s"], dev, f32, (L, O))
+            _check(m, bundle[m], dev, i8, (L, O, K))
+            _check(m + "_s", bundle[m + "_s"], dev, f32, (L, O))
     parts, logit_parts = [], []
     for i in range(0, B, _BMAX):
         sl = slice(i, min(B, i + _BMAX))
         lo = (torch.zeros((sl.stop - i, ncb, V), dtype=f32, device=dev)
               if return_logits else None)
         parts.append(_launch(
-            bd, cfg, modes, groups, last_h[sl], c0[sl], noise[sl],
+            bundle, cfg, modes, groups, last_h[sl], c0[sl], noise[sl],
             None if forced is None else forced[sl], depth_topk,
             depth_temperature, greedy, lo))
         logit_parts.append(lo)

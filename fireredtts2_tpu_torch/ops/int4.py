@@ -30,25 +30,25 @@ from fireredtts2_tpu_torch.ops import cuda_build
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def unpack_int4(packed: torch.Tensor, scales: torch.Tensor, dtype
+def unpack_int4(packed: torch.Tensor, scales: torch.Tensor, axis: int = -2
                 ) -> torch.Tensor:
-    """(I/2, O) packed + (I/g, O) scales -> (I, O) dequantised, the
-    product q * scale taken in `dtype` (transformer.py: _unpack_int4)."""
+    """Halves-packed int4 -> float32 weights q * scale. `axis` is the input
+    axis: -2 for the JAX layout ((I/2, O) packed, (I/g, O) scales ->
+    (I, O); transformer.py: _unpack_int4 in float32), -1 for the
+    output-major one ((O, I/2), (O, I/g) -> (O, I))."""
     p = packed.to(torch.int16)
     lo = ((p & 15) ^ 8) - 8                  # rows [0, I/2)
     hi = p >> 4                              # rows [I/2, I), arithmetic
-    q = torch.cat([lo, hi], dim=0)
-    n = scales.shape[0]
-    w = q.to(dtype).reshape(n, q.shape[0] // n, -1) * scales[:, None, :].to(dtype)
-    return w.reshape(q.shape[0], -1)
+    q = torch.cat([lo, hi], dim=axis).to(torch.float32)
+    g = q.shape[axis] // scales.shape[axis]
+    return q * scales.to(torch.float32).repeat_interleave(g, dim=axis)
 
 
 def int4_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
                       scales: torch.Tensor) -> torch.Tensor:
     """Kernel E's plain version: the weights dequantised in fp32 and
     rounded to bf16, x rounded to bf16, an fp32 product, out in x.dtype."""
-    w = unpack_int4(packed, scales.to(torch.float32), torch.float32)
-    w = w.to(torch.bfloat16).to(torch.float32)
+    w = unpack_int4(packed, scales).to(torch.bfloat16).to(torch.float32)
     xb = x.to(torch.bfloat16).to(torch.float32)
     return (xb @ w).to(x.dtype)
 

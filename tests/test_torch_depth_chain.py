@@ -102,15 +102,20 @@ def _jax_layout(name: str, t: torch.Tensor, mode: str) -> np.ndarray:
 def test_bundle_matches_jax_bit_for_bit(setup, plan):
     """A JAX enable_fused_depth tree, bridged by from_jax (int8 leaves and
     the bundle's), holds the same quantised values as the port's own
-    enable_fused_depth of the same raw parameters."""
+    prepare_depth_chain of the same raw parameters: its bundle, and the
+    quantised decoder it returns when asked. The port's serving tree holds
+    the bundle and no decoder."""
     _, _, params, tparams, _, _ = setup
     jcfg, tcfg = _cfgs(plan)
     jtree = from_jax(jpd.enable_fused_depth(dict(params), jcfg))
     ttree = tdc.enable_fused_depth(dict(tparams), tcfg)
-    assert sorted(jtree["decoder"]) == sorted(ttree["decoder"])
+    assert "decoder" not in ttree and "xla_decoder" not in ttree["depth_chain"]
+    tdec = tdc.prepare_depth_chain(tparams, tcfg, plan,
+                                   with_decoder=True)["xla_decoder"]
+    assert sorted(jtree["decoder"]) == sorted(tdec)
     for k, v in jtree["decoder"].items():
-        assert v.dtype == ttree["decoder"][k].dtype, k
-        assert torch.equal(v, ttree["decoder"][k]), k
+        assert v.dtype == tdec[k].dtype, k
+        assert torch.equal(v, tdec[k]), k
     jb, tb = jtree["depth_chain"], ttree["depth_chain"]
     modes = tdc.parse_plan(plan)
     names = ["wqkv", "wqkv_s", "wo", "wo_s"]
@@ -197,7 +202,7 @@ def test_plain_equals_port_depth_loop_on_quantised_tree(setup, plan):
     int4 matmuls take kernel E's bf16 rounding, which the chain's r4 mode
     does not take at float32.)"""
     _, tcfg, _, tparams, last_h, c0 = setup
-    bundle = tdc.prepare_depth_chain(tparams, tcfg, plan)
+    bundle = tdc.prepare_depth_chain(tparams, tcfg, plan, with_decoder=True)
     noise = _depth_noise(jax.random.PRNGKey(5), 3, tcfg.audio_num_codebooks,
                          tcfg.audio_vocab_size)
     loop = tmodel._depth_decode(dict(tparams, decoder=bundle["xla_decoder"]),

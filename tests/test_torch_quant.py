@@ -31,6 +31,7 @@ from fireredtts2_tpu_torch.models.codec import whisper_nn as twn
 from fireredtts2_tpu_torch.models.lm import transformer as ttr
 from fireredtts2_tpu_torch.ops import flash_decode as tfd
 from fireredtts2_tpu_torch.ops import int4 as ti4
+from fireredtts2_tpu_torch.ops.quant import quantized_matmul
 from fireredtts2_tpu_torch.weights import from_jax, init_random
 
 from _torch_parity import to_t, wave_close
@@ -68,7 +69,7 @@ def test_quantizers_match_jax_bit_for_bit(stacks, which):
 @pytest.mark.parametrize("M", [1, 5])
 def test_int4_matmul_plain_matches_jax_kernel(stacks, rng, M):
     """Kernel E's plain version vs the Pallas kernel (interpret mode) on a
-    real quantised matrix (I = 192, O = 64, group 64), and the int4 _mm
+    real quantised matrix (I = 192, O = 64, group 64), and the int4 matmul
     route with the output-major layout gives the same values."""
     tree, _ = stacks
     q = jtr.quantize_transformer_int4(tree)
@@ -81,7 +82,7 @@ def test_int4_matmul_plain_matches_jax_kernel(stacks, rng, M):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * peak)
     lp = ti4.prepare_int4_layout({"w": tp, "w_scale4": ts})
     assert lp["w_t4"].shape == (64, 96) and lp["w_s4t"].shape == (64, 3)
-    assert torch.equal(ttr._mm(to_t(x), lp, "w"), got)
+    assert torch.equal(quantized_matmul(to_t(x), lp, "w"), got)
     assert ti4.int4_matmul.launches == 0                # CPU: plain version
 
 
@@ -102,13 +103,14 @@ def test_kernel_f_plain_matches_jax(rng):
     assert tfd.pallas_decode_attention.launches == 0
 
 
-def _engines(**llm):
+def _engines(codec=None, **llm):
     """A JAX engine and a port engine with the same raw parameters, float32,
-    greedy depth chain, with the given LLM config overrides."""
+    greedy depth chain, with the given codec and LLM config overrides."""
     def cfg(make):
         c = make(depth_topk=1)
-        return dataclasses.replace(c, llm=dataclasses.replace(
-            c.llm, dtype="float32", **llm))
+        return dataclasses.replace(
+            c, llm=dataclasses.replace(c.llm, dtype="float32", **llm),
+            codec=dataclasses.replace(c.codec, **(codec or {})))
     jcfg, tcfg = cfg(j_tiny), cfg(t_tiny)
     k1, k2 = jax.random.split(jax.random.PRNGKey(4))
     jeng = JEngine(config=jcfg, seed=4)
@@ -135,18 +137,21 @@ def test_int4_depth_engine_matches_jax_engine(monkeypatch):
 
 
 def test_int8_vocoder_stream_equals_batch():
-    """quantize_vocoder: int8 vocoder matmuls; streaming chunks still
-    concatenate to the whole-utterance audio for one seed."""
-    cfg = t_tiny()
-    cfg = dataclasses.replace(cfg, codec=dataclasses.replace(
-        cfg.codec, quantize_vocoder=True))
-    eng = TEngine(cfg, seed=2, device="cpu")
-    assert eng.codec_params["acoustic_decoder"]["layers"]["wq"].dtype == torch.int8
-    a = eng.generate("Vocoder in int8.", "[S1]", max_audio_length_ms=960,
-                     utt_seed=8)
-    s = np.concatenate(list(eng.generate_stream(
-        "Vocoder in int8.", "[S1]", max_audio_length_ms=960, utt_seed=8)))
-    assert a.shape == s.shape and np.isfinite(a).all()
+    """quantize_vocoder: the int8 vocoder's audio equals the JAX engine's
+    with quantize_vocoder (greedy, same raw parameters), and the port's
+    streaming chunks concatenate to its whole-utterance audio."""
+    jeng, teng = _engines(codec={"quantize_vocoder": True})
+    layers = teng.codec_params["acoustic_decoder"]["layers"]
+    assert layers["wq"].dtype == torch.int8 and "fc2_w_scale" in layers
+    want = jeng.generate("Vocoder in int8.", "[S1]", [], max_audio_length_ms=480,
+                         temperature=1.0, topk=1)
+    a = teng.generate("Vocoder in int8.", "[S1]", max_audio_length_ms=480,
+                      temperature=1.0, topk=1, utt_seed=8)
+    assert a.shape == want.shape == (6 * 1920,)
+    wave_close(a, want, "int8 vocoder greedy audio")
+    s = np.concatenate(list(teng.generate_stream(
+        "Vocoder in int8.", "[S1]", max_audio_length_ms=480, temperature=1.0,
+        topk=1, utt_seed=8)))
     wave_close(s, a, "int8 vocoder stream vs batch")
 
 
