@@ -27,6 +27,17 @@ Phases (any failure exits non-zero and prints no result line):
    weights and a bf16 torch.matmul on the dequantised weight;
 7. kernel F (pallas_decode_attention, on kernel A's code) over unmerged
    slabs with left-padded windows;
+7b. kernel P (the GEMV probes, csrc/gemv_probe.cu) against its plain
+   version in every mode (bf16, int8, int4, s8s8, s8s8q), load path (direct,
+   staged) and M tile (5, 16, 32); then the probes P1-P4 at the JAX tools'
+   sizes through fireredtts2_tpu_torch/tools/: the L2-residency sweep (8 to
+   120 MB, warm and cold), int8 and int4 reuse, int8 streamed direct and
+   staged, bf16 / int8 / s8s8 at D = 896 and 1536, kernel B's MLP schedule
+   in four modes at M = 8, 16, 32, the grid barrier's cost (slope over 19,
+   304, 3040 barriers) and an empty cooperative launch; kernel B built with
+   FRT_ABL=0 must equal the serving build bit for bit (samples and logits),
+   and every ablation build (half, tiny, noload, noattn, nosample, nosync)
+   is timed at B = 1 and 8. One line {"probes": ...} carries the numbers;
 8. a small-width model through the kernels on the card against the same
    weights on the CPU in float32 (LM layers and the streaming vocoder);
 9. the main paths at flagship width with random weights, each run with
@@ -44,13 +55,19 @@ each output written once) over 3.35 TB/s and its operations over the bf16
 (or int8) peak of the card's data sheet. `library_ms` times one PyTorch
 call computing the same function where there is one, and the port never
 calls it: F.scaled_dot_product_attention over the same window with a mask
-for A, C, D and F, torch._weight_int4pack_mm for E.
+for A, C, D and F, torch._weight_int4pack_mm for E; for the probes, one
+call per matrix and step summed (torch.matmul, torch._weight_int8pack_mm,
+torch._weight_int4pack_mm, torch._int_mm), or null with the reason.
 
 Tolerance of a kernel against its plain version (bf16 in, bf16 out, fp32
 inside both): |kernel - plain| <= 1e-2 + 2e-2 * |plain| elementwise. Both
 round their output to bf16 (one ulp is 2^-8 relative) and round the
 softmax probabilities to bf16 at different points (the kernel per KV
 split or tile before normalising, the plain version after).
+
+Kernel P's sum form (an fp32 sum over steps, matrices and outputs, with
+atomics across blocks) must lie within 1e-4 of the sum of |y|; its y form
+within the tolerance above.
 
 Kernel times are taken in turns (plain, kernel, kernel, plain) in this one
 process after warm-up: the device time of the CUDA kernels a call
@@ -73,6 +90,7 @@ import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -83,6 +101,7 @@ import numpy as np
 ATOL, RTOL = 1e-2, 2e-2          # kernel vs plain, bf16 (see the docstring)
 REF_TOL = 0.1                    # small model on the card vs CPU fp32, of peak
 B_TOL = 5e-2                     # kernel B logits vs plain, of the plain peak
+P_SUM_TOL = 1e-4                 # kernel P's sum form, of the sum of |y|
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 PRESET = "gate=r8,up=s8,down=s8"
@@ -424,29 +443,10 @@ def check_kernel_d(dev, T, H, Dh, reps=30, timed=True):
 
 def depth_bundle(dev, plan: str, seed: int = 0):
     """Kernel B's bundle at the flagship depth decoder (qwen-200m, 16
-    codebooks of 2051, backbone width 1536) from random bf16 weights: the
-    decoder, projection, audio embeddings and audio head, drawn on `dev`."""
-    import torch
-    from fireredtts2_tpu_torch.config import LLMConfig
-    from fireredtts2_tpu_torch.models.lm.transformer import init_transformer_params
-    from fireredtts2_tpu_torch.ops import depth_chain as dc
-
-    cfg = LLMConfig(fused_depth_plan=plan)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    Db, Dd = cfg.backbone.embed_dim, cfg.decoder.embed_dim
-    ncb, V = cfg.audio_num_codebooks, cfg.audio_vocab_size
-
-    def uni(*shape, fan_in):
-        u = torch.rand(shape, generator=gen, device=dev)
-        return ((u * 2 - 1) / fan_in ** 0.5).to(torch.bfloat16)
-
-    params = {
-        "decoder": init_transformer_params(gen, cfg.decoder, torch.bfloat16, dev),
-        "projection": uni(Db, Dd, fan_in=Db),
-        "audio_embeddings": _rnd(gen, ncb * V, Db) * 0.02,
-        "audio_head": uni(ncb - 1, Dd, V, fan_in=Dd),
-    }
-    return cfg, dc.prepare_depth_chain(params, cfg, plan), gen
+    codebooks of 2051, backbone width 1536) from random bf16 weights drawn
+    on `dev`: (cfg, bundle, generator)."""
+    from fireredtts2_tpu_torch.tools.ablate_depth import random_depth_bundle
+    return random_depth_bundle(dev, plan, seed)
 
 
 def depth_bytes_ops(bundle, cfg, B: int, plan: str) -> tuple[float, float, str]:
@@ -661,6 +661,215 @@ def check_kernel_f(dev, T=4096, Hkv=2, G=6, Dh=128, reps=50, timed=True,
     return results, launches
 
 
+def check_kernel_p(dev, ms=(5, 16, 32), K=256):
+    """Kernel P (the GEMV probes) against gemv_probe_plain in every mode,
+    load path and M tile, at a small size: two matrices on one input and a
+    third on another, 3 steps, in the sum form with a barrier after each
+    matrix, and one step in the y form. Tolerance: the y form as every
+    kernel (1e-2 + 2e-2 x |plain|: both round an fp32 sum to bf16); the sum
+    form within P_SUM_TOL x the sum of |y| (fp32 sums in other orders, and
+    across blocks by atomics)."""
+    import torch
+    from fireredtts2_tpu_torch.ops import gemv_probe as gp
+    from fireredtts2_tpu_torch.tools._common import rand_weights
+
+    results = []
+    for mode in gp.MODES:
+        wmode = "int8" if mode.startswith("s8") else mode
+        for M in ms:
+            gen = torch.Generator(device=dev).manual_seed(M)
+            x = [(torch.randn((M, k), generator=gen, device=dev) * 0.01
+                  ).to(torch.bfloat16) for k in (K, 2 * K)]
+            mats = [rand_weights(wmode, 96, K, gen), rand_weights(wmode, 40, K, gen),
+                    rand_weights(wmode, 72, 2 * K, gen)._replace(x=1)]
+            ys = gp.probe_products(mats, x, mode)
+            scale = 3 * sum(float(y.abs().sum(dim=1).max()) for y in ys)
+            ref_sum = gp.gemv_probe_plain(mats, x, mode, steps=3)
+            ref_y = gp.gemv_probe_plain(mats, x, mode, form="y")
+            for load in gp.LOADS:
+                got = gp.gemv_probe(mats, x, mode, steps=3, sync="matrix",
+                                    load=load, qgroup=2)
+                got_y = gp.gemv_probe(mats, x, mode, form="y", sync="step",
+                                      load=load, qgroup=2)
+                err_sum = float((got - ref_sum).abs().max())
+                err_y, ok_y = _compare(got_y, ref_y)
+                ok = (ok_y and bool(torch.isfinite(got).all())
+                      and err_sum <= P_SUM_TOL * scale)
+                results.append(dict(mode=mode, load=load, M=M, max_abs_err=err_y,
+                                    sum_err=err_sum, sum_scale=scale, ok=ok))
+    return results
+
+
+def probe_library_ms(spec):
+    """(ms, call, reason) of PyTorch library calls computing the products
+    of one probe call: one call per matrix per step, summed (the probe's
+    sum over outputs is not counted). bf16: torch.matmul; int8:
+    torch._weight_int8pack_mm with unit scales; int4:
+    torch._weight_int4pack_mm; s8s8: torch._int_mm, which takes M > 16
+    only. ms is None, with the reason, where the call is refused."""
+    import torch
+    from fireredtts2_tpu_torch.ops import gemv_probe as gp
+    from fireredtts2_tpu_torch.tools._common import library_call_ms
+
+    mode, x0 = spec.mode, spec.xs[0]
+    M = x0.shape[0]
+    if mode in ("s8s8", "s8s8q") and M <= 16:
+        return None, "torch._int_mm", "torch._int_mm takes M > 16 rows only"
+    times: dict = {}
+    for m in spec.mats:
+        key = (m.w.data_ptr(), m.x)
+        if key in times:
+            continue
+        x = spec.xs[m.x]
+        if mode == "bf16":
+            name, fn = "torch.matmul", (lambda x=x, w=m.w: torch.matmul(x, w.T))
+        elif mode == "int8":
+            ones = torch.ones(m.w.shape[0], dtype=torch.bfloat16, device=x.device)
+            name = "torch._weight_int8pack_mm"
+            fn = (lambda x=x, w=m.w, s=ones: torch._weight_int8pack_mm(x, w, s))
+        elif mode == "int4":
+            name = "torch._weight_int4pack_mm"
+            lib = int4pack_weights(m.w.T.contiguous(), m.scales.T.contiguous())
+            if lib is None:
+                return None, name, "torch._convert_weight_to_int4pack refused"
+            fn = (lambda x=x, lib=lib: torch._weight_int4pack_mm(x, *lib))
+        else:
+            name = "torch._int_mm"
+            xq = gp.quantize_rows(x)[0].to(torch.int8)
+            fn = (lambda xq=xq, w=m.w: torch._int_mm(xq, w.T))
+        ms, why = library_call_ms(fn)
+        if ms is None:
+            return None, name, why
+        times[key] = ms
+    per_step = sum(times[(m.w.data_ptr(), m.x)] for m in spec.mats)
+    return per_step * spec.steps, name, None
+
+
+def probe_row(spec, load="direct", timed_plain=False, library=False):
+    """Kernel P's time for one probe (and its plain version's, and the
+    library calls', when asked) with its bound and streamed floor."""
+    from fireredtts2_tpu_torch.tools._common import measure
+    r = measure(spec, load=load)
+    nbytes, ops = spec.io_bytes(), spec.ops()
+    r["bound_ms"], r["bound_by"] = bound_ms(
+        nbytes, ops, "int8" if spec.mode.startswith("s8") else "bf16")
+    r["streamed_floor_ms"] = spec.streamed_floor_ms()
+    if timed_plain:
+        r["plain_ms"] = queued_ms(spec.plain, 3, 1)
+    if library:
+        r["library_ms"], r["library_call"], r["library_note"] = \
+            probe_library_ms(spec)
+    return r
+
+
+def run_probes(dev, card: str) -> dict:
+    """The probes P1-P4 at the JAX tools' sizes (kernel P) and kernel B's
+    ablation builds (P2, P4b); every number is printed with the card."""
+    from fireredtts2_tpu_torch.ops.gemv_probe import ProbeCall, grid_blocks
+    from fireredtts2_tpu_torch.tools import ablate_depth as ad
+    from fireredtts2_tpu_torch.tools import probe_depth_kernel as p1
+    from fireredtts2_tpu_torch.tools import probe_dequant as p3
+    from fireredtts2_tpu_torch.tools import probe_s8_chunked as p4
+    from fireredtts2_tpu_torch.tools._common import host_ms
+
+    out: dict = {}
+    # P1: residency in L2, reuse, streaming (probe_depth_kernel.py)
+    out["p1_capacity"] = p1.probe_vmem_capacity(dev)
+    out["p1_int8_reuse"] = {mb: probe_row(p1.reuse_spec("int8", mb, dev),
+                                          timed_plain=mb == 64, library=True)
+                            for mb in (32, 64, 96)}
+    out["p1_int4_reuse"] = {mb: probe_row(p1.reuse_spec("int4", mb, dev),
+                                          library=True) for mb in (24, 48, 80)}
+    out["p1_streamed"] = {mb: {ld: probe_row(p1.reuse_spec("int8", mb, dev), ld)
+                               for ld in ("direct", "staged")} for mb in (64, 110)}
+    for key in ("p1_int8_reuse", "p1_int4_reuse"):
+        for mb, r in out[key].items():
+            log(f"P1 {r['mode']} reuse {mb} MB x {r['steps']}: {r['ms']:.4f} ms "
+                f"({r['gb_per_s']:.1f} GB/s), library {r['library_call']} "
+                f"{r['library_ms']} ({r['library_note']})  [{card}]")
+    for mb, rr in out["p1_streamed"].items():
+        log(f"P1 int8 streamed {mb} MB x 15: direct {rr['direct']['ms']:.4f} ms "
+            f"({rr['direct']['gb_per_s']:.1f} GB/s), staged "
+            f"{rr['staged']['ms']:.4f} ms ({rr['staged']['gb_per_s']:.1f} GB/s)  "
+            f"[{card}]")
+    # P3: bf16 vs int8 convert+dot vs s8s8 (probe_dequant.py), D = 896, 1536
+    out["p3"] = {}
+    for d in (p3.D, 1536):
+        for mode in ("bf16", "int8", "s8s8"):
+            stored = 2 * p3.MB if mode == "bf16" else p3.MB
+            r = probe_row(p1.reuse_spec(mode, stored, dev, p3.STEPS, K=d),
+                          timed_plain=(d, mode) == (p3.D, "int8"), library=True)
+            r["gb_per_s_eq"] = r["gb_per_s"] * p3.MB / stored
+            out["p3"][f"{mode} D={d}"] = r
+            log(f"P3 {mode} D={d} {p3.MB} MB-eq x {p3.STEPS}: {r['ms']:.4f} ms, "
+                f"{r['gb_per_s_eq']:.1f} GB/s-eq, library {r['library_call']} "
+                f"{r['library_ms']} ({r['library_note']})  [{card}]")
+    # P4a: kernel B's MLP schedule by mode and rows (probe_s8_chunked.py)
+    out["p4a"] = {}
+    elems = p4.elements_per_step()
+    for m in (8, 16, 32):
+        for mode in p4.MODES:
+            r = probe_row(p4.schedule(mode, m, dev),
+                          timed_plain=(mode, m) == ("s8s8", 32), library=True)
+            r["g_elem_per_s"] = elems / (r["per_step_ms"] * 1e-3) / 1e9
+            out["p4a"][f"{mode} M={m}"] = r
+            log(f"P4a {mode} M={m}: {r['per_step_ms']:.4f} ms/step "
+                f"({r['g_elem_per_s']:.1f} G elem/s), x staged {r['x_staged']}, "
+                f"library {r['library_call']} {r['library_ms']} "
+                f"({r['library_note']})  [{card}]")
+    # the grid barrier and the cooperative launch
+    bar = {}
+    for n in (19, 304, 3040):
+        call = ProbeCall([], [], "int8", steps=n, sync="step")
+        bar[n] = queued_ms(lambda: call.launch(zero=False), 10)
+    empty = ProbeCall([], [], "int8", steps=0)
+    out["barrier"] = dict(
+        grid_blocks=grid_blocks(), ms=bar,
+        us_per_barrier=(bar[3040] - bar[19]) / (3040 - 19) * 1e3,
+        empty_launch_host_ms=host_ms(lambda: empty.launch(zero=False), 50),
+        empty_launch_device_ms=queued_ms(lambda: empty.launch(zero=False), 50))
+    b = out["barrier"]
+    log(f"barrier: {b['us_per_barrier']:.3f} us per grid_sync at "
+        f"{b['grid_blocks']} blocks ({bar}); empty cooperative launch: host "
+        f"{b['empty_launch_host_ms'] * 1e3:.2f} us, device "
+        f"{b['empty_launch_device_ms'] * 1e3:.2f} us  [{card}]")
+    # P2 / P4b: kernel B's ablation builds, preset plan
+    cfg, bundle, gen = ad.random_depth_bundle(dev)
+    out["abl0"] = {B: ad.abl0_matches_serving(bundle, cfg, ad.frame_inputs(cfg, B, gen))
+                   for B in (1, 8)}
+    log(f"kernel B built with FRT_ABL=0 vs the serving build (bit for bit): "
+        f"{out['abl0']}")
+    out["ablation"] = {}
+    for B in (1, 8):
+        res = out["ablation"][B] = ad.time_variants(bundle, cfg, B, gen)
+        for name, r in res.items():
+            log(f"P2 kernel B ABL={name} B={B}: {r['ms']:.4f} ms/frame (change "
+                f"{r['delta_ms']:+.4f}), host issue {r['host_ms']:.4f} ms  [{card}]")
+    del bundle
+    out["ok"] = (all(v for c in out["abl0"].values() for v in c.values())
+                 and all(math.isfinite(r["ms"]) for res in out["ablation"].values()
+                         for r in res.values()))
+    return out
+
+
+def probe_summary(probes: dict) -> dict:
+    """The probes line: each probe's numbers, floats to 5 significant
+    digits, without the labels its key repeats (every value is in
+    chiprun_out/chip_smoke.json)."""
+    drop = ("name", "mode", "load", "sync", "cold", "M", "steps", "weight_mb",
+            "library_call", "bound_by", "bits", "ok")
+
+    def rnd(v):
+        if isinstance(v, dict):
+            return {str(k): rnd(x) for k, x in v.items() if k not in drop}
+        if isinstance(v, list):
+            return [rnd(x) for x in v]
+        if isinstance(v, float):
+            return float(f"{v:.5g}")
+        return v
+    return rnd(probes)
+
+
 def check_small_model(dev):
     """Small widths the kernels take (LM Dh=128, vocoder Dh=64): bf16 on
     `dev` through the kernels vs the same (bf16-rounded) weights in fp32 on
@@ -773,9 +982,11 @@ def reset_counts() -> None:
     from fireredtts2_tpu_torch.ops import depth_chain as dc
     from fireredtts2_tpu_torch.ops import flash_decode as fd
     from fireredtts2_tpu_torch.ops import int4 as i4
+    from fireredtts2_tpu_torch.ops import gemv_probe as gp
     fd.reset_launch_counts()
     dc.fused_depth_decode.launches = 0
     i4.int4_matmul.launches = 0
+    gp.gemv_probe.launches = 0
 
 
 def read_counts() -> dict:
@@ -784,7 +995,9 @@ def read_counts() -> dict:
     from fireredtts2_tpu_torch.ops import int4 as i4
     counts = fd.launch_counts()
     counts["fused_depth_decode"] = dc.fused_depth_decode.launches
+    from fireredtts2_tpu_torch.ops import gemv_probe as gp
     counts["int4_matmul"] = i4.int4_matmul.launches
+    counts["gemv_probe"] = gp.gemv_probe.launches
     return counts
 
 
@@ -922,14 +1135,23 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    libs = cuda_build.build()
+    from fireredtts2_tpu_torch.tools.ablate_depth import build_jobs
+    default = sorted(p.stem for p in cuda_build.CSRC_DIR.glob("*.cu"))
+    libs = cuda_build.build(default + build_jobs())
     build_s = time.perf_counter() - t0
     log(f"build: {len(libs)} kernel libraries in {build_s:.1f} s "
         f"({', '.join(sorted(libs))})")
     for name, text in cuda_build.build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        lines = [ln.strip() for ln in text.splitlines()
+                 if "registers" in ln or "spill" in ln or "smem" in ln]
+        if name in ("fused_depth_decode", "gemv_probe") or "[" in name:
+            # kernel B's variants and kernel P's 24 instantiations: a summary
+            spills = [int(n) for ln in lines
+                      for n in re.findall(r"(\d+) bytes spill stores", ln)] + [0]
+            lines = [f"{len(lines) // 2} kernels, at most {max(spills)} bytes "
+                     f"of spill stores"] + lines[:2]
+        for line in lines:
+            log(f"  ptxas {name}: {line}")
     report["build_s"] = build_s
 
     ok = True
@@ -995,6 +1217,24 @@ def main() -> int:
             f"{r['max_abs_err']:.3e} ok={r['ok']}  {fmt_times(r)}  [{card}]")
         ok &= r["ok"]
     report["kernel_f"] = res_f
+
+    # 7b. kernel P against its plain version, then the probes P1-P4
+    t0 = time.perf_counter()
+    res_p = check_kernel_p(dev)
+    bad = [r for r in res_p if not r["ok"]]
+    log(f"kernel P (gemv_probe) vs plain, {len(res_p)} cases (5 modes x 2 loads "
+        f"x M in 5/16/32): y form max_abs_err "
+        f"{max(r['max_abs_err'] for r in res_p):.3e} (tolerance {ATOL} + {RTOL} "
+        f"* |plain|), sum form max err / sum|y| "
+        f"{max(r['sum_err'] / r['sum_scale'] for r in res_p):.3e} (tolerance "
+        f"{P_SUM_TOL}); failing: {bad}  [{card}]")
+    ok &= not bad
+    report["kernel_p"] = res_p
+    probes = run_probes(dev, card)
+    log(f"probe phase: {time.perf_counter() - t0:.1f} s")
+    ok &= probes["ok"]
+    report["probes"] = probes
+    torch.cuda.empty_cache()
 
     # 8. small model vs CPU fp32
     small = check_small_model(dev)
@@ -1109,6 +1349,52 @@ def main() -> int:
               pick(res_f, B=1, live=3000), launched_in="check",
               served_by="flash_decode_gqa1"),
     ]
+
+    def p_entry(name, replaces, row, modes, **extra):
+        """A probe's entry: kernel P (or kernel B's ablation build) in the
+        probe phase, 0 launches on the main paths; times are CUDA-event
+        times of calls queued on the card."""
+        rows = [r for r in res_p if r["mode"] in modes] or [dict(ok=True, max_abs_err=0.0)]
+        return dict(
+            name=name, route="cuda", source=csrc + "gemv_probe.cu",
+            replaces=replaces, launches=main_launches.get("gemv_probe", 0),
+            launched_in="probe", ok=all(r["ok"] for r in rows),
+            max_abs_err=max(r["max_abs_err"] for r in rows), ms=row["ms"],
+            ms_kind="queued", plain_ms=row.get("plain_ms"), plain_ms_kind="queued",
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row.get("library_ms"), library_call=row.get("library_call"),
+            library_note=row.get("library_note"),
+            streamed_floor_ms=row.get("streamed_floor_ms"), **extra)
+
+    b1 = pick(res_b, plan=PRESET, B=1)
+    abl_none = probes["ablation"][1]["none"]
+    kernels += [
+        p_entry("gemv_probe:probe_depth_kernel", "tools/probe_depth_kernel.py:74",
+                probes["p1_int8_reuse"][64], ("int8", "int4"),
+                shape="int8 reuse, (8, 1536) x 64 MB, 15 steps",
+                library_calls="15 x one per step"),
+        dict(p_entry("fused_depth_decode[FRT_ABL]:ablate_depth",
+                     "tools/_ablate_depth_kernel.py:714",
+                     dict(abl_none, bound_ms=b1["bound_ms"], bound_by=b1["bound_by"],
+                          plain_ms=b1["plain_ms"] or b1["plain_queued_ms"],
+                          library_ms=None, library_note="no single PyTorch call"),
+                     ()),
+             source=csrc + "fused_depth_decode.cu",
+             ok=all(v for c in probes["abl0"].values() for v in c.values()),
+             plain_ms_kind="device" if b1["plain_ms"] else "queued",
+             shape="preset plan, B=1, FRT_ABL=0 (the serving code); every "
+                   "ablation in the probes line",
+             serves="tools/probe_s8_chunked.py:158 (probe_step)"),
+        p_entry("gemv_probe:probe_dequant", "tools/probe_dequant.py:55",
+                probes["p3"]["int8 D=896"], ("bf16", "int8", "s8s8"),
+                shape="int8 convert+dot, (8, 896) x 48 MB, 15 steps",
+                library_calls="15 x one per step"),
+        p_entry("gemv_probe:probe_s8_chunked", "tools/probe_s8_chunked.py:64",
+                probes["p4a"]["s8s8 M=32"], ("s8s8", "s8s8q", "bf16", "int8"),
+                shape="s8s8, M=32, kernel B's MLP schedule, 16 steps",
+                library_calls="16 x 24 matrices a step"),
+    ]
+    log(json.dumps({"probes": probe_summary(probes)}))
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -55,7 +55,24 @@
 #include <cuda_bf16.h>
 #include <math.h>
 
+#include "grid_sync.cuh"
 #include "int4_unpack.cuh"
+
+// Ablation builds, for the probe tools only (fireredtts2_tpu_torch/tools/
+// ablate_depth.py; the counterpart of tools/_ablate_depth_kernel.py's ABL
+// and tools/probe_s8_chunked.py: probe_step). FRT_ABL is a sum of the bits
+// below; the serving wrapper (ops/depth_chain.py) loads the build without
+// defines, FRT_ABL = 0, whose code is the production code. Under any bit
+// the numbers are garbage and the timing is honest.
+#ifndef FRT_ABL
+#define FRT_ABL 0
+#endif
+#define FRT_ABL_HALF 1       // MLP GEMVs (gate, up, down) read half of K
+#define FRT_ABL_TINY 2       // ... one 16-byte chunk a lane per row
+#define FRT_ABL_NOLOAD 4     // ... no weight loads; conversion and FMAs kept
+#define FRT_ABL_NOATTN 8     // skip the QKV, attention and wo phases
+#define FRT_ABL_NOSAMPLE 16  // skip the logits and sampling phases
+#define FRT_ABL_NOSYNC 32    // the grid barrier becomes a block barrier
 
 namespace {
 
@@ -96,26 +113,37 @@ __device__ __forceinline__ float ld_bf(const bf16* p) {
 
 __device__ __forceinline__ float bf2f(bf16 v) { return __bfloat162float(v); }
 
-// Grid-wide barrier. The cooperative launch makes every block resident, so
-// spinning is safe. bar[0] counts arrivals, bar[1] is the generation; the
-// last block to arrive resets the count, then bumps the generation.
-__device__ __forceinline__ void grid_sync(unsigned* bar) {
-  __threadfence();
+// The phase barrier: the grid barrier, or under NOSYNC the block's.
+__device__ __forceinline__ void phase_sync(unsigned* bar) {
+#if FRT_ABL & FRT_ABL_NOSYNC
   __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned* gen = bar + 1;
-    const unsigned g = *gen;
-    __threadfence();
-    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      while (*gen == g) __nanosleep(32);
-    }
-    __threadfence();
-  }
-  __syncthreads();
+#else
+  grid_sync(bar);
+#endif
+}
+
+// 16-byte chunks of a row that an MLP GEMV reads (HALF, TINY).
+__device__ __forceinline__ int abl_chunks(int nc) {
+#if FRT_ABL & FRT_ABL_TINY
+  return min(nc, 32);
+#elif FRT_ABL & FRT_ABL_HALF
+  return nc / 2;
+#else
+  return nc;
+#endif
+}
+
+// A weight load of an MLP GEMV. Under NOLOAD, a per-thread value the
+// compiler cannot see through (an opaque move of the thread index, hoisted
+// to the kernel's start) stands in for it, so the conversions and FMAs stay.
+__device__ __forceinline__ uint4 abl_load(const uint4* p) {
+#if FRT_ABL & FRT_ABL_NOLOAD
+  unsigned v;
+  asm("mov.b32 %0, %1;" : "=r"(v) : "r"((unsigned)threadIdx.x * 0x01010101u));
+  return make_uint4(v, v ^ 0x5a5a5a5au, v + 1u, ~v);
+#else
+  return __ldg(p);
+#endif
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -184,16 +212,19 @@ __device__ void gemv_bf16(const bf16* W, int K, int o0, int nr, const bf16* x,
   allreduce_acc(a, nr, B);
 }
 
+// kMlp: a streamed MLP matrix, the one the ablation bits act on.
+template <bool kMlp = false>
 __device__ void gemv_i8(const signed char* W, int K, int o0, int nr,
                         const bf16* x, int B, float a[kR][kBMax], int lane) {
   zero_acc(a);
-  const int nc = K / 16;
+  const int nc = kMlp ? abl_chunks(K / 16) : K / 16;
   for (int c = lane; c < nc; c += 32) {
     uint4 w[kR];
 #pragma unroll
-    for (int r = 0; r < kR; ++r)
-      w[r] = r < nr ? __ldg(reinterpret_cast<const uint4*>(W + (size_t)(o0 + r) * K) + c)
-                    : make_uint4(0u, 0u, 0u, 0u);
+    for (int r = 0; r < kR; ++r) {
+      const uint4* p = reinterpret_cast<const uint4*>(W + (size_t)(o0 + r) * K) + c;
+      w[r] = r < nr ? (kMlp ? abl_load(p) : __ldg(p)) : make_uint4(0u, 0u, 0u, 0u);
+    }
 #pragma unroll
     for (int b = 0; b < kBMax; ++b) {
       if (b < B) {
@@ -225,13 +256,13 @@ __device__ void gemv_i4(const signed char* W, const float* S, int K, int g,
                         int o0, int nr, const bf16* x, int B,
                         float a[kR][kBMax], int lane) {
   zero_acc(a);
-  const int K2 = K / 2, nc = K2 / 16, ng = K / g;
+  const int K2 = K / 2, nc = abl_chunks(K2 / 16), ng = K / g;
 #pragma unroll
   for (int r = 0; r < kR; ++r) {
     if (r < nr) {
       const int o = o0 + r;
       for (int c = lane; c < nc; c += 32) {
-        const uint4 w = __ldg(reinterpret_cast<const uint4*>(W + (size_t)o * K2) + c);
+        const uint4 w = abl_load(reinterpret_cast<const uint4*>(W + (size_t)o * K2) + c);
         float lo[16], hi[16];
         frt_int4_unpack16(w, __ldg(S + (size_t)o * ng + (c * 16) / g),
                           __ldg(S + (size_t)o * ng + (K2 + c * 16) / g), lo, hi);
@@ -262,7 +293,7 @@ __device__ void gemv_a8(const signed char* W, int K, int nseg, int o0, int nr,
                         const signed char* xq, const float* xsc, int B,
                         float a[kR][kBMax], int lane) {
   zero_acc(a);
-  const int ncs = K / nseg / 16;
+  const int ncs = abl_chunks(K / nseg / 16);
   for (int seg = 0; seg < nseg; ++seg) {
     int ai[kR][kBMax];
 #pragma unroll
@@ -271,12 +302,13 @@ __device__ void gemv_a8(const signed char* W, int K, int nseg, int o0, int nr,
       for (int b = 0; b < kBMax; ++b) ai[r][b] = 0;
     }
     for (int c = lane; c < ncs; c += 32) {
-      const int cc = seg * ncs + c;
+      const int cc = seg * (K / nseg / 16) + c;
       uint4 w[kR];
 #pragma unroll
-      for (int r = 0; r < kR; ++r)
-        w[r] = r < nr ? __ldg(reinterpret_cast<const uint4*>(W + (size_t)(o0 + r) * K) + cc)
-                      : make_uint4(0u, 0u, 0u, 0u);
+      for (int r = 0; r < kR; ++r) {
+        const uint4* p = reinterpret_cast<const uint4*>(W + (size_t)(o0 + r) * K) + cc;
+        w[r] = r < nr ? abl_load(p) : make_uint4(0u, 0u, 0u, 0u);
+      }
 #pragma unroll
       for (int b = 0; b < kBMax; ++b) {
         if (b < B) {
@@ -325,7 +357,7 @@ __device__ void gemv_mode(const Args& A, int m, int l, int O, int K, int o0,
   } else if (mode == kInt8A8) {
     gemv_a8(A.mw[m] + (size_t)l * O * K, K, nseg, o0, nr, xq, xsc, A.B, a, lane);
   } else {
-    gemv_i8(A.mw[m] + (size_t)l * O * K, K, o0, nr, xs, A.B, a, lane);
+    gemv_i8<true>(A.mw[m] + (size_t)l * O * K, K, o0, nr, xs, A.B, a, lane);
   }
 }
 
@@ -666,9 +698,10 @@ depth_chain_kernel(const Args A) {
             if (r < nr && b < B) A.h[(size_t)b * Dd + o0 + r] = bfr(acc[r][b]);
       }
     }
-    grid_sync(A.bar);
+    phase_sync(A.bar);
 
     for (int l = 0; l < A.L; ++l) {
+#if !(FRT_ABL & FRT_ABL_NOATTN)
       // ---- attention norm + merged QKV (mm8 + bias)
       stage_rms(A, A.attn_norm + (size_t)l * Dd, xs, sh);
       warp_rows(Wqkv, beg, end);
@@ -690,7 +723,7 @@ depth_chain_kernel(const Args A) {
           }
         }
       }
-      grid_sync(A.bar);
+      phase_sync(A.bar);
 
       // ---- attention (every block; block 0 writes the store) + wo
       attention_stage(A, l, p, xs, blockIdx.x == 0);
@@ -715,7 +748,9 @@ depth_chain_kernel(const Args A) {
           }
         }
       }
-      grid_sync(A.bar);
+      phase_sync(A.bar);
+
+#endif
 
       // ---- MLP norm + gate/up: t = bf16(silu(gate)) * up
       stage_rms(A, A.mlp_norm + (size_t)l * Dd, xs, sh);
@@ -748,7 +783,7 @@ depth_chain_kernel(const Args A) {
         }
         __syncwarp();
       }
-      grid_sync(A.bar);
+      phase_sync(A.bar);
 
       // ---- down over both halves (fp32), then the scale; h += d
       for (int idx = tid; idx < B * I; idx += kThreads)
@@ -780,10 +815,11 @@ depth_chain_kernel(const Args A) {
           }
         }
       }
-      grid_sync(A.bar);
+      phase_sync(A.bar);
     }
     if (p == 0) continue;             // codebook 0 is c0, recorded above
 
+#if !(FRT_ABL & FRT_ABL_NOSAMPLE)
     // ---- final norm + logits of codebook p (audio head p - 1)
     stage_rms(A, A.final_norm, xs, sh);
     warp_rows(V, beg, end);
@@ -802,12 +838,13 @@ depth_chain_kernel(const Args A) {
             }
       }
     }
-    grid_sync(A.bar);
+    phase_sync(A.bar);
 
     // ---- sampling: block b takes stream b
     if ((int)blockIdx.x < B)
       sample_row(A, blockIdx.x, p, reinterpret_cast<float*>(dyn), sh);
-    grid_sync(A.bar);
+    phase_sync(A.bar);
+#endif
   }
 }
 
@@ -827,6 +864,9 @@ enum IntIndex {
   I_G_DOWN, I_M_GATE, I_M_UP, I_M_DOWN, I_TOPK, I_GREEDY, I_KMAX, I_XS_BYTES,
   I_COUNT
 };
+
+// The FRT_ABL bits this library was built with (0: the serving build).
+extern "C" int frt_depth_chain_abl() { return FRT_ABL; }
 
 extern "C" int frt_depth_chain_counts(int* ptrs, int* ints) {
   *ptrs = P_COUNT;

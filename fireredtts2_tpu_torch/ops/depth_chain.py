@@ -178,7 +178,10 @@ def _quant_act(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric int8 of activations (as float64 integers, exact
     in a float64 product) and the (B, 1) fp32 scales."""
     xf = x.to(torch.float32)
-    sc = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-30) / 127.0
+    m = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-30)
+    # a tensor divisor: on CUDA, PyTorch divides by a Python scalar as a
+    # product with its reciprocal, which is not the kernel's division
+    sc = m / torch.full_like(m, 127.0)
     return torch.round(xf / sc).to(torch.float64), sc
 
 
@@ -322,8 +325,13 @@ _INTS = ("B", "Db", "Dd", "Hq", "Hkv", "Dh", "I", "V", "ncb", "L", "g_gate",
 _barriers: dict = {}
 
 
-def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("fused_depth_decode")
+def load_library(abl: int | None = None) -> ctypes.CDLL:
+    """Kernel B's library: the serving build (no defines), or for the probe
+    tools only a build with ``FRT_ABL=abl`` (the ablation bits of
+    ``csrc/fused_depth_decode.cu``; 0 is the serving code built as a
+    variant)."""
+    lib = cuda_build.load("fused_depth_decode",
+                          () if abl is None else (f"FRT_ABL={abl}",))
     if lib.frt_fused_depth_decode.argtypes is None:
         n_p, n_i = ctypes.c_int(), ctypes.c_int()
         lib.frt_depth_chain_counts(ctypes.byref(n_p), ctypes.byref(n_i))
@@ -331,6 +339,11 @@ def _lib() -> ctypes.CDLL:
             raise RuntimeError(f"fused_depth_decode.cu takes {n_p.value} pointers "
                                f"and {n_i.value} ints, the wrapper passes "
                                f"{len(_PTRS)} and {len(_INTS)}")
+        lib.frt_depth_chain_abl.argtypes = []
+        lib.frt_depth_chain_abl.restype = ctypes.c_int
+        if lib.frt_depth_chain_abl() != (abl or 0):
+            raise RuntimeError(f"fused_depth_decode library built with FRT_ABL="
+                               f"{lib.frt_depth_chain_abl()}, wanted {abl}")
         lib.frt_depth_chain_grid.argtypes = [ctypes.c_int]
         lib.frt_depth_chain_grid.restype = ctypes.c_int
         lib.frt_fused_depth_decode.argtypes = [ctypes.c_void_p] * 4
@@ -348,9 +361,9 @@ def _barrier(dev: torch.device) -> torch.Tensor:
     return _barriers[key]
 
 
-def _launch(bd: dict, cfg: LLMConfig, modes: dict, groups: dict,
-            last_h, c0, noise, forced, topk, temperature, greedy,
-            logits_out) -> torch.Tensor:
+def _launch(lib: ctypes.CDLL, bd: dict, cfg: LLMConfig, modes: dict,
+            groups: dict, last_h, c0, noise, forced, topk, temperature,
+            greedy, logits_out) -> torch.Tensor:
     dcfg = cfg.decoder
     dev = last_h.device
     B, Db = last_h.shape
@@ -384,13 +397,12 @@ def _launch(bd: dict, cfg: LLMConfig, modes: dict, groups: dict,
         *[0 if t[n] is None else t[n].data_ptr() for n in _PTRS])
     ints_c = (ctypes.c_int * len(_INTS))(*[ints[n] for n in _INTS])
     floats = (ctypes.c_float * 3)(temperature, dcfg.norm_eps, 1.0 / math.sqrt(Dh))
-    err = _lib().frt_fused_depth_decode(
+    err = lib.frt_fused_depth_decode(
         ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(ints_c, ctypes.c_void_p),
         ctypes.cast(floats, ctypes.c_void_p),
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"fused_depth_decode launch failed: CUDA error {err}")
-    fused_depth_decode.launches += 1
     return t["samples"]
 
 
@@ -427,6 +439,22 @@ def fused_depth_decode(bundle: dict[str, Any], cfg: LLMConfig,
             bundle, cfg, last_h, c0, noise, depth_topk, depth_temperature,
             greedy, plan, forced)
         return (samples, logits) if return_logits else samples
+    out = run_chain(load_library(), bundle, cfg, last_h, c0, noise, depth_topk,
+                    depth_temperature, greedy, plan, forced, return_logits)
+    fused_depth_decode.launches += -(-last_h.shape[0] // _BMAX)
+    return out
+
+
+def run_chain(lib: ctypes.CDLL, bundle: dict[str, Any], cfg: LLMConfig,
+              last_h: torch.Tensor, c0: torch.Tensor, noise: torch.Tensor,
+              depth_topk: int = 10, depth_temperature: float = 0.75,
+              greedy: bool = False, plan: str = "",
+              forced: torch.Tensor | None = None,
+              return_logits: bool = False):
+    """``fused_depth_decode`` on CUDA tensors through the library `lib`
+    (``load_library``): checks the inputs, launches once per 8 streams.
+    The serving wrapper passes the serving build; only the probe tools
+    pass an ablation build."""
     dev = last_h.device
     if not last_h.is_cuda:
         raise ValueError(f"fused_depth_decode: unsupported device {dev}")
@@ -479,7 +507,7 @@ def fused_depth_decode(bundle: dict[str, Any], cfg: LLMConfig,
         lo = (torch.zeros((sl.stop - i, ncb, V), dtype=f32, device=dev)
               if return_logits else None)
         parts.append(_launch(
-            bundle, cfg, modes, groups, last_h[sl], c0[sl], noise[sl],
+            lib, bundle, cfg, modes, groups, last_h[sl], c0[sl], noise[sl],
             None if forced is None else forced[sl], depth_topk,
             depth_temperature, greedy, lo))
         logit_parts.append(lo)

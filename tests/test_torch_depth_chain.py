@@ -174,6 +174,38 @@ def test_greedy_equals_topk1_and_jax(setup, plan):
     np.testing.assert_array_equal(top1.numpy(), want)
 
 
+def _ablation_tool():
+    """tools/_ablate_depth_kernel.py (not a package), loaded by path."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parent.parent / "tools" / \
+        "_ablate_depth_kernel.py"
+    spec = importlib.util.spec_from_file_location("jax_ablate_depth_kernel", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("plan", [PRESET, "gate=r4,up=s8,down=r4"])
+def test_plain_matches_jax_ablation_kernel_unablated(setup, monkeypatch, plan):
+    """The JAX ablation copy of the depth kernel (the TPU twin of kernel B's
+    FRT_ABL builds) with no ablation, in interpret mode, samples the port's
+    plain version's greedy tokens."""
+    jcfg, tcfg, params, tparams, last_h, c0 = setup
+    abl = _ablation_tool()
+    monkeypatch.setattr(abl, "_ABL", set())
+    want = np.asarray(abl.fused_depth_decode(
+        abl.prepare_depth_chain(params, dataclasses.replace(jcfg, fused_depth_plan=plan),
+                                plan),
+        jcfg, last_h, c0, jax.random.PRNGKey(0), greedy=True, plan=plan,
+        interpret=True))
+    got, _ = tdc.fused_depth_decode_plain(
+        tdc.prepare_depth_chain(tparams, tcfg, plan), tcfg, to_t(last_h),
+        to_t(c0), torch.ones((3, tcfg.audio_num_codebooks, tcfg.audio_vocab_size)),
+        greedy=True, plan=plan)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_batch_rows_independent_and_forced_tokens(setup):
     """A stream's samples do not depend on the others of its batch; with
     its own samples forced, the chain and its logits are unchanged."""

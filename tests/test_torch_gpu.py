@@ -247,3 +247,84 @@ def test_preset_engine_launches_kernel_b_once_per_frame(cuda):
                              utt_seed=4))
     np.testing.assert_array_equal(eng.last_tokens, loop_tokens)
     assert np.isfinite(a).all()
+
+
+# ---------------------------------------------------------------------------
+# Kernel P (the GEMV probes) and kernel B's ablation builds. Kernel P's y
+# form as every kernel above (both round an fp32 sum to bf16); its sum form
+# within 1e-4 of the sum of |y| (fp32 sums in other orders, atomics across
+# blocks).
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("load", ["direct", "staged"])
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int4", "s8s8", "s8s8q"])
+@pytest.mark.parametrize("M", [3, 16, 32])
+def test_kernel_p_matches_plain(cuda, mode, load, M):
+    from fireredtts2_tpu_torch.ops import gemv_probe as gp
+    from fireredtts2_tpu_torch.tools._common import rand_weights
+
+    gen = torch.Generator(device=cuda).manual_seed(M)
+    wmode = "int8" if mode.startswith("s8") else mode
+    xs = [(torch.randn((M, k), generator=gen, device=cuda) * 0.01
+           ).to(torch.bfloat16) for k in (256, 512)]
+    mats = [rand_weights(wmode, 200, 256, gen), rand_weights(wmode, 72, 512, gen)
+            ._replace(x=1)]
+    before = gp.gemv_probe.launches
+    got = gp.gemv_probe(mats, xs, mode, steps=4, sync="matrix", load=load,
+                        qgroup=1)
+    y = gp.gemv_probe(mats, xs, mode, form="y", load=load)
+    torch.cuda.synchronize()
+    assert gp.gemv_probe.launches == before + 2
+    _close(y, gp.gemv_probe_plain(mats, xs, mode, form="y"))
+    scale = 4 * sum(float(t.abs().sum(dim=1).max())
+                    for t in gp.probe_products(mats, xs, mode))
+    assert float((got - gp.gemv_probe_plain(mats, xs, mode, steps=4)).abs().max()) \
+        <= 1e-4 * scale
+
+
+def test_kernel_p_barrier_and_empty_launch(cuda):
+    """No matrices: S grid barriers, and an empty cooperative launch."""
+    from fireredtts2_tpu_torch.ops import gemv_probe as gp
+
+    for steps, sync in ((0, "none"), (50, "step")):
+        out = gp.ProbeCall([], [], "int8", steps=steps, sync=sync).launch()
+        torch.cuda.synchronize()
+        assert float(out.abs().max()) == 0.0
+
+
+def _small_depth_run(monkeypatch, cuda, B=2):
+    from fireredtts2_tpu_torch.models.lm.model import init_lm_params
+    from fireredtts2_tpu_torch.ops import depth_chain as dc
+
+    plan = "gate=r8,up=s8,down=s8"
+    cfg = _small_depth_cfg(monkeypatch, plan)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    bundle = dc.prepare_depth_chain(
+        init_lm_params(gen, cfg, torch.bfloat16, cuda), cfg, plan)
+    inputs = (_rnd(gen, B, cfg.backbone.embed_dim),
+              torch.randint(0, 300, (B,), generator=gen, device=cuda),
+              torch.empty((B, 16, 300), device=cuda).exponential_(generator=gen))
+    return cfg, bundle, inputs, plan
+
+
+def test_kernel_b_abl0_build_identical_to_serving_build(cuda, monkeypatch):
+    from fireredtts2_tpu_torch.ops import depth_chain as dc
+    from fireredtts2_tpu_torch.tools import ablate_depth as ad
+
+    cfg, bundle, inputs, plan = _small_depth_run(monkeypatch, cuda)
+    before = dc.fused_depth_decode.launches
+    assert ad.abl0_matches_serving(bundle, cfg, inputs, plan) == dict(
+        samples_equal=True, forced_equal=True, logits_equal=True)
+    assert dc.fused_depth_decode.launches == before   # not the serving wrapper
+
+
+@pytest.mark.parametrize("name", ["half", "tiny", "noload", "noattn",
+                                  "nosample", "nosync"])
+def test_kernel_b_ablation_builds_launch_and_finish(cuda, monkeypatch, name):
+    from fireredtts2_tpu_torch.tools import ablate_depth as ad
+
+    cfg, bundle, inputs, plan = _small_depth_run(monkeypatch, cuda)
+    out = ad.run_variant(ad.BITS[name], bundle, cfg, inputs, plan)
+    torch.cuda.synchronize()
+    assert out.shape == (2, 16) and out.dtype == torch.int32
