@@ -29,14 +29,19 @@ Phases (any failure exits non-zero and prints no result line):
    slabs with left-padded windows;
 7b. kernel P (the GEMV probes, csrc/gemv_probe.cu) against its plain
    version in every mode (bf16, int8, int4, s8s8, s8s8q), load path (direct,
-   staged) and M tile (5, 16, 32); then the probes P1-P4 at the JAX tools'
-   sizes through fireredtts2_tpu_torch/tools/: the L2-residency sweep (8 to
+   staged) and M tile (5, 16, 32), with a warp owning one row or several
+   (every tile height), inputs in shared or in global memory; then the
+   probes P1-P4 at the JAX tools' sizes through the tools'
+   own functions (fireredtts2_tpu_torch/tools/), every timed probe also
+   checked against the plain version on its own matrices and inputs (y
+   form of one step and the timed sum): the L2-residency sweep (8 to
    120 MB, warm and cold), int8 and int4 reuse, int8 streamed direct and
    staged, bf16 / int8 / s8s8 at D = 896 and 1536, kernel B's MLP schedule
    in four modes at M = 8, 16, 32, the grid barrier's cost (slope over 19,
    304, 3040 barriers) and an empty cooperative launch; kernel B built with
-   FRT_ABL=0 must equal the serving build bit for bit (samples and logits),
-   and every ablation build (half, tiny, noload, noattn, nosample, nosync)
+   FRT_ABL=0 must equal the serving build bit for bit (samples and logits)
+   and its logits the plain version's within kernel B's tolerance, and
+   every ablation build (half, tiny, noload, noattn, nosample, nosync)
    is timed at B = 1 and 8. One line {"probes": ...} carries the numbers;
 8. a small-width model through the kernels on the card against the same
    weights on the CPU in float32 (LM layers and the streaming vocoder);
@@ -661,42 +666,90 @@ def check_kernel_f(dev, T=4096, Hkv=2, G=6, Dh=128, reps=50, timed=True,
     return results, launches
 
 
-def check_kernel_p(dev, ms=(5, 16, 32), K=256):
-    """Kernel P (the GEMV probes) against gemv_probe_plain in every mode,
-    load path and M tile, at a small size: two matrices on one input and a
-    third on another, 3 steps, in the sum form with a barrier after each
-    matrix, and one step in the y form. Tolerance: the y form as every
-    kernel (1e-2 + 2e-2 x |plain|: both round an fp32 sum to bf16); the sum
-    form within P_SUM_TOL x the sum of |y| (fp32 sums in other orders, and
-    across blocks by atomics)."""
+def check_probe(spec, load="direct", sync="none") -> dict:
+    """Kernel P on one probe's own matrices, inputs and load path against
+    gemv_probe_plain: one step in the y form, every output row within
+    ATOL + RTOL x |plain|, and for a probe of the sum form its whole call,
+    all steps, within P_SUM_TOL x the sum of |y| over its steps (fp32 sums
+    in other orders, and across blocks by atomics)."""
     import torch
     from fireredtts2_tpu_torch.ops import gemv_probe as gp
-    from fireredtts2_tpu_torch.tools._common import rand_weights
+
+    ys = gp.probe_products(spec.mats, spec.xs, spec.mode)
+    y = gp.gemv_probe(spec.mats, spec.xs, spec.mode, 1, "y", sync, load,
+                      spec.qgroup)
+    err, ok = _compare(y, torch.cat(ys, dim=1).to(torch.bfloat16))
+    r = dict(max_abs_err=err)
+    if spec.form == "sum":
+        got = gp.gemv_probe(spec.mats, spec.xs, spec.mode, spec.steps, "sum",
+                            sync, load, spec.qgroup)
+        scale = spec.steps * sum(float(t.abs().sum(dim=1).max()) for t in ys)
+        r.update(sum_err=float((got - spec.plain()).abs().max()), sum_scale=scale)
+        ok = (ok and bool(torch.isfinite(got).all())
+              and r["sum_err"] <= P_SUM_TOL * scale)
+    r["ok"] = ok
+    return r
+
+
+def check_kernel_p(dev, ms=(5, 16, 32), K=256, large=True, modes=None,
+                   loads=None):
+    """Kernel P (the GEMV probes) against gemv_probe_plain in every mode,
+    load path and M tile (R = 4, 2, 1 rows a warp at M = 5, 16, 32):
+    - "small": two matrices on one input and a third on another, 3 steps
+      with a barrier after each matrix, inputs in shared memory: a warp
+      holds at most one row of each matrix;
+    - "tiles" (`large`): three matrices of thousands of rows, sized from the
+      call's grid so that a warp owns R + 1 ... 2R - 1 rows of them: its
+      tiles run with R rows and then with every count below;
+    - "global x" (`large`, not the s8s8 modes, which quantise in shared
+      memory): inputs of more than 240 KB, too large for shared memory,
+      read from global memory as the capacity sweep and P4a's bf16 and int8
+      probes at M = 32 read them (on the card the case fails unless the
+      call really left them there).
+    Each case in the y form and the sum form (``check_probe``), with a grid
+    barrier after each matrix."""
+    import torch
+    from fireredtts2_tpu_torch.ops import gemv_probe as gp
+    from fireredtts2_tpu_torch.tools._common import Spec, rand_weights
+
+    def rows_for(M, mode, load, xs, R):
+        """Row counts giving a warp R + 1 .. 2R - 1 rows (R + 1 at R = 1)."""
+        if dev == "cpu":
+            return [64 * R + j for j in range(1, max(R, 2))]
+        probe = gp.ProbeCall([], xs, mode, 0, "sum", "none", load)
+        warps = probe.grid * 16
+        return [warps * (R + j) - 7 * j for j in range(1, max(R, 2))]
 
     results = []
-    for mode in gp.MODES:
+    for mode in modes or gp.MODES:
         wmode = "int8" if mode.startswith("s8") else mode
         for M in ms:
+            R = 4 if M <= 8 else 2 if M <= 16 else 1
             gen = torch.Generator(device=dev).manual_seed(M)
             x = [(torch.randn((M, k), generator=gen, device=dev) * 0.01
                   ).to(torch.bfloat16) for k in (K, 2 * K)]
-            mats = [rand_weights(wmode, 96, K, gen), rand_weights(wmode, 40, K, gen),
-                    rand_weights(wmode, 72, 2 * K, gen)._replace(x=1)]
-            ys = gp.probe_products(mats, x, mode)
-            scale = 3 * sum(float(y.abs().sum(dim=1).max()) for y in ys)
-            ref_sum = gp.gemv_probe_plain(mats, x, mode, steps=3)
-            ref_y = gp.gemv_probe_plain(mats, x, mode, form="y")
-            for load in gp.LOADS:
-                got = gp.gemv_probe(mats, x, mode, steps=3, sync="matrix",
-                                    load=load, qgroup=2)
-                got_y = gp.gemv_probe(mats, x, mode, form="y", sync="step",
-                                      load=load, qgroup=2)
-                err_sum = float((got - ref_sum).abs().max())
-                err_y, ok_y = _compare(got_y, ref_y)
-                ok = (ok_y and bool(torch.isfinite(got).all())
-                      and err_sum <= P_SUM_TOL * scale)
-                results.append(dict(mode=mode, load=load, M=M, max_abs_err=err_y,
-                                    sum_err=err_sum, sum_scale=scale, ok=ok))
+            cases = {"small": Spec("small", mode, [
+                rand_weights(wmode, 96, K, gen), rand_weights(wmode, 40, K, gen),
+                rand_weights(wmode, 72, 2 * K, gen)._replace(x=1)], x, 3, qgroup=2)}
+            for load in loads or gp.LOADS:
+                if large:
+                    cases["tiles"] = Spec("tiles", mode, [
+                        rand_weights(wmode, o, K, gen)
+                        for o in rows_for(M, mode, load, x[:1], R)], x[:1], 2,
+                        qgroup=1)
+                if large and not mode.startswith("s8"):
+                    kg = -(-(240 << 10) // (2 * M * 256)) * 256
+                    xg = [(torch.randn((M, kg), generator=gen, device=dev) * 0.01
+                           ).to(torch.bfloat16)]
+                    cases["global x"] = Spec("global x", mode, [
+                        rand_weights(wmode, 200, kg, gen),
+                        rand_weights(wmode, 72, kg, gen)], xg, 2)
+                for case, spec in cases.items():
+                    r = check_probe(spec, load, "matrix")
+                    if dev != "cpu":
+                        r["x_staged"] = spec.call(load).x_staged
+                        r["ok"] &= r["x_staged"] == (case != "global x")
+                    results.append(dict(case=case, mode=mode, load=load, M=M, **r))
     return results
 
 
@@ -745,26 +798,39 @@ def probe_library_ms(spec):
     return per_step * spec.steps, name, None
 
 
-def probe_row(spec, load="direct", timed_plain=False, library=False):
-    """Kernel P's time for one probe (and its plain version's, and the
-    library calls', when asked) with its bound and streamed floor."""
-    from fireredtts2_tpu_torch.tools._common import measure
-    r = measure(spec, load=load)
-    nbytes, ops = spec.io_bytes(), spec.ops()
+def probe_extra(spec, load) -> dict:
+    """What chip_smoke adds to each probe row the tools measure: the check
+    against the plain version at the probe's own shapes (``check_probe``),
+    the plain version's time, the bound and streamed floor, and the library
+    calls' time."""
+    r = check_probe(spec, load)
+    r["plain_ms"] = queued_ms(spec.plain, 3, 1)
     r["bound_ms"], r["bound_by"] = bound_ms(
-        nbytes, ops, "int8" if spec.mode.startswith("s8") else "bf16")
+        spec.io_bytes(), spec.ops(), "int8" if spec.mode.startswith("s8") else "bf16")
     r["streamed_floor_ms"] = spec.streamed_floor_ms()
-    if timed_plain:
-        r["plain_ms"] = queued_ms(spec.plain, 3, 1)
-    if library:
-        r["library_ms"], r["library_call"], r["library_note"] = \
-            probe_library_ms(spec)
+    r["library_ms"], r["library_call"], r["library_note"] = probe_library_ms(spec)
     return r
 
 
+def probe_rows(tree):
+    """Every row of a tool's result tree (the dicts that carry "ok")."""
+    if isinstance(tree, dict):
+        if "ok" in tree and "ms" in tree:
+            yield tree
+            return
+        for v in tree.values():
+            yield from probe_rows(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from probe_rows(v)
+
+
 def run_probes(dev, card: str) -> dict:
-    """The probes P1-P4 at the JAX tools' sizes (kernel P) and kernel B's
-    ablation builds (P2, P4b); every number is printed with the card."""
+    """The probes P1-P4 through the tools of fireredtts2_tpu_torch/tools/ at
+    the JAX tools' sizes, each row checked against the plain version and
+    given its bound, plain and library times (``probe_extra``); the grid
+    barrier and the cooperative launch; kernel B's ablation builds (P2,
+    P4b). The tools print their numbers; the card is printed beside them."""
     from fireredtts2_tpu_torch.ops.gemv_probe import ProbeCall, grid_blocks
     from fireredtts2_tpu_torch.tools import ablate_depth as ad
     from fireredtts2_tpu_torch.tools import probe_depth_kernel as p1
@@ -772,51 +838,16 @@ def run_probes(dev, card: str) -> dict:
     from fireredtts2_tpu_torch.tools import probe_s8_chunked as p4
     from fireredtts2_tpu_torch.tools._common import host_ms
 
-    out: dict = {}
-    # P1: residency in L2, reuse, streaming (probe_depth_kernel.py)
-    out["p1_capacity"] = p1.probe_vmem_capacity(dev)
-    out["p1_int8_reuse"] = {mb: probe_row(p1.reuse_spec("int8", mb, dev),
-                                          timed_plain=mb == 64, library=True)
-                            for mb in (32, 64, 96)}
-    out["p1_int4_reuse"] = {mb: probe_row(p1.reuse_spec("int4", mb, dev),
-                                          library=True) for mb in (24, 48, 80)}
-    out["p1_streamed"] = {mb: {ld: probe_row(p1.reuse_spec("int8", mb, dev), ld)
-                               for ld in ("direct", "staged")} for mb in (64, 110)}
-    for key in ("p1_int8_reuse", "p1_int4_reuse"):
-        for mb, r in out[key].items():
-            log(f"P1 {r['mode']} reuse {mb} MB x {r['steps']}: {r['ms']:.4f} ms "
-                f"({r['gb_per_s']:.1f} GB/s), library {r['library_call']} "
-                f"{r['library_ms']} ({r['library_note']})  [{card}]")
-    for mb, rr in out["p1_streamed"].items():
-        log(f"P1 int8 streamed {mb} MB x 15: direct {rr['direct']['ms']:.4f} ms "
-            f"({rr['direct']['gb_per_s']:.1f} GB/s), staged "
-            f"{rr['staged']['ms']:.4f} ms ({rr['staged']['gb_per_s']:.1f} GB/s)  "
-            f"[{card}]")
-    # P3: bf16 vs int8 convert+dot vs s8s8 (probe_dequant.py), D = 896, 1536
-    out["p3"] = {}
-    for d in (p3.D, 1536):
-        for mode in ("bf16", "int8", "s8s8"):
-            stored = 2 * p3.MB if mode == "bf16" else p3.MB
-            r = probe_row(p1.reuse_spec(mode, stored, dev, p3.STEPS, K=d),
-                          timed_plain=(d, mode) == (p3.D, "int8"), library=True)
-            r["gb_per_s_eq"] = r["gb_per_s"] * p3.MB / stored
-            out["p3"][f"{mode} D={d}"] = r
-            log(f"P3 {mode} D={d} {p3.MB} MB-eq x {p3.STEPS}: {r['ms']:.4f} ms, "
-                f"{r['gb_per_s_eq']:.1f} GB/s-eq, library {r['library_call']} "
-                f"{r['library_ms']} ({r['library_note']})  [{card}]")
-    # P4a: kernel B's MLP schedule by mode and rows (probe_s8_chunked.py)
-    out["p4a"] = {}
-    elems = p4.elements_per_step()
-    for m in (8, 16, 32):
-        for mode in p4.MODES:
-            r = probe_row(p4.schedule(mode, m, dev),
-                          timed_plain=(mode, m) == ("s8s8", 32), library=True)
-            r["g_elem_per_s"] = elems / (r["per_step_ms"] * 1e-3) / 1e9
-            out["p4a"][f"{mode} M={m}"] = r
-            log(f"P4a {mode} M={m}: {r['per_step_ms']:.4f} ms/step "
-                f"({r['g_elem_per_s']:.1f} G elem/s), x staged {r['x_staged']}, "
-                f"library {r['library_call']} {r['library_ms']} "
-                f"({r['library_note']})  [{card}]")
+    log(f"probes on {card}:")
+    out: dict = dict(p1=p1.main(dev, extra=probe_extra),
+                     p3=p3.main(dev, extra=probe_extra),
+                     p4a=p4.main(dev, extra=probe_extra))
+    rows = [r for k in ("p1", "p3", "p4a") for r in probe_rows(out[k])]
+    bad = [(r["name"], r["load"]) for r in rows if not r["ok"]]
+    log(f"probe rows vs plain at their own shapes: {len(rows)} rows, y form "
+        f"max_abs_err {max(r['max_abs_err'] for r in rows):.3e}, sum form max "
+        f"err / sum|y| {max(r.get('sum_err', 0) / r.get('sum_scale', 1) for r in rows):.3e}"
+        f"; failing: {bad}  [{card}]")
     # the grid barrier and the cooperative launch
     bar = {}
     for n in (19, 304, 3040):
@@ -833,22 +864,15 @@ def run_probes(dev, card: str) -> dict:
         f"{b['grid_blocks']} blocks ({bar}); empty cooperative launch: host "
         f"{b['empty_launch_host_ms'] * 1e3:.2f} us, device "
         f"{b['empty_launch_device_ms'] * 1e3:.2f} us  [{card}]")
-    # P2 / P4b: kernel B's ablation builds, preset plan
-    cfg, bundle, gen = ad.random_depth_bundle(dev)
-    out["abl0"] = {B: ad.abl0_matches_serving(bundle, cfg, ad.frame_inputs(cfg, B, gen))
-                   for B in (1, 8)}
-    log(f"kernel B built with FRT_ABL=0 vs the serving build (bit for bit): "
-        f"{out['abl0']}")
-    out["ablation"] = {}
-    for B in (1, 8):
-        res = out["ablation"][B] = ad.time_variants(bundle, cfg, B, gen)
-        for name, r in res.items():
-            log(f"P2 kernel B ABL={name} B={B}: {r['ms']:.4f} ms/frame (change "
-                f"{r['delta_ms']:+.4f}), host issue {r['host_ms']:.4f} ms  [{card}]")
-    del bundle
-    out["ok"] = (all(v for c in out["abl0"].values() for v in c.values())
-                 and all(math.isfinite(r["ms"]) for res in out["ablation"].values()
-                         for r in res.values()))
+    # P2 / P4b: kernel B's ablation builds, preset plan, B = 1 and 8
+    out["p2"] = ad.main(dev)
+    abl0 = out["p2"]["abl0"]
+    for c in abl0.values():
+        c["ok"] = (c["samples_equal"] and c["forced_equal"] and c["logits_equal"]
+                   and c["plain_max_abs_err"] <= B_TOL * c["plain_peak"])
+    out["ok"] = (not bad and all(c["ok"] for c in abl0.values())
+                 and all(math.isfinite(r["ms"]) for B in (1, 8)
+                         for r in out["p2"][B].values()))
     return out
 
 
@@ -857,7 +881,8 @@ def probe_summary(probes: dict) -> dict:
     digits, without the labels its key repeats (every value is in
     chiprun_out/chip_smoke.json)."""
     drop = ("name", "mode", "load", "sync", "cold", "M", "steps", "weight_mb",
-            "library_call", "bound_by", "bits", "ok")
+            "library_call", "library_note", "bound_by", "bits", "ok", "sum_err",
+            "sum_scale", "grid", "x_staged", "streamed_floor_ms", "s_per_byte_eq")
 
     def rnd(v):
         if isinstance(v, dict):
@@ -1223,7 +1248,7 @@ def main() -> int:
     res_p = check_kernel_p(dev)
     bad = [r for r in res_p if not r["ok"]]
     log(f"kernel P (gemv_probe) vs plain, {len(res_p)} cases (5 modes x 2 loads "
-        f"x M in 5/16/32): y form max_abs_err "
+        f"x M in 5/16/32 x small / tiles / global x): y form max_abs_err "
         f"{max(r['max_abs_err'] for r in res_p):.3e} (tolerance {ATOL} + {RTOL} "
         f"* |plain|), sum form max err / sum|y| "
         f"{max(r['sum_err'] / r['sum_scale'] for r in res_p):.3e} (tolerance "
@@ -1350,47 +1375,50 @@ def main() -> int:
               served_by="flash_decode_gqa1"),
     ]
 
-    def p_entry(name, replaces, row, modes, **extra):
-        """A probe's entry: kernel P (or kernel B's ablation build) in the
-        probe phase, 0 launches on the main paths; times are CUDA-event
-        times of calls queued on the card."""
-        rows = [r for r in res_p if r["mode"] in modes] or [dict(ok=True, max_abs_err=0.0)]
+    def p_entry(name, replaces, row, rows, **extra):
+        """A probe's entry: kernel P in the probe phase, 0 launches on the
+        main paths; `ok` and `max_abs_err` (y form, against the plain
+        version) over `rows`: its tool's probes, each checked at its own
+        shapes. Times are CUDA-event times of calls queued on the card."""
         return dict(
             name=name, route="cuda", source=csrc + "gemv_probe.cu",
             replaces=replaces, launches=main_launches.get("gemv_probe", 0),
             launched_in="probe", ok=all(r["ok"] for r in rows),
             max_abs_err=max(r["max_abs_err"] for r in rows), ms=row["ms"],
-            ms_kind="queued", plain_ms=row.get("plain_ms"), plain_ms_kind="queued",
+            ms_kind="queued", plain_ms=row["plain_ms"], plain_ms_kind="queued",
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=row.get("library_ms"), library_call=row.get("library_call"),
-            library_note=row.get("library_note"),
-            streamed_floor_ms=row.get("streamed_floor_ms"), **extra)
+            library_ms=row["library_ms"], library_call=row["library_call"],
+            library_note=row["library_note"],
+            streamed_floor_ms=row["streamed_floor_ms"], **extra)
 
     b1 = pick(res_b, plan=PRESET, B=1)
-    abl_none = probes["ablation"][1]["none"]
+    abl0 = probes["p2"]["abl0"]
     kernels += [
         p_entry("gemv_probe:probe_depth_kernel", "tools/probe_depth_kernel.py:74",
-                probes["p1_int8_reuse"][64], ("int8", "int4"),
+                probes["p1"]["int8_reuse"][64], list(probe_rows(probes["p1"])),
                 shape="int8 reuse, (8, 1536) x 64 MB, 15 steps",
                 library_calls="15 x one per step"),
-        dict(p_entry("fused_depth_decode[FRT_ABL]:ablate_depth",
-                     "tools/_ablate_depth_kernel.py:714",
-                     dict(abl_none, bound_ms=b1["bound_ms"], bound_by=b1["bound_by"],
-                          plain_ms=b1["plain_ms"] or b1["plain_queued_ms"],
-                          library_ms=None, library_note="no single PyTorch call"),
-                     ()),
+        dict(name="fused_depth_decode[FRT_ABL]:ablate_depth", route="cuda",
              source=csrc + "fused_depth_decode.cu",
-             ok=all(v for c in probes["abl0"].values() for v in c.values()),
+             replaces="tools/_ablate_depth_kernel.py:714",
+             launches=0, launched_in="probe",
+             ok=all(c["ok"] for c in abl0.values()),
+             # the FRT_ABL=0 build's logits against the plain version's
+             max_abs_err=max(c["plain_max_abs_err"] for c in abl0.values()),
+             ms=probes["p2"][1]["none"]["ms"], ms_kind="queued",
+             plain_ms=b1["plain_ms"] or b1["plain_queued_ms"],
              plain_ms_kind="device" if b1["plain_ms"] else "queued",
+             bound_ms=b1["bound_ms"], bound_by=b1["bound_by"], library_ms=None,
+             library_note="no single PyTorch call",
              shape="preset plan, B=1, FRT_ABL=0 (the serving code); every "
                    "ablation in the probes line",
              serves="tools/probe_s8_chunked.py:158 (probe_step)"),
         p_entry("gemv_probe:probe_dequant", "tools/probe_dequant.py:55",
-                probes["p3"]["int8 D=896"], ("bf16", "int8", "s8s8"),
+                probes["p3"][896]["int8"], list(probe_rows(probes["p3"])),
                 shape="int8 convert+dot, (8, 896) x 48 MB, 15 steps",
                 library_calls="15 x one per step"),
         p_entry("gemv_probe:probe_s8_chunked", "tools/probe_s8_chunked.py:64",
-                probes["p4a"]["s8s8 M=32"], ("s8s8", "s8s8q", "bf16", "int8"),
+                probes["p4a"]["s8s8 M=32"], list(probe_rows(probes["p4a"])),
                 shape="s8s8, M=32, kernel B's MLP schedule, 16 steps",
                 library_calls="16 x 24 matrices a step"),
     ]

@@ -468,8 +468,9 @@ __device__ void stage_rms(const Args& A, const bf16* w, bf16* xs, Shared& sh) {
 }
 
 // Per-row int8 quantisation of the staged xs (B, K), separately over nseg
-// equal segments (pallas_depth.py:_quant_act): scale = max(|x|, 1e-30) /
-// 127, q = round-half-even(x / scale).
+// equal segments (pallas_depth.py:_quant_act): scale = max(|x|, 1e-30) *
+// fp32(1/127) (the JAX division by the constant 127 as XLA compiles it),
+// q = round-half-even(x / scale).
 __device__ void stage_quant(const Args& A, const bf16* xs, int K, int nseg,
                             signed char* xq, Shared& sh) {
   const int B = A.B, Ks = K / nseg;
@@ -485,7 +486,7 @@ __device__ void stage_quant(const Args& A, const bf16* xs, int K, int nseg,
     }
     block_rows(v, B, true, sh, sh.stats);
     if ((int)threadIdx.x < B)
-      sh.xsc[threadIdx.x * 2 + seg] = __fdiv_rn(fmaxf(sh.stats[threadIdx.x], 1e-30f), 127.f);
+      sh.xsc[threadIdx.x * 2 + seg] = __fmul_rn(fmaxf(sh.stats[threadIdx.x], 1e-30f), 1.f / 127.f);
     __syncthreads();
   }
   for (int idx = threadIdx.x; idx < B * K; idx += kThreads) {

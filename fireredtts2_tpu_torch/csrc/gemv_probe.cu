@@ -307,9 +307,10 @@ __device__ void gemv(const Mat& m, int o0, int nr, const void* xp,
 }
 
 // Every input into shared memory: a bf16 copy, or (s8s8) per-row int8
-// quantisation, scale = max(|x|, 1e-30) / 127, q = clip(round-half-even(
-// x / scale), -127, 127) (probe_s8_chunked.py:105-108, and kernel B's
-// stage_quant). One warp takes one row's maximum.
+// quantisation, scale = max(|x|, 1e-30) * fp32(1/127) (the JAX division by
+// the constant 127 as XLA compiles it), q = clip(round-half-even(x / scale),
+// -127, 127) (probe_s8_chunked.py:105-108, and kernel B's stage_quant).
+// One warp takes one row's maximum.
 template <int MODE>
 __device__ void stage_inputs(const Args& A, unsigned char* dyn,
                              float xsc[kMaxX][32]) {
@@ -325,7 +326,7 @@ __device__ void stage_inputs(const Args& A, unsigned char* dyn,
         for (int k = lane; k < K; k += 32)
           mx = fmaxf(mx, fabsf(__bfloat162float(src[(size_t)b * K + k])));
         mx = warp_max(mx);
-        if (lane == 0) xsc[xi][b] = __fdiv_rn(fmaxf(mx, 1e-30f), 127.f);
+        if (lane == 0) xsc[xi][b] = __fmul_rn(fmaxf(mx, 1e-30f), 1.f / 127.f);
       }
       __syncthreads();
       signed char* q = reinterpret_cast<signed char*>(dyn + e.off);

@@ -42,7 +42,7 @@ import torch
 from fireredtts2_tpu_torch.config import LLMConfig
 from fireredtts2_tpu_torch.ops import cuda_build
 from fireredtts2_tpu_torch.ops.int4 import unpack_int4
-from fireredtts2_tpu_torch.ops.quant import quantize_int4, quantize_int8
+from fireredtts2_tpu_torch.ops.quant import INV127, quantize_int4, quantize_int8
 
 _NEG = -1e30
 _MATMUL = ("wq", "wk", "wv", "wo")
@@ -179,9 +179,7 @@ def _quant_act(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     in a float64 product) and the (B, 1) fp32 scales."""
     xf = x.to(torch.float32)
     m = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-30)
-    # a tensor divisor: on CUDA, PyTorch divides by a Python scalar as a
-    # product with its reciprocal, which is not the kernel's division
-    sc = m / torch.full_like(m, 127.0)
+    sc = m * INV127
     return torch.round(xf / sc).to(torch.float64), sc
 
 
@@ -403,6 +401,8 @@ def _launch(lib: ctypes.CDLL, bd: dict, cfg: LLMConfig, modes: dict,
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"fused_depth_decode launch failed: CUDA error {err}")
+    if lib is load_library():       # the ablation builds' launches are not counted
+        fused_depth_decode.launches += 1
     return t["samples"]
 
 
@@ -439,10 +439,8 @@ def fused_depth_decode(bundle: dict[str, Any], cfg: LLMConfig,
             bundle, cfg, last_h, c0, noise, depth_topk, depth_temperature,
             greedy, plan, forced)
         return (samples, logits) if return_logits else samples
-    out = run_chain(load_library(), bundle, cfg, last_h, c0, noise, depth_topk,
-                    depth_temperature, greedy, plan, forced, return_logits)
-    fused_depth_decode.launches += -(-last_h.shape[0] // _BMAX)
-    return out
+    return run_chain(load_library(), bundle, cfg, last_h, c0, noise, depth_topk,
+                     depth_temperature, greedy, plan, forced, return_logits)
 
 
 def run_chain(lib: ctypes.CDLL, bundle: dict[str, Any], cfg: LLMConfig,

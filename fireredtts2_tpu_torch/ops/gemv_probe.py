@@ -17,9 +17,10 @@ outputs, (M, 1) (``form="sum"``), as the TPU probes accumulate it.
 Modes: ``bf16``; ``int8`` (converted to float per use, no scale, as the
 TPU probes' astype); ``int4`` (q * scale rounded to bf16, kernel E's and
 kernel B's unpack); ``s8s8`` (each input quantised per row once a step,
-scale = max(|x|, 1e-30) / 127, q = clip(round-half-even(x / scale), -127,
-127), int32 dot products, times the scale) and ``s8s8q`` (the same,
-re-quantised at every group of ``qgroup`` matrices; the same numbers).
+scale = max(|x|, 1e-30) * fp32(1/127) (the JAX quantiser as XLA compiles
+it), q = clip(round-half-even(x / scale), -127, 127), int32 dot products,
+times the scale) and ``s8s8q`` (the same, re-quantised at every group of
+``qgroup`` matrices; the same numbers).
 
 ``gemv_probe`` runs the CUDA kernel (``csrc/gemv_probe.cu``) on CUDA
 tensors and ``gemv_probe_plain`` on CPU tensors; it never falls back on the
@@ -36,6 +37,7 @@ import torch
 
 from fireredtts2_tpu_torch.ops import cuda_build
 from fireredtts2_tpu_torch.ops.int4 import unpack_int4
+from fireredtts2_tpu_torch.ops.quant import INV127
 
 MODES = ("bf16", "int8", "int4", "s8s8", "s8s8q")
 LOADS = ("direct", "staged")
@@ -56,9 +58,7 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     a float64 product; (M, 1) fp32 scales)."""
     xf = x.to(torch.float32)
     m = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-30)
-    # a tensor divisor: on CUDA, PyTorch divides by a Python scalar as a
-    # product with its reciprocal, which is not the kernel's division
-    sc = m / torch.full_like(m, 127.0)
+    sc = m * INV127
     return torch.clamp(torch.round(xf / sc), -127, 127).to(torch.float64), sc
 
 
@@ -146,11 +146,13 @@ def smem_optin() -> int:
     return v
 
 
-def grid_blocks(M: int = 8, mode: str = "int8", load: str = "direct") -> int:
-    """Blocks of the kernel's cooperative grid with no staged inputs."""
+def grid_blocks(M: int = 8, mode: str = "int8", load: str = "direct",
+                xs_bytes: int = 0) -> int:
+    """Blocks of the kernel's cooperative grid, with `xs_bytes` of inputs
+    staged in shared memory (``ProbeCall.xs_bytes``)."""
     lib = _lib()
     staged = int(load == "staged")
-    smem = lib.frt_gemv_probe_smem(M, staged, 0)
+    smem = lib.frt_gemv_probe_smem(M, staged, xs_bytes)
     g = lib.frt_gemv_probe_grid(M, MODES.index(mode), staged, smem)
     if g < 0:
         raise RuntimeError(f"gemv_probe grid query failed: CUDA error {-g}")
@@ -228,6 +230,8 @@ class ProbeCall:
             raise ValueError(f"gemv_probe: the s8s8 modes quantise their inputs in "
                              f"shared memory: {xs_bytes} + {ring} bytes exceed "
                              f"{budget}")
+        self.xs_bytes = xs_bytes if self.x_staged else 0
+        self.grid = grid_blocks(M, mode, load, self.xs_bytes)
         self.dev, self.M, self.form = dev, M, form
         self._keep = (list(mats), list(xs))
         self.mats = torch.tensor(rows or [[0] * 8], dtype=torch.int64, device=dev)
@@ -243,7 +247,7 @@ class ProbeCall:
         ints = dict(nmat=len(mats), nx=len(xs), ytot=ytot, M=M, steps=steps,
                     mode=MODES.index(mode), sync=SYNCS.index(sync),
                     staged=int(load == "staged"),
-                    xs_bytes=xs_bytes if self.x_staged else 0, qgroup=qgroup)
+                    xs_bytes=self.xs_bytes, qgroup=qgroup)
         self._ptrs = (ctypes.c_void_p * len(_PTRS))(
             *[0 if t[n] is None else t[n].data_ptr() for n in _PTRS])
         self._ints = (ctypes.c_int * len(_INTS))(*[ints[n] for n in _INTS])

@@ -33,6 +33,12 @@ from fireredtts2_tpu_torch.ops.int4 import int4_matmul
 
 Params = dict[str, Any]
 
+# fp32 1/127, the activation quantisers' scale factor: the JAX package's
+# ``max(|x|) / 127.0`` multiplies by this reciprocal once XLA compiles it (a
+# division by a constant becomes a product), in its jitted functions and in
+# Pallas interpret mode alike; kernels B and P multiply by it too.
+INV127 = float(torch.tensor(1.0, dtype=torch.float32) / 127.0)
+
 
 def quantize_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(..., I, O) -> (int8 (..., I, O), float32 scales (..., 1, O))."""

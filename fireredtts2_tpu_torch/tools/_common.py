@@ -174,15 +174,22 @@ class Spec:
 
 
 def measure(spec: Spec, load: str = "direct", sync: str = "none",
-            reps: int = 10, cold: bool = False) -> dict:
+            reps: int = 10, cold: bool = False, extra=None) -> dict:
     """Kernel P's time for one call of `spec` (queued CUDA events, or each
-    call after an L2 flush with `cold`), per step, and the weight rate."""
+    call after an L2 flush with `cold`), per step, and the weight rate.
+    ``extra(spec, load)``, where given, returns more entries for the row
+    (chip_smoke.py adds its check against the plain version, the plain
+    version's time, the bound and the library calls' time)."""
     call = spec.call(load, sync)
     fn = lambda: call.launch(zero=False)    # noqa: E731
     ms = cold_ms(fn, reps) if cold else queued_ms(fn, reps)
     per_step = ms / max(spec.steps, 1)
-    return dict(name=spec.name, mode=spec.mode, load=load, sync=sync,
-                cold=cold, M=spec.xs[0].shape[0] if spec.xs else 0,
-                steps=spec.steps, weight_mb=spec.weight_bytes / 2 ** 20,
-                x_staged=call.x_staged, ms=ms, per_step_ms=per_step,
-                gb_per_s=spec.weight_bytes / (per_step * 1e-3) / 1e9)
+    row = dict(name=spec.name, mode=spec.mode, load=load, sync=sync,
+               cold=cold, M=spec.xs[0].shape[0] if spec.xs else 0,
+               steps=spec.steps, weight_mb=spec.weight_bytes / 2 ** 20,
+               x_staged=call.x_staged, grid=call.grid, ms=ms,
+               per_step_ms=per_step,
+               gb_per_s=spec.weight_bytes / (per_step * 1e-3) / 1e9)
+    if extra is not None:
+        row.update(extra(spec, load))
+    return row

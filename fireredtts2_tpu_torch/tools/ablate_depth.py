@@ -95,16 +95,22 @@ def run_variant(abl: int | None, bundle, cfg, inputs, plan: str = PRESET,
 
 def abl0_matches_serving(bundle, cfg, inputs, plan: str = PRESET) -> dict:
     """The FRT_ABL=0 build against the serving build: samples, and with the
-    same tokens forced the logits, must be identical bit for bit."""
+    same tokens forced the logits, must be identical bit for bit. Beside
+    that, the build's logits against the plain version's with the same
+    tokens forced: the largest difference and the plain version's peak."""
     ref, ref_logits = run_variant(None, bundle, cfg, inputs, plan,
                                   return_logits=True)
     s0 = run_variant(0, bundle, cfg, inputs, plan)
     f0, l0 = run_variant(0, bundle, cfg, inputs, plan, forced=ref,
                          return_logits=True)
+    _, plain = dc.fused_depth_decode_plain(bundle, cfg, *inputs, plan=plan,
+                                           forced=ref)
     torch.cuda.synchronize()
     return dict(samples_equal=bool(torch.equal(s0, ref)),
                 forced_equal=bool(torch.equal(f0, ref)),
-                logits_equal=bool(torch.equal(l0, ref_logits)))
+                logits_equal=bool(torch.equal(l0, ref_logits)),
+                plain_max_abs_err=float((l0 - plain).abs().max()),
+                plain_peak=float(plain.abs().max()))
 
 
 def time_variants(bundle, cfg, B: int, gen, variants=VARIANTS,
@@ -130,9 +136,11 @@ def main(dev="cuda", batches=(1, 8)) -> dict:
     dev = cuda_device(dev)
     print(f"{card_line()}; device {torch.cuda.get_device_name(dev)}", flush=True)
     cfg, bundle, gen = random_depth_bundle(dev)
-    check = abl0_matches_serving(bundle, cfg, frame_inputs(cfg, 1, gen))
-    print(f"FRT_ABL=0 build vs the serving build: {check}", flush=True)
-    out = dict(abl0=check)
+    out = dict(abl0={})
+    for B in batches:
+        check = out["abl0"][B] = abl0_matches_serving(
+            bundle, cfg, frame_inputs(cfg, B, gen))
+        print(f"FRT_ABL=0 build vs the serving build, B={B}: {check}", flush=True)
     for B in batches:
         res = out[B] = time_variants(bundle, cfg, B, gen)
         for name, r in res.items():

@@ -64,9 +64,10 @@ def reuse_spec(mode: str, mb: float, dev="cuda", steps: int = STEPS, M: int = 8,
                 [rand_input(M, K, gen)], steps)
 
 
-def probe_vmem_capacity(dev="cuda", sizes=CAPACITY_MB) -> dict:
+def probe_vmem_capacity(dev="cuda", sizes=CAPACITY_MB, extra=None) -> dict:
     """The L2-residency sweep; returns the shared memory a block may opt in
-    to and a row per size (warm and cold ms, GB/s of weights)."""
+    to and a row per size (the warm call's, with the cold call's ms and
+    GB/s of weights beside them)."""
     cuda_device(dev)
     optin = gp.smem_optin()
     print(f"== residency: a block may opt in to {optin} bytes of shared "
@@ -74,10 +75,9 @@ def probe_vmem_capacity(dev="cuda", sizes=CAPACITY_MB) -> dict:
     rows = []
     for mb in sizes:
         spec = capacity_spec(mb, dev)
-        warm = measure(spec)
+        warm = measure(spec, extra=extra)
         cold = measure(spec, cold=True)
-        rows.append(dict(mb=mb, warm_ms=warm["ms"], cold_ms=cold["ms"],
-                         warm_gb_per_s=warm["gb_per_s"],
+        rows.append(dict(warm, mb=mb, cold_ms=cold["ms"],
                          cold_gb_per_s=cold["gb_per_s"]))
         print(f"  {mb:4d} MB int8 (8, {spec.xs[0].shape[1]}) @ W -> (8, {D}): "
               f"warm {warm['ms']:.4f} ms ({warm['gb_per_s']:.1f} GB/s), cold "
@@ -86,42 +86,43 @@ def probe_vmem_capacity(dev="cuda", sizes=CAPACITY_MB) -> dict:
     return dict(smem_optin_bytes=optin, rows=rows)
 
 
-def probe_int8_reuse(mb: float = 64, dev="cuda") -> dict:
-    r = measure(reuse_spec("int8", mb, dev))
+def probe_int8_reuse(mb: float = 64, dev="cuda", extra=None) -> dict:
+    r = measure(reuse_spec("int8", mb, dev), extra=extra)
     print(f"== int8 L2 reuse: {mb} MB x {STEPS} steps: {r['ms']:.3f} ms total, "
           f"{r['per_step_ms']:.4f} ms/step ({r['gb_per_s']:.1f} GB/s effective "
           f"convert+dot)", flush=True)
     return r
 
 
-def probe_int4_reuse(mb_packed: float = 48, dev="cuda") -> dict:
-    r = measure(reuse_spec("int4", mb_packed, dev))
+def probe_int4_reuse(mb_packed: float = 48, dev="cuda", extra=None) -> dict:
+    r = measure(reuse_spec("int4", mb_packed, dev), extra=extra)
     print(f"== int4 L2 reuse: {mb_packed} MB packed x {STEPS} steps: "
           f"{r['ms']:.3f} ms total, {r['per_step_ms']:.4f} ms/step "
           f"(= {2 * r['gb_per_s']:.1f} GB/s unpacked-equivalent)", flush=True)
     return r
 
 
-def probe_streamed_int8(mb: float = 64, dev="cuda",
-                        loads=gp.LOADS) -> dict:
+def probe_streamed_int8(mb: float = 64, dev="cuda", loads=gp.LOADS,
+                        extra=None) -> dict:
     spec = reuse_spec("int8", mb, dev)
     out = {}
     for load in loads:
-        r = out[load] = measure(spec, load=load)
+        r = out[load] = measure(spec, load=load, extra=extra)
         print(f"== int8 HBM stream: {mb} MB x {STEPS} steps ({load} loads): "
               f"{r['ms']:.3f} ms, {r['per_step_ms']:.4f} ms/step "
               f"({r['gb_per_s']:.1f} GB/s)", flush=True)
     return out
 
 
-def main(dev="cuda") -> dict:
+def main(dev="cuda", extra=None) -> dict:
+    """Every probe at the JAX tool's sizes; `extra` as in ``measure``."""
     dev = cuda_device(dev)
     print(f"{card_line()}; device {torch.cuda.get_device_name(dev)}", flush=True)
     return dict(
-        capacity=probe_vmem_capacity(dev),
-        int8_reuse={mb: probe_int8_reuse(mb, dev) for mb in (32, 64, 96)},
-        int4_reuse={mb: probe_int4_reuse(mb, dev) for mb in (24, 48, 80)},
-        streamed={mb: probe_streamed_int8(mb, dev) for mb in (64, 110)})
+        capacity=probe_vmem_capacity(dev, extra=extra),
+        int8_reuse={mb: probe_int8_reuse(mb, dev, extra) for mb in (32, 64, 96)},
+        int4_reuse={mb: probe_int4_reuse(mb, dev, extra) for mb in (24, 48, 80)},
+        streamed={mb: probe_streamed_int8(mb, dev, extra=extra) for mb in (64, 110)})
 
 
 if __name__ == "__main__":

@@ -33,9 +33,9 @@ MB = 48
 DEPTH_MB_PER_STEP = 165          # the serving plan's int8 depth weights a step
 
 
-def _probe(label: str, mode: str, mb: float, d: int, dev) -> dict:
+def _probe(label: str, mode: str, mb: float, d: int, dev, extra) -> dict:
     stored = 2 * mb if mode == "bf16" else mb
-    r = measure(reuse_spec(mode, stored, dev, STEPS, K=d))
+    r = measure(reuse_spec(mode, stored, dev, STEPS, K=d), extra=extra)
     r["gb_per_s_eq"] = r["gb_per_s"] * mb / stored
     r["s_per_byte_eq"] = r["per_step_ms"] * 1e-3 / (mb * (1 << 20))
     print(f"{label}: {mb:3d} MB-eq x {STEPS} (D={d}): {r['ms']:7.3f} ms, "
@@ -44,29 +44,31 @@ def _probe(label: str, mode: str, mb: float, d: int, dev) -> dict:
     return r
 
 
-def probe_bf16_reuse(mb_int8_equiv: int = MB, d: int = D, dev="cuda") -> dict:
+def probe_bf16_reuse(mb_int8_equiv: int = MB, d: int = D, dev="cuda",
+                     extra=None) -> dict:
     """bf16 weights: the dot without a conversion."""
-    return _probe("bf16 dot          ", "bf16", mb_int8_equiv, d, dev)
+    return _probe("bf16 dot          ", "bf16", mb_int8_equiv, d, dev, extra)
 
 
-def probe_int8_reuse(mb: int = MB, d: int = D, dev="cuda") -> dict:
+def probe_int8_reuse(mb: int = MB, d: int = D, dev="cuda", extra=None) -> dict:
     """int8 weights converted per use (kernel B's r8/s8 modes)."""
-    return _probe("int8 convert+dot  ", "int8", mb, d, dev)
+    return _probe("int8 convert+dot  ", "int8", mb, d, dev, extra)
 
 
-def probe_s8s8_reuse(mb: int = MB, d: int = D, dev="cuda") -> dict:
+def probe_s8s8_reuse(mb: int = MB, d: int = D, dev="cuda", extra=None) -> dict:
     """int8 x int8 with int32 sums (kernel B's a8 modes)."""
-    return _probe("s8xs8 int32 dot   ", "s8s8", mb, d, dev)
+    return _probe("s8xs8 int32 dot   ", "s8s8", mb, d, dev, extra)
 
 
-def main(dev="cuda", widths=(D, 1536)) -> dict:
+def main(dev="cuda", widths=(D, 1536), extra=None) -> dict:
+    """The three probes at each width; `extra` as in ``_common.measure``."""
     dev = cuda_device(dev)
     print(f"{card_line()}; device {torch.cuda.get_device_name(dev)}", flush=True)
     out = {}
     for d in widths:
-        rates = {"bf16": probe_bf16_reuse(MB, d, dev),
-                 "int8": probe_int8_reuse(MB, d, dev),
-                 "s8s8": probe_s8s8_reuse(MB, d, dev)}
+        rates = {"bf16": probe_bf16_reuse(MB, d, dev, extra),
+                 "int8": probe_int8_reuse(MB, d, dev, extra),
+                 "s8s8": probe_s8s8_reuse(MB, d, dev, extra)}
         # the serving plan's int8 depth weights, 165 MB a step x 16 steps
         for k, r in rates.items():
             r["projected_ms_per_frame"] = (r["s_per_byte_eq"] * DEPTH_MB_PER_STEP

@@ -63,8 +63,8 @@ def schedule(mode: str, m: int, dev="cuda", d: int = D, splits=SPLITS,
                 qgroup=len(layer) if mode == "s8s8q" else 0)
 
 
-def probe(mode: str, m: int, dev="cuda") -> dict:
-    r = measure(schedule(mode, m, dev))
+def probe(mode: str, m: int, dev="cuda", extra=None) -> dict:
+    r = measure(schedule(mode, m, dev), extra=extra)
     elems = elements_per_step()
     r["g_elem_per_s"] = elems / (r["per_step_ms"] * 1e-3) / 1e9
     print(f"{mode:6s} M={m:3d}: {r['per_step_ms']:7.4f} ms/step "
@@ -73,11 +73,12 @@ def probe(mode: str, m: int, dev="cuda") -> dict:
     return r
 
 
-def main(dev="cuda") -> dict:
+def main(dev="cuda", extra=None) -> dict:
+    """Every mode at M = 8, 16, 32; `extra` as in ``_common.measure``."""
     dev = cuda_device(dev)
     print(f"{card_line()}; device {torch.cuda.get_device_name(dev)} "
           f"elems/step={elements_per_step() / 1e6:.0f}M", flush=True)
-    return {f"{mode} M={m}": probe(mode, m, dev)
+    return {f"{mode} M={m}": probe(mode, m, dev, extra)
             for m in (8, 16, 32) for mode in MODES}
 
 

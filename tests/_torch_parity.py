@@ -1,13 +1,14 @@
 """Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py):
 tiny-config parameters from the JAX package's own initialisers, bridged
-into the port, and the JAX sampling draws of a frame as the port's noise
-tensor."""
+into the port, the JAX sampling draws of a frame as the port's noise
+tensor, and the one-thread fixture every such module imports."""
 
 from functools import lru_cache
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from fireredtts2_tpu.config import tiny_engine_config as j_tiny
@@ -16,6 +17,18 @@ from fireredtts2_tpu.models.lm.model import init_lm_params as j_init_lm
 
 from fireredtts2_tpu_torch.config import tiny_engine_config as t_tiny
 from fireredtts2_tpu_torch.weights import from_jax
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run the module's tests with PyTorch on one CPU thread: the tiny
+    shapes gain nothing from more, and the suite's parallel workers share
+    the machine's cores (each worker's default of one thread per core
+    oversubscribes them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def to_t(a) -> torch.Tensor:

@@ -21,7 +21,7 @@ from fireredtts2_tpu_torch.models.codec import decoder as tdec
 from fireredtts2_tpu_torch.models.codec import model as tcm
 from fireredtts2_tpu_torch.ops import flash_decode as tfd
 
-from _torch_parity import tiny_params, to_t, wave_close
+from _torch_parity import one_torch_thread, tiny_params, to_t, wave_close  # noqa: F401
 
 
 def _tokens(cfg, B, L, rng):

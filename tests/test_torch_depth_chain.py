@@ -9,6 +9,7 @@ peak (fp32 summation order).
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -30,7 +31,7 @@ from fireredtts2_tpu_torch.models.lm import model as tmodel
 from fireredtts2_tpu_torch.ops import depth_chain as tdc
 from fireredtts2_tpu_torch.weights import from_jax
 
-from _torch_parity import to_t, wave_close
+from _torch_parity import one_torch_thread, to_t, wave_close  # noqa: F401
 
 PLANS = ["", "gate=r4,up=s8,down=s8", "gate=s8,up=r4,down=r4",
          "gate=s8,up=s8,down=s8"]
@@ -174,8 +175,9 @@ def test_greedy_equals_topk1_and_jax(setup, plan):
     np.testing.assert_array_equal(top1.numpy(), want)
 
 
+@functools.lru_cache(maxsize=None)
 def _ablation_tool():
-    """tools/_ablate_depth_kernel.py (not a package), loaded by path."""
+    """tools/_ablate_depth_kernel.py (not a package), loaded by path once."""
     import importlib.util
     import pathlib
     path = pathlib.Path(__file__).resolve().parent.parent / "tools" / \

@@ -11,6 +11,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from fireredtts2_tpu.config import tiny_engine_config as j_tiny
@@ -26,7 +27,9 @@ from fireredtts2_tpu_torch.models.lm.model import init_lm_state as t_lminit
 from fireredtts2_tpu_torch.models.pipeline import stream_block as t_stream_block
 from fireredtts2_tpu_torch.weights import from_jax
 
-from _torch_parity import jax_frame_noise, tiny_params, to_t, wave_close
+from _torch_parity import (  # noqa: F401  (one_torch_thread: autouse)
+    jax_frame_noise, one_torch_thread, tiny_params, to_t, wave_close,
+)
 
 
 def test_stream_block_packed_matches_jax(rng):
@@ -80,9 +83,11 @@ def test_engine_generate_equals_generate_stream():
     assert [b.shape for b in batch] == [(10 * 1920,), (10 * 1920,)]
 
 
-def _greedy_engines():
+@pytest.fixture(scope="module")
+def greedy_engines():
     """A JAX engine and a port engine with its weights bridged, both
-    float32 with a top-1 depth chain."""
+    float32 with a top-1 depth chain (built once: the JAX engine compiles
+    its programs per instance)."""
     jcfg = j_tiny(depth_topk=1)
     jcfg = dataclasses.replace(
         jcfg, llm=dataclasses.replace(jcfg.llm, dtype="float32"))
@@ -96,11 +101,11 @@ def _greedy_engines():
     return jeng, teng
 
 
-def test_engine_greedy_generate_matches_jax_engine():
+def test_engine_greedy_generate_matches_jax_engine(greedy_engines):
     """Greedy (top-1 for codebook 0 and the depth chain) at float32: the
     port's generate, with the JAX engine's weights bridged, gives the JAX
     engine's audio."""
-    jeng, teng = _greedy_engines()
+    jeng, teng = greedy_engines
     want = jeng.generate("Good morning.", "[S1]", [], max_audio_length_ms=960,
                          temperature=1.0, topk=1)
     got = teng.generate("Good morning.", "[S1]", max_audio_length_ms=960,
@@ -109,11 +114,11 @@ def test_engine_greedy_generate_matches_jax_engine():
     wave_close(got, want, "greedy audio")
 
 
-def test_engine_greedy_generate_batch_matches_jax_engine():
+def test_engine_greedy_generate_batch_matches_jax_engine(greedy_engines):
     """Two texts of different lengths decoded together (left-padded into
     one bucket, one batched vocoder pass): each greedy waveform equals the
     JAX engine's generate_batch output."""
-    jeng, teng = _greedy_engines()
+    jeng, teng = greedy_engines
     texts, speakers = ["Good morning to you all.", "Hi."], ["[S1]", "[S2]"]
     want = jeng.generate_batch(texts, speakers, max_audio_length_ms=640,
                                temperature=1.0, topk=1)

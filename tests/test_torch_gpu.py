@@ -259,28 +259,44 @@ def test_preset_engine_launches_kernel_b_once_per_frame(cuda):
 
 @pytest.mark.parametrize("load", ["direct", "staged"])
 @pytest.mark.parametrize("mode", ["bf16", "int8", "int4", "s8s8", "s8s8q"])
-@pytest.mark.parametrize("M", [3, 16, 32])
+@pytest.mark.parametrize("M", [5, 16, 32])
 def test_kernel_p_matches_plain(cuda, mode, load, M):
+    """chip_smoke.py's kernel P cases, y and sum forms against the plain
+    version: small matrices; matrices of thousands of rows, sized from the
+    grid so that a warp's tiles run with every row count 1..R; and (not
+    the s8s8 modes) inputs too large for shared memory, read from global
+    memory. Two launches a case, both counted."""
+    import chip_smoke
     from fireredtts2_tpu_torch.ops import gemv_probe as gp
-    from fireredtts2_tpu_torch.tools._common import rand_weights
 
-    gen = torch.Generator(device=cuda).manual_seed(M)
-    wmode = "int8" if mode.startswith("s8") else mode
-    xs = [(torch.randn((M, k), generator=gen, device=cuda) * 0.01
-           ).to(torch.bfloat16) for k in (256, 512)]
-    mats = [rand_weights(wmode, 200, 256, gen), rand_weights(wmode, 72, 512, gen)
-            ._replace(x=1)]
     before = gp.gemv_probe.launches
-    got = gp.gemv_probe(mats, xs, mode, steps=4, sync="matrix", load=load,
-                        qgroup=1)
-    y = gp.gemv_probe(mats, xs, mode, form="y", load=load)
-    torch.cuda.synchronize()
-    assert gp.gemv_probe.launches == before + 2
-    _close(y, gp.gemv_probe_plain(mats, xs, mode, form="y"))
-    scale = 4 * sum(float(t.abs().sum(dim=1).max())
-                    for t in gp.probe_products(mats, xs, mode))
-    assert float((got - gp.gemv_probe_plain(mats, xs, mode, steps=4)).abs().max()) \
-        <= 1e-4 * scale
+    rows = chip_smoke.check_kernel_p(cuda, ms=(M,), modes=(mode,), loads=(load,))
+    assert {r["case"] for r in rows} == (
+        {"small", "tiles"} if mode.startswith("s8") else {"small", "tiles", "global x"})
+    assert [r for r in rows if not r["ok"]] == []
+    assert gp.gemv_probe.launches == before + 2 * len(rows)
+
+
+def test_activation_quantisers_same_on_card_and_cpu(cuda):
+    """The a8 quantisers' plain versions give the same scales and integers on
+    the card as on the CPU (where tests/test_torch_probes.py holds them to
+    the JAX quantiser as XLA compiles it), and kernel P's s8s8 products on
+    those inputs equal its plain version's exactly."""
+    from fireredtts2_tpu_torch.ops import depth_chain as dc
+    from fireredtts2_tpu_torch.ops import gemv_probe as gp
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = (torch.randn((32, 384), generator=gen, device=cuda)
+         * torch.rand((32, 1), generator=gen, device=cuda) * 10).to(torch.bfloat16)
+    for quant in (gp.quantize_rows, dc._quant_act):
+        q, sc = quant(x)
+        qc, scc = quant(x.cpu())
+        assert torch.equal(q.cpu(), qc) and torch.equal(sc.cpu(), scc)
+    w = torch.randint(-127, 128, (300, 384), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    mats = [gp.Mat(w, None, 0)]
+    y = gp.gemv_probe(mats, [x], "s8s8", form="y")
+    assert torch.equal(y, gp.gemv_probe_plain(mats, [x], "s8s8", form="y"))
 
 
 def test_kernel_p_barrier_and_empty_launch(cuda):
@@ -314,9 +330,12 @@ def test_kernel_b_abl0_build_identical_to_serving_build(cuda, monkeypatch):
 
     cfg, bundle, inputs, plan = _small_depth_run(monkeypatch, cuda)
     before = dc.fused_depth_decode.launches
-    assert ad.abl0_matches_serving(bundle, cfg, inputs, plan) == dict(
-        samples_equal=True, forced_equal=True, logits_equal=True)
-    assert dc.fused_depth_decode.launches == before   # not the serving wrapper
+    res = ad.abl0_matches_serving(bundle, cfg, inputs, plan)
+    assert (res["samples_equal"], res["forced_equal"], res["logits_equal"]) == (
+        True, True, True)
+    assert res["plain_max_abs_err"] <= B_TOL * res["plain_peak"]
+    # the serving build's one launch counts, the FRT_ABL=0 build's two do not
+    assert dc.fused_depth_decode.launches == before + 1
 
 
 @pytest.mark.parametrize("name", ["half", "tiny", "noload", "noattn",

@@ -24,7 +24,7 @@ from fireredtts2_tpu_torch.models.lm import transformer as ttr
 from fireredtts2_tpu_torch.ops import flash_decode as tfd
 from fireredtts2_tpu_torch.weights import from_jax
 
-from _torch_parity import jax_frame_noise, tiny_params, to_t
+from _torch_parity import jax_frame_noise, one_torch_thread, tiny_params, to_t  # noqa: F401
 
 
 def test_transformer_prefill_then_decode_matches_jax(rng, monkeypatch):

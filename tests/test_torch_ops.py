@@ -49,6 +49,8 @@ from fireredtts2_tpu_torch.ops import rope as trope
 from fireredtts2_tpu_torch.ops import sampling as tsamp
 from fireredtts2_tpu_torch.ops import stft as tstft
 
+from _torch_parity import one_torch_thread  # noqa: F401  (autouse)
+
 PORT = pathlib.Path(__file__).resolve().parent.parent / "fireredtts2_tpu_torch"
 ATOL = 1e-5   # fp32 summation order only
 

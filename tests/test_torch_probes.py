@@ -29,8 +29,12 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from fireredtts2_tpu.ops import pallas_depth as pdp
 from fireredtts2_tpu_torch.ops import cuda_build
+from fireredtts2_tpu_torch.ops import depth_chain as tdc
 from fireredtts2_tpu_torch.ops import gemv_probe as gp
+
+from _torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -82,8 +86,10 @@ def _unpack4_float(p8, s):
             .reshape(wf.shape)).astype(jnp.bfloat16)
 
 
+@jax.jit
 def _quant_rows(x):
-    """The per-row quantisation of tools/probe_s8_chunked.py:105-108."""
+    """The per-row quantisation of tools/probe_s8_chunked.py:105-108, as XLA
+    compiles it (the division by 127 becomes a product with 1/127)."""
     xf = x.astype(jnp.float32)
     s = jnp.maximum(jnp.max(jnp.abs(xf), axis=1, keepdims=True), 1e-30) / 127.0
     return jnp.clip(jnp.round(xf / s), -127, 127).astype(jnp.int8), s
@@ -110,8 +116,7 @@ def _transcribe(xs, scs, ws, ss, mode, which):
 
 def _transcribed_products(mode, xs, ws, ss, which):
     """Every y of one step in the JAX layout, fp32 (and the int32 sums of
-    the s8s8 modes). The quantisation runs op by op: under jit XLA turns
-    the division by 127 into a product with its reciprocal."""
+    the s8s8 modes)."""
     scs = ()
     if mode in ("s8s8", "s8s8q"):
         q = [_quant_rows(jnp.asarray(x, jnp.bfloat16)) for x in xs]
@@ -195,6 +200,34 @@ def test_plain_matches_transcribed_tpu_body(random_probe, mode, M):
         acc = acc + sum(np.asarray(jnp.sum(jnp.asarray(w), axis=1, keepdims=True))
                         for w in want)
     _close(gp.gemv_probe(mats, txs, mode, steps=3).numpy(), acc)
+
+
+@pytest.mark.parametrize("port_quantiser", [gp.quantize_rows, tdc._quant_act],
+                         ids=["gemv_probe", "depth_chain"])
+def test_activation_quantiser_matches_jax_as_compiled(port_quantiser):
+    """The port's a8 activation quantisers against the TPU kernel's
+    (pallas_depth.py:_quant_act) jitted and inside a pallas_call in
+    interpret mode, on rows where max / 127 and max * fp32(1/127) differ:
+    both JAX runs multiply by the reciprocal, and so does the port."""
+    rng = np.random.default_rng(1)
+    x = (rng.standard_normal((256, 384)) * rng.uniform(0.01, 10, (256, 1))
+         ).astype(np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    m = np.maximum(np.abs(np.asarray(xb, np.float32)).max(-1, keepdims=True),
+                   np.float32(1e-30))
+    div, rec = m / np.float32(127), m * (np.float32(1) / np.float32(127))
+    assert (div != rec).sum() >= 5                    # the inputs tell them apart
+
+    def kernel(x_ref, q_ref, s_ref):
+        q_ref[...], s_ref[...] = pdp._quant_act(x_ref[...])
+    interp = pl.pallas_call(kernel, interpret=True, out_shape=(
+        jax.ShapeDtypeStruct(x.shape, jnp.int8),
+        jax.ShapeDtypeStruct((x.shape[0], 1), jnp.float32)))
+    q, sc = port_quantiser(_t(np.asarray(xb, np.float32)).to(torch.bfloat16))
+    np.testing.assert_array_equal(sc.numpy(), rec)
+    for jq, js in (jax.jit(pdp._quant_act)(xb), jax.jit(interp)(xb)):
+        np.testing.assert_array_equal(np.asarray(js), rec)
+        np.testing.assert_array_equal(q.numpy(), np.asarray(jq, np.float64))
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,7 @@ from fireredtts2_tpu_torch.ops import int4 as ti4
 from fireredtts2_tpu_torch.ops.quant import quantized_matmul
 from fireredtts2_tpu_torch.weights import from_jax, init_random
 
-from _torch_parity import to_t, wave_close
+from _torch_parity import one_torch_thread, to_t, wave_close  # noqa: F401
 
 
 @pytest.fixture(scope="module")
