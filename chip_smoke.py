@@ -12,18 +12,19 @@ Phases (any failure exits non-zero and prints no result line):
    flagship LM slab (28, B, 3584, 256) bf16, B in {1, 8}, ragged windows
    with live lengths near 200 and near 3000;
 4. kernel C (flash_decode_update_bounded) against its plain version at the
-   flagship vocoder slab (12, B, 3008, 1024) bf16, S in {8, 32, 128} (stream
-   blocks of 1, 4 and 16 frames) and 64 (generate's vocoder passes), plus
-   writes that overshoot the slab; the written rows must be identical and
-   the attention close; kernel C's read-only mode (D) once with lower
-   bounds;
+   flagship vocoder slab (12, B, 3008, 1024) bf16, B in {1, 8}, S in {8, 32,
+   128} (stream blocks of 1, 4 and 16 frames) and 64 (generate's vocoder
+   passes), live ~200 and ~2900, plus writes that overshoot the slab; the
+   written rows must be identical and the attention close; each case's
+   split size and its CUDA launches per call (profiler); kernel C's
+   read-only mode (D) once with lower bounds;
 5. kernel B (fused_depth_decode) against its plain version at the
    flagship depth decoder (qwen-200m, 16 codebooks of 2051), B in {1, 8},
    plans gate=r8,up=s8,down=s8 (the serving preset), gate=r4,... and
    gate=r8a8,up=s8a8,...: logits with the same tokens forced into both,
    then free sampling (equal up to a counted near-tie);
 6. kernel E (int4_matmul) at every qwen-200m depth matrix, M in
-   {1, 2, 8, 16}, beside torch._weight_int4pack_mm on the same int4
+   {1, 2, 8, 16, 32}, beside torch._weight_int4pack_mm on the same int4
    weights and a bf16 torch.matmul on the dequantised weight;
 7. kernel F (pallas_decode_attention, on kernel A's code) over unmerged
    slabs with left-padded windows;
@@ -162,6 +163,28 @@ def device_ms(fn, reps: int):
         log(f"profiler: no device time in {len(events)} events {names}")
         return None
     return us / reps / 1e3
+
+
+def cuda_launches(fn):
+    """CUDA kernels one call of fn launches, counted in a torch.profiler
+    trace (None when the trace holds no device activity)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                and "memcpy" not in e.name.lower()
+                and "memset" not in e.name.lower())
+    except Exception as e:   # the profiler is optional here
+        log(f"profiler unavailable: {e!r}")
+        return None
+    return n or None
 
 
 def event_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -379,6 +402,10 @@ def check_kernel_c(dev, L, T, H, Dh, reps, cases=None, timed=True):
                                                    pos_t, q_end, live_hi)
         err, ok = _compare(out, ref)
         rows_ok = bool(torch.equal(kk, kp)) and bool(torch.equal(vk, vp))
+        launches = None
+        if torch.device(dev).type == "cuda":
+            launches = cuda_launches(lambda: fd.flash_decode_update_bounded(
+                q, nk, nv, kk, vk, layer, pos_t, q_end, live_hi))
         read = int(q_end.max(dim=1).values.sum())      # slab rows attended
         bnd, by = bound_ms(2 * (2 * B * S * D) + 2 * 2 * B * S * D
                            + read * D * 4, 4 * D * int(q_end.sum()))
@@ -401,7 +428,8 @@ def check_kernel_c(dev, L, T, H, Dh, reps, cases=None, timed=True):
         results.append(dict(B=B, S=S, live=live, overshoot=overshoot,
                             max_abs_err=err, ok=ok and rows_ok,
                             rows_identical=rows_ok, bound_ms=bnd, bound_by=by,
-                            **times))
+                            split=fd.bounded_split(T, B, H),
+                            cuda_launches_per_call=launches, **times))
         del q, nk, nv, k4, v4, kk, vk
     return results
 
@@ -579,7 +607,7 @@ def int4_shapes():
             ("w_down", 8960, 1536)]
 
 
-def check_kernel_e(dev, shapes=None, ms=(1, 2, 8, 16), reps=50, timed=True):
+def check_kernel_e(dev, shapes=None, ms=(1, 2, 8, 16, 32), reps=50, timed=True):
     """Kernel E vs its plain version at the int4 depth path's shapes. Timed
     beside it, as yardsticks the port never calls: torch._weight_int4pack_mm
     on the same int4 weights (`library_ms`; its largest difference from
@@ -1199,7 +1227,8 @@ def main() -> int:
         log(f"kernel C B={r['B']} S={r['S']} live~{r['live']}"
             f"{' overshoot' if r['overshoot'] else ''}: max_abs_err "
             f"{r['max_abs_err']:.3e} rows_identical={r['rows_identical']} "
-            f"ok={r['ok']}  {fmt_times(r)}  [{card}]")
+            f"ok={r['ok']}  {fmt_times(r)}; split {r['split']} slots, "
+            f"{r['cuda_launches_per_call']} CUDA launch(es) a call  [{card}]")
         ok &= r["ok"]
     report["kernel_c"] = res_c
     res_d = check_kernel_d(dev, voc["T"], voc["H"], voc["Dh"])
@@ -1360,7 +1389,9 @@ def main() -> int:
         entry("flash_decode_update_bounded", csrc + "flash_decode_update.cu",
               "fireredtts2_tpu/ops/pallas_flash.py:352",
               main_launches["flash_decode_update_bounded"], res_c,
-              pick(res_c, B=1, S=64, live=2900)),
+              pick(res_c, B=1, S=64, live=2900),
+              cuda_launches_per_call=pick(res_c, B=1, S=64, live=2900)[
+                  "cuda_launches_per_call"]),
         entry("flash_decode_bounded", csrc + "flash_decode_update.cu",
               "fireredtts2_tpu/ops/pallas_flash.py:323",
               res_d["launches"], [res_d], res_d, launched_in="check",

@@ -1,5 +1,6 @@
-// Halves-packed int4 weights, shared by kernel E (int4_matmul.cu) and the
-// r4 mode of kernel B (fused_depth_decode.cu).
+// Halves-packed int4 weights, shared by the r4 mode of kernel B
+// (fused_depth_decode.cu) and kernel P (gemv_probe.cu). Kernel E
+// (int4_matmul.cu) unpacks straight into tensor-core fragments instead.
 //
 // Packed byte r of a weight row holds input row r in its low nibble and
 // input row r + K/2 in its high nibble, both signed (-8..7), as

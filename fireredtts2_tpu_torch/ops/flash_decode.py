@@ -30,6 +30,7 @@ Kernels:
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -41,6 +42,7 @@ _CHUNK_TARGET = 768
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+@functools.lru_cache(maxsize=None)
 def pick_chunk(T: int) -> int | None:
     """Largest divisor of T that is <= 768 and a multiple of 16: the live
     chunk granularity of the batch-wide range (pallas_flash.py:pick_chunk).
@@ -204,17 +206,63 @@ def flash_decode_update_bounded_plain(q, new_k, new_v, k4, v4, layer: int,
 def _update_lib() -> ctypes.CDLL:
     lib = cuda_build.load("flash_decode_update")
     if lib.frt_flash_decode_update.argtypes is None:
-        lib.frt_bounded_split_size.argtypes = []
-        lib.frt_bounded_split_size.restype = _I
-        lib.frt_flash_decode_update.argtypes = [_P] * 14 + [_I] * 9 + [_F, _P]
+        for fn in (lib.frt_bounded_tile, lib.frt_bounded_max_queries,
+                   lib.frt_bounded_max_splits):
+            fn.argtypes, fn.restype = [], _I
+        lib.frt_flash_decode_update.argtypes = [_P] * 15 + [_I] * 10 + [_F, _P]
         lib.frt_flash_decode_update.restype = _I
+        _require(lib.frt_bounded_tile() == BOUNDED_TILE
+                 and lib.frt_bounded_max_queries() == BOUNDED_QUERIES
+                 and lib.frt_bounded_max_splits() == BOUNDED_MAX_SPLITS,
+                 "csrc/flash_decode_update.cu disagrees with its wrapper's "
+                 "tile, query block or split count")
     return lib
+
+
+BOUNDED_TILE = 64          # slab slots per K/V tile of kernel C
+BOUNDED_QUERIES = 128      # queries per block of kernel C
+BOUNDED_MAX_SPLITS = 48    # splits kernel C's merge holds in shared memory
+_TARGET_BLOCKS = 264       # two blocks per SM of an H100 (132 SMs)
+
+
+@functools.lru_cache(maxsize=None)
+def bounded_split(T: int, B: int, H: int) -> int:
+    """Kernel C's split size in slab slots: a multiple of its 64-slot tile,
+    chosen so that the grid of B * H * ceil(T / split) blocks (one per
+    stream, head and split) fills one wave of two blocks per SM (264) as
+    far as the slab allows, with at most 48 splits. Split s covers slots
+    [s * split, min((s + 1) * split, T)). At the vocoder's T=3008, H=16:
+    192 slots (16 splits) at B=1, 1536 (2) at B=8."""
+    tiles = -(-T // BOUNDED_TILE)
+    want = min(tiles, max(1, _TARGET_BLOCKS // (B * H)), BOUNDED_MAX_SPLITS)
+    return -(-tiles // want) * BOUNDED_TILE
+
+
+def split_ranges(T: int, B: int, H: int) -> list[tuple[int, int]]:
+    """The [start, end) slot range of each of kernel C's splits."""
+    sp = bounded_split(T, B, H)
+    return [(s, min(s + sp, T)) for s in range(0, T, sp)]
+
+
+_counters: dict = {}       # device -> int32 merge counts, zero between calls
+
+
+def _merge_counters(device, n: int) -> torch.Tensor:
+    """Kernel C's per-(stream, head, query block) merge counts: zeros that
+    the kernel leaves zero after each call, allocated once per device (and
+    again, larger, when a call needs more)."""
+    c = _counters.get(device)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[device] = c
+    return c
 
 
 def _bounded_launch(q, new_k, new_v, k3, v3, pos, q_end, q_start, live_lo,
                     live_hi, Sw: int, write: bool) -> torch.Tensor:
     """Shared launch of csrc/flash_decode_update.cu on one layer's
-    (B, T, H*Dh) slab views. live_lo None means 0 and is passed as a null
+    (B, T, H*Dh) slab views: one CUDA launch (write, attention and the
+    merge of the splits). live_lo None means 0 and is passed as a null
     pointer: a device scalar made from a Python int would cost a blocking
     host-to-device copy per call."""
     B, S, H, Dh = q.shape
@@ -223,13 +271,21 @@ def _bounded_launch(q, new_k, new_v, k3, v3, pos, q_end, q_start, live_lo,
     _require(C is not None, f"slab length {T} has no 16-aligned chunking")
     _require(Dh == 64, f"head dim {Dh}: the kernel takes 64")
     lib = _update_lib()
-    NS = -(-T // lib.frt_bounded_split_size())
-    part_m = torch.empty((B, NS, H, S), dtype=torch.float32, device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B, NS, H, S, Dh), dtype=torch.float32,
-                           device=q.device)
-    out = torch.empty_like(q)
+    SP = bounded_split(T, B, H)
+    NS = -(-T // SP)
     null = 0
+    part = [null] * 4
+    if NS > 1:
+        # one fp32 scratch: part_m and part_l (B, H, NS, S) each, then
+        # part_acc (B, H, NS, S, Dh) from a 16-byte boundary
+        n = B * H * NS * S
+        acc0 = -(-2 * n // 4) * 4
+        scratch = torch.empty(acc0 + n * Dh, dtype=torch.float32, device=q.device)
+        p0 = scratch.data_ptr()
+        nq = -(-S // BOUNDED_QUERIES)
+        part = [p0, p0 + 4 * n, p0 + 4 * acc0,
+                _merge_counters(q.device, B * H * nq).data_ptr()]
+    out = torch.empty_like(q)
     err = lib.frt_flash_decode_update(
         q.data_ptr(),
         new_k.data_ptr() if write else null,
@@ -239,9 +295,8 @@ def _bounded_launch(q, new_k, new_v, k3, v3, pos, q_end, q_start, live_lo,
         q_end.data_ptr(),
         q_start.data_ptr() if q_start is not None else null,
         live_lo.data_ptr() if live_lo is not None else null,
-        live_hi.data_ptr(), part_m.data_ptr(),
-        part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
-        B, S, Sw, H, Dh, T, C, NS, int(write), 1.0 / math.sqrt(Dh),
+        live_hi.data_ptr(), *part, out.data_ptr(),
+        B, S, Sw, H, Dh, T, C, SP, NS, int(write), 1.0 / math.sqrt(Dh),
         _stream(q.device))
     if err:
         raise RuntimeError(f"flash-decode bounded launch failed: CUDA error {err}")

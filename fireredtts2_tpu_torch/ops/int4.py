@@ -9,11 +9,12 @@ weights dequantise as q * scale in fp32 and round to bf16, x rounds to
 bf16, products sum in fp32, the output is in x's dtype.
 
 The CUDA kernel (``csrc/int4_matmul.cu``) reads the weights output-major,
-``(O, I/2)`` bytes and ``(O, I/g)`` fp32 scales, so that a warp streams one
-output column's row with contiguous 16-byte loads. ``output_major_int4``
-makes that layout; ``prepare_int4_layout`` adds it to a quantised tree
-once, so that the matmuls do not transpose per call. The public function
-keeps the JAX layout.
+``(O, I/2)`` bytes and ``(O, I/g)`` fp32 scales: 16 contiguous bytes of
+one output column are 16 packed rows, which it turns into the B fragments
+of bf16 ``mma.sync`` tiles (x's rows are the A rows) at every M.
+``output_major_int4`` makes that layout; ``prepare_int4_layout`` adds it to
+a quantised tree once, so that the matmuls do not transpose per call. The
+public function keeps the JAX layout.
 
 On CPU tensors the wrapper runs the plain version; on CUDA tensors it
 launches the kernel or raises.
@@ -114,6 +115,8 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
             raise ValueError(f"int4_matmul: {name} {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}, expected contiguous {dt} {shape} on {dev}")
     x2 = x.reshape(-1, I).contiguous()
+    if x2.data_ptr() % 16:                  # the kernel reads 16-byte vectors
+        x2 = x2.clone()
     out = torch.empty((x2.shape[0], O), dtype=x.dtype, device=dev)
     err = _lib().frt_int4_matmul(
         x2.data_ptr(), packed_t.data_ptr(), scales_t.data_ptr(), out.data_ptr(),

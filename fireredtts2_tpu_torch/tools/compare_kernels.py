@@ -1,0 +1,96 @@
+"""Times of kernels C, D and E from two checkouts on one card, in turns.
+
+    python -m fireredtts2_tpu_torch.tools.compare_kernels [OTHER_DIR]
+        [--kernels c,d,e] [--out chiprun_out/compare_kernels.json]
+
+Runs ``chip_smoke.py``'s ``check_kernel_c``, ``check_kernel_d`` and
+``check_kernel_e`` (every case at the flagship shapes, checked against the
+plain version, timed beside the library call) of OTHER_DIR -- another
+checkout of the repo, e.g. an earlier commit unpacked with ``git archive``
+-- and of this checkout, each in a process of its own that builds its own
+kernels, in the order other, this, this, other. Without OTHER_DIR it runs
+this checkout once. Prints one line per case with the device time of each
+run and writes every result to ``--out``. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+_RUN = r"""
+import json, sys
+import torch
+import chip_smoke as cs
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+kernels = sys.argv[1].split(",")
+voc = cs.FLAGSHIP["voc"]
+out = {"card": cs.card_line()}
+if "c" in kernels:
+    out["c"] = cs.check_kernel_c("cuda", voc["L"], voc["T"], voc["H"],
+                                 voc["Dh"], voc["reps"])
+if "d" in kernels:
+    out["d"] = [cs.check_kernel_d("cuda", voc["T"], voc["H"], voc["Dh"])]
+if "e" in kernels:
+    out["e"] = cs.check_kernel_e("cuda", ms=(1, 2, 8, 16, 32))
+print("RESULT " + json.dumps(out, default=str), flush=True)
+"""
+
+_KEYS = {"c": ("B", "S", "live", "overshoot"), "d": (), "e": ("name", "M")}
+
+
+def run(root: str, kernels: str) -> dict:
+    """One process in `root`: the checks' results, by kernel."""
+    proc = subprocess.run([sys.executable, "-c", _RUN, kernels], cwd=root,
+                          capture_output=True, text=True)
+    for line in proc.stdout.splitlines():
+        if line.startswith("RESULT "):
+            return json.loads(line[len("RESULT "):])
+    raise RuntimeError(f"{root}: exit {proc.returncode}\n{proc.stdout[-4000:]}"
+                       f"\n{proc.stderr[-4000:]}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("other", nargs="?", help="another checkout of the repo")
+    ap.add_argument("--kernels", default="c,d,e")
+    ap.add_argument("--out", default="chiprun_out/compare_kernels.json")
+    args = ap.parse_args(argv)
+    here = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    order = [("this", here)]
+    if args.other:
+        other = os.path.abspath(args.other)
+        order = [("other", other), ("this", here), ("this", here),
+                 ("other", other)]
+    runs = []
+    for label, root in order:
+        res = run(root, args.kernels)
+        runs.append((label, res))
+        print(f"{label} run done: {res['card']}", flush=True)
+    ok = True
+    for k in args.kernels.split(","):
+        for i, case in enumerate(runs[0][1][k]):
+            key = {f: case.get(f) for f in _KEYS[k]}
+            row = []
+            for label, res in runs:
+                r = res[k][i]
+                ok &= bool(r["ok"])
+                ms = r.get("ms") if r.get("ms") is not None else r.get("queued_ms")
+                row.append(f"{label} {ms} (ok={r['ok']})")
+            last = runs[-1][1][k][i]
+            print(f"kernel {k.upper()} {key}: " + "; ".join(row)
+                  + f"; bound {last.get('bound_ms')}; library "
+                  f"{last.get('library_ms')}", flush=True)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump([{"run": label, **res} for label, res in runs], f, indent=1)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -82,6 +82,36 @@ def test_kernel_c_matches_plain(cuda, S, pos):
     _close(out, ref)
 
 
+@pytest.mark.parametrize("B,S,pos", [
+    (8, 128, [2760, 2700, 40, 0, 1480, 2872, 8, 512]),  # ragged; 1480 straddles
+    (1, 128, [128]),      # fresh rows [128, 256) straddle the split edge at 192
+    (2, 64, [350, 740]),  # both streams straddle edges of 384-slot splits
+])
+def test_kernel_c_batched_and_split_edges(cuda, B, S, pos):
+    """Kernel C at the batched vocoder shape and where the fresh rows cross
+    a split boundary: the split that covers a fresh row writes it, every
+    split reads it from new_k/new_v."""
+    gen = torch.Generator(device=cuda).manual_seed(B * 1000 + S)
+    L, T, H, Dh = 2, 3008, 16, 64
+    edges = [lo for lo, _ in fd.split_ranges(T, B, H)][1:]
+    assert any(any(p < e < p + S for e in edges) for p in pos)
+    q = _rnd(gen, B, S, H, Dh)
+    nk, nv = _rnd(gen, B, S, H * Dh), _rnd(gen, B, S, H * Dh)
+    k4, v4 = _rnd(gen, L, B, T, H * Dh), _rnd(gen, L, B, T, H * Dh)
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    q_end = p[:, None] + 8 * (torch.arange(S, device=cuda,
+                                           dtype=torch.int32)[None] // 8 + 1)
+    kk, vk = k4.clone(), v4.clone()
+    for _ in range(2):        # the merge counts are left zero for the next call
+        out = fd.flash_decode_update_bounded(q, nk, nv, kk, vk, 0, p, q_end,
+                                             p.max() + S)
+    ref = fd.flash_decode_update_bounded_plain(q, nk, nv, k4, v4, 0, p, q_end,
+                                               p.max() + S)
+    torch.cuda.synchronize()
+    assert torch.equal(kk, k4) and torch.equal(vk, v4)
+    _close(out, ref)
+
+
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     """float32 CUDA tensors are not what the kernels take: the wrappers
     raise, they never run the plain version on the card."""
@@ -191,10 +221,12 @@ def test_kernel_b_matches_plain(cuda, monkeypatch, plan, B):
     assert bool(((out >= 0) & (out < 300)).all())
 
 
-@pytest.mark.parametrize("M", [1, 16])
+@pytest.mark.parametrize("M", [1, 2, 5, 16, 17, 32])
 def test_kernel_e_matches_plain(cuda, M):
     """int4 x at depth-decoder shapes (K = 1536, group 128): the kernel and
-    its plain version round alike and differ in fp32 summation order."""
+    its plain version round alike and differ in fp32 summation order. M <= 16
+    is one m-tile of the tensor-core products (1, 2 and 5 ragged), 17 and 32
+    two (17 ragged)."""
     from fireredtts2_tpu_torch.models.lm.transformer import (
         quantize_transformer_int4,
     )
@@ -209,6 +241,29 @@ def test_kernel_e_matches_plain(cuda, M):
     torch.cuda.synchronize()
     assert i4.int4_matmul.launches == before + 1
     _close(out, i4.int4_matmul_plain(x, q["wq"][0], q["wq_scale4"][0]))
+
+
+@pytest.mark.parametrize("M,K,O", [(1, 8960, 1536), (16, 8960, 1536),
+                                   (5, 1568, 196), (17, 1568, 196),
+                                   (40, 1568, 196)])
+def test_kernel_e_at_ragged_shapes(cuda, M, K, O):
+    """The down matrix (70 k-blocks, split over the warps of a block), and
+    K/2 = 784 (a last k-block of 16 packed rows in 64, scale group 32) with
+    O = 196 (a last n-tile of 4 columns); M = 40 takes two blocks of rows."""
+    from fireredtts2_tpu_torch.models.lm.transformer import (
+        quantize_transformer_int4,
+    )
+    from fireredtts2_tpu_torch.ops import int4 as i4
+
+    gen = torch.Generator(device=cuda).manual_seed(M * K + O)
+    w = torch.randn((1, K, O), generator=gen, device=cuda) * 0.02
+    q = quantize_transformer_int4({"wq": w})
+    packed, scales = q["wq"][0], q["wq_scale4"][0]
+    pt, st = i4.output_major_int4(packed, scales)
+    x = _rnd(gen, M, K)
+    out = i4.int4_matmul(x, packed, scales, pt, st)
+    torch.cuda.synchronize()
+    _close(out, i4.int4_matmul_plain(x, packed, scales))
 
 
 def test_kernel_f_matches_plain(cuda):

@@ -295,3 +295,62 @@ def test_kernel_c_plain_matches_pallas(rng, pos, T, S):
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     _close(got, want)
     assert tfd.flash_decode_update_bounded.launches == 0
+
+
+@pytest.mark.parametrize("pos,S,T,straddle", [
+    ([40, 96, 8], 32, 512, False),      # B=3, ragged positions
+    ([256], 128, 512, False),           # S=128: eight query warps on the card
+    ([40, 200], 32, 512, True),         # fresh rows straddle a split edge
+    ([504, 520], 16, 512, False),       # stream 1 overshot the slab
+])
+def test_kernel_c_plain_matches_pallas_at_head_width(rng, pos, S, T, straddle):
+    """Kernel C's plain version against the Pallas kernel (interpret mode)
+    at the card's head width, Dh=64, with H=2, in the cases the card's
+    design (all queries of a head in one block, KV splits of
+    bounded_split slots, the write folded into the attention) must get
+    right."""
+    L, H, Dh = 2, 2, 64
+    B, D = len(pos), H * Dh
+    pos = np.array(pos, np.int32)
+    edges = [lo for lo, _ in tfd.split_ranges(T, B, H)][1:]
+    start = np.minimum(pos, T - S)
+    if straddle:
+        assert any(any(p < e < p + S for e in edges) for p in start)
+    q = rng.standard_normal((B, S, H, Dh)).astype(np.float32)
+    nk = rng.standard_normal((B, S, D)).astype(np.float32)
+    nv = rng.standard_normal((B, S, D)).astype(np.float32)
+    k4 = rng.standard_normal((L, B, T, D)).astype(np.float32)
+    v4 = rng.standard_normal((L, B, T, D)).astype(np.float32)
+    q_end = (pos[:, None] + 8 * (np.arange(S)[None] // 8 + 1)).astype(np.int32)
+    live_hi = int(pos.max()) + S
+    want, jk, jv = j_update(
+        jnp.asarray(q), jnp.asarray(nk), jnp.asarray(nv), jnp.asarray(k4),
+        jnp.asarray(v4), jnp.int32(0), jnp.asarray(pos), jnp.asarray(q_end),
+        jnp.int32(live_hi), interpret=True)
+    tk, tv = _t(k4), _t(v4)
+    got = tfd.flash_decode_update_bounded(_t(q), _t(nk), _t(nv), tk, tv, 0,
+                                          _t(pos), _t(q_end), live_hi)
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("T", [64, 256, 3008])
+def test_kernel_c_splits_cover_the_slab_once(T):
+    """Every slab slot lies in exactly one of kernel C's splits (the split
+    that covers a fresh row writes it), each split a whole number of
+    64-slot tiles but the last, at most 48 of them (the merge's room); the
+    flagship grid has 256 blocks at B=1 and B=8."""
+    for B in (1, 2, 3, 8):
+        for H in (2, 16):
+            sp = tfd.bounded_split(T, B, H)
+            assert sp % tfd.BOUNDED_TILE == 0 and sp >= tfd.BOUNDED_TILE
+            ranges = tfd.split_ranges(T, B, H)
+            assert len(ranges) <= tfd.BOUNDED_MAX_SPLITS
+            covered = np.zeros(T, np.int32)
+            for lo, hi in ranges:
+                assert lo < hi and (hi - lo == sp or hi == T)
+                covered[lo:hi] += 1
+            assert (covered == 1).all()
+    if T == 3008:
+        assert [len(tfd.split_ranges(T, B, 16)) for B in (1, 8)] == [16, 2]
