@@ -22,7 +22,10 @@ Phases (any failure exits non-zero and prints no result line):
    flagship depth decoder (qwen-200m, 16 codebooks of 2051), B in {1, 8},
    plans gate=r8,up=s8,down=s8 (the serving preset), gate=r4,... and
    gate=r8a8,up=s8a8,...: logits with the same tokens forced into both,
-   then free sampling (equal up to a counted near-tie);
+   then free sampling (equal up to a counted near-tie); each case's grid
+   barriers a frame (counted in the barrier words, which must match
+   ops/depth_chain.py: barriers_per_frame) and the ring's stages the
+   launch used;
 6. kernel E (int4_matmul) at every qwen-200m depth matrix, M in
    {1, 2, 8, 16, 32}, beside torch._weight_int4pack_mm on the same int4
    weights and a bf16 torch.matmul on the dequantised weight;
@@ -42,8 +45,10 @@ Phases (any failure exits non-zero and prints no result line):
    304, 3040 barriers) and an empty cooperative launch; kernel B built with
    FRT_ABL=0 must equal the serving build bit for bit (samples and logits)
    and its logits the plain version's within kernel B's tolerance, and
-   every ablation build (half, tiny, noload, noattn, nosample, nosync)
-   is timed at B = 1 and 8. One line {"probes": ...} carries the numbers;
+   every ablation build (half, tiny, noload, noattn, nosample, nosync,
+   noattncore) is timed at B = 1 and 8; the trace build must sample as the
+   serving build does, and its per-phase split of three blocks' frame is
+   printed. One line {"probes": ...} carries the numbers;
 8. a small-width model through the kernels on the card against the same
    weights on the CPU in float32 (LM layers and the streaming vocoder);
 9. the main paths at flagship width with random weights, each run with
@@ -521,7 +526,10 @@ def check_kernel_b(dev, plans=(PRESET, "gate=r4,up=s8,down=s8",
     the plain peak, and a sample may differ only at a near-tie: where the
     plain version's top two race scores lie closer than that step's logit
     error can move them. Sampling freely, each stream follows the plain
-    version up to its first such tie. The ties are counted."""
+    version up to its first such tie. The ties are counted. On the card the
+    free launch's grid barriers (word 3 of the barrier words) must be
+    barriers_per_frame's count; each case also reports the ring's stages
+    that launch used."""
     import torch
     from fireredtts2_tpu_torch.ops import depth_chain as dc
 
@@ -539,9 +547,17 @@ def check_kernel_b(dev, plans=(PRESET, "gate=r4,up=s8,down=s8",
             forced, logits = dc.fused_depth_decode(bundle, cfg, last_h, c0,
                                                    noise, plan=plan, forced=ref,
                                                    return_logits=True)
-            free = dc.fused_depth_decode(bundle, cfg, last_h, c0, noise, plan=plan)
-            if torch.device(dev).type == "cuda":
+            on_card = torch.device(dev).type == "cuda"
+            if on_card:                   # the barrier words count them
+                bar = dc._barrier(last_h.device)
                 torch.cuda.synchronize()
+                passed = int(bar[3])
+            free = dc.fused_depth_decode(bundle, cfg, last_h, c0, noise, plan=plan)
+            barriers = stages = None
+            if on_card:                   # what the free launch used
+                torch.cuda.synchronize()
+                barriers = (int(bar[3]) - passed) % 2 ** 32
+                stages = dc.fused_depth_decode.last_layout["stages"]
             err_bp = (logits - ref_logits).abs().amax(dim=-1)      # (B, ncb)
             err = float(err_bp.max())
             peak = float(ref_logits.abs().max())
@@ -573,7 +589,8 @@ def check_kernel_b(dev, plans=(PRESET, "gate=r4,up=s8,down=s8",
                 tokens_ok &= (int(d[0]) if len(d) else None) == (fb[0] if fb else None)
             ties = len(flips)
             ok = (bool(torch.isfinite(logits).all()) and err <= B_TOL * peak
-                  and tokens_ok and bool(torch.equal(free[:, 0], c0)))
+                  and tokens_ok and bool(torch.equal(free[:, 0], c0))
+                  and barriers in (None, dc.barriers_per_frame(cfg)))
             nbytes, ops, kind = depth_bytes_ops(bundle, cfg, B, plan)
             bnd, by = bound_ms(nbytes, ops, kind)
             times = {}
@@ -593,7 +610,8 @@ def check_kernel_b(dev, plans=(PRESET, "gate=r4,up=s8,down=s8",
                     * ncb / HBM_BYTES_PER_S * 1e3)
             results.append(dict(plan=plan, B=B, max_abs_err=err, peak=peak,
                                 ok=ok, ties=ties, flips=flips[:8],
-                                tokens_ok=tokens_ok,
+                                tokens_ok=tokens_ok, barriers_per_frame=barriers,
+                                ring_stages=stages,
                                 bound_ms=bnd, bound_by=by, library_ms=None,
                                 **times))
         del bundle
@@ -900,7 +918,8 @@ def run_probes(dev, card: str) -> dict:
                    and c["plain_max_abs_err"] <= B_TOL * c["plain_peak"])
     out["ok"] = (not bad and all(c["ok"] for c in abl0.values())
                  and all(math.isfinite(r["ms"]) for B in (1, 8)
-                         for r in out["p2"][B].values()))
+                         for r in out["p2"][B].values())
+                 and all(t["samples_equal"] for t in out["p2"]["trace"].values()))
     return out
 
 
@@ -910,7 +929,8 @@ def probe_summary(probes: dict) -> dict:
     chiprun_out/chip_smoke.json)."""
     drop = ("name", "mode", "load", "sync", "cold", "M", "steps", "weight_mb",
             "library_call", "library_note", "bound_by", "bits", "ok", "sum_err",
-            "sum_scale", "grid", "x_staged", "streamed_floor_ms", "s_per_byte_eq")
+            "sum_scale", "grid", "x_staged", "streamed_floor_ms", "s_per_byte_eq",
+            "pairs_us")
 
     def rnd(v):
         if isinstance(v, dict):
@@ -1243,12 +1263,13 @@ def main() -> int:
         f"plain version's top two race scores are within 1 - exp(-2 err / T) "
         f"of each other, or its k-th and (k+1)-th logits within 2 err (err: "
         f"that step's logit error, T: temperature, k: top-k)")
-    res_b = check_kernel_b(dev)
+    res_b = check_kernel_b(dev, reps=5)    # the plain version's trace is slow
     for r in res_b:
         log(f"kernel B {r['plan']} B={r['B']}: logits max_abs_err "
             f"{r['max_abs_err']:.3e} (peak {r['peak']:.3f}), near-ties "
             f"{r['ties']} {r['flips']}, ok={r['ok']}  {fmt_times(r)}; streamed floor "
-            f"{r.get('streamed_floor_ms', 0):.4f} ms  [{card}]")
+            f"{r.get('streamed_floor_ms', 0):.4f} ms; {r['barriers_per_frame']} grid "
+            f"barriers a frame, {r['ring_stages']} ring stages  [{card}]")
         ok &= r["ok"]
     report["kernel_b"] = res_b
     torch.cuda.empty_cache()
@@ -1385,7 +1406,9 @@ def main() -> int:
         entry("fused_depth_decode", csrc + "fused_depth_decode.cu",
               "fireredtts2_tpu/ops/pallas_depth.py:749",
               main_launches["fused_depth_decode"], res_b,
-              pick(res_b, plan=PRESET, B=1)),
+              pick(res_b, plan=PRESET, B=1),
+              barriers_per_frame=pick(res_b, plan=PRESET, B=1)["barriers_per_frame"],
+              ring_stages=pick(res_b, plan=PRESET, B=1)["ring_stages"]),
         entry("flash_decode_update_bounded", csrc + "flash_decode_update.cu",
               "fireredtts2_tpu/ops/pallas_flash.py:352",
               main_launches["flash_decode_update_bounded"], res_c,

@@ -21,8 +21,9 @@
 // what the TPU probes accumulate). The cross-block sum is one atomicAdd a
 // block per row, so the sum's fp32 order varies from run to run.
 //
-// Modes, with the arithmetic of kernel B's warp GEMVs
-// (fused_depth_decode.cu): bf16 (gemv_bf16), int8 converted per use
+// Modes, with the arithmetic of the warp GEMVs of kernel B's first design
+// (fused_depth_decode.cu before its redesign onto the tensor cores; "kernel
+// B" below means that design): bf16 (gemv_bf16), int8 converted per use
 // (gemv_i8), int4 halves-packed with fp32 group scales, unpacked per use
 // by int4_unpack.cuh (gemv_i4), s8s8: the inputs quantised per row once a
 // step, int8 x int8 dot products summed in int32 by __dp4a, times the row's
@@ -43,7 +44,7 @@
 //   `staged` copies the same 16-byte chunks with cp.async through a
 //   double-buffered ring in shared memory (a lane issues chunk c + 32 before
 //   it uses chunk c): the card's counterpart of the TPU's make_async_copy
-//   ring (probe_depth_kernel.py:165-189), which kernel B does not do.
+//   ring (probe_depth_kernel.py:165-189), which that design did not do.
 // The inputs are staged in shared memory once a step (and quantised there
 // in the s8s8 modes) when they fit beside the ring; otherwise (the
 // capacity form's long rows) the GEMVs read them from global memory.
@@ -352,6 +353,7 @@ __global__ void __launch_bounds__(kThreads, 1) probe_kernel(const Args A) {
   uint4* ring = reinterpret_cast<uint4*>(dyn + A.ring_off) + warp * kStages * R * 32;
   for (int i = tid; i < kWarps * 32; i += kThreads) (&tot[0][0])[i] = 0.f;
   const int nw = gridDim.x * kWarps, gw = blockIdx.x * kWarps + warp;
+  FrtGrid g{A.bar, 0u};
 
   for (int step = 0; step < A.steps; ++step) {
     if (A.xsmem) stage_inputs<MODE>(A, dyn, xsc);
@@ -383,11 +385,12 @@ __global__ void __launch_bounds__(kThreads, 1) probe_kernel(const Args A) {
           }
         }
       }
-      if (A.sync == kSyncMatrix) grid_sync(A.bar);
+      if (A.sync == kSyncMatrix) grid_sync(g);
     }
-    if (A.sync == kSyncStep) grid_sync(A.bar);
+    if (A.sync == kSyncStep) grid_sync(g);
   }
   __syncthreads();
+  if (tid == 0) frt_grid_exit(g);
   if (A.out_sum && tid < M) {
     float v = 0.f;
     for (int w = 0; w < kWarps; ++w) v += tot[w][tid];

@@ -25,9 +25,9 @@
 //   r = 64 kb + 16 t, i.e. input rows r..r+15 (low nibbles) and
 //   K/2 + r..K/2 + r + 15 (high nibbles).
 // - In registers those bytes become the B fragments of eight mma, four
-//   k-steps on each half (int4_bfrags): each nibble a float by a bit trick
-//   (no conversion instruction), times its group's scale in fp32, rounded
-//   to bf16 -- W = bf16(q * s) per element, as the TPU kernel computes it.
+//   k-steps on each half (int4_unpack.cuh: frt_int4_bfrags): each nibble a
+//   float by a bit trick (no conversion instruction), times its group's
+//   scale in fp32, rounded to bf16 -- W = bf16(q * s) per element, as the TPU kernel computes it.
 // - A product sums over k in any order that A and B share, so the k-slots
 //   of lane t map to input rows 16 t + 4 j + {0, 1, 2, 3} of k-step j: the
 //   lane's A fragments are then x[row][r..r+15] and x[row][K/2 + r..], four
@@ -43,6 +43,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "int4_unpack.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -71,33 +72,6 @@ __device__ __forceinline__ void load_x_row(const __nv_bfloat16* __restrict__ x,
     w[4 * i + 1] = u[i].y;
     w[4 * i + 2] = u[i].z;
     w[4 * i + 3] = u[i].w;
-  }
-}
-
-// 16 packed bytes of one column (packed rows r..r+15; word j holds rows
-// r+4j..r+4j+3) -> the B fragments of k-step j on the low and the high
-// nibble side, each weight bf16(q * scale) with the product in fp32. The
-// nibble becomes a float without a conversion instruction: q + 8 in the low
-// mantissa bits of 2^23, minus 2^23 + 8, is q exactly.
-__device__ __forceinline__ void int4_bfrags(const uint4 w, float s_lo,
-                                            float s_hi, uint32_t blo[4][2],
-                                            uint32_t bhi[4][2]) {
-  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint32_t v = words[j] ^ 0x88888888u;       // each nibble q + 8
-    float lo[4], hi[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      lo[e] = (__uint_as_float(0x4B000000u | ((v >> (8 * e)) & 15u)) -
-               8388616.f) * s_lo;
-      hi[e] = (__uint_as_float(0x4B000000u | ((v >> (8 * e + 4)) & 15u)) -
-               8388616.f) * s_hi;
-    }
-    blo[j][0] = frt_pack_bf16(lo[0], lo[1]);
-    blo[j][1] = frt_pack_bf16(lo[2], lo[3]);
-    bhi[j][0] = frt_pack_bf16(hi[0], hi[1]);
-    bhi[j][1] = frt_pack_bf16(hi[2], hi[3]);
   }
 }
 
@@ -148,7 +122,7 @@ int4_matmul_kernel(const __nv_bfloat16* __restrict__ x,     // (M, K)
       const int r = (kb0 + i * KS) * kKB + 16 * t;
       const bool r_ok = r < K2;
       uint32_t blo[4][2], bhi[4][2];
-      int4_bfrags(w[i], s_lo[i], s_hi[i], blo, bhi);
+      frt_int4_bfrags(w[i], s_lo[i], s_hi[i], blo, bhi);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         const int row = m0 + mt * 16 + gq;

@@ -1,6 +1,6 @@
-// Halves-packed int4 weights, shared by the r4 mode of kernel B
-// (fused_depth_decode.cu) and kernel P (gemv_probe.cu). Kernel E
-// (int4_matmul.cu) unpacks straight into tensor-core fragments instead.
+// Halves-packed int4 weights, shared by kernel P (gemv_probe.cu), which
+// unpacks to floats, and kernels B (fused_depth_decode.cu, r4 mode) and E
+// (int4_matmul.cu), which unpack straight into tensor-core fragments.
 //
 // Packed byte r of a weight row holds input row r in its low nibble and
 // input row r + K/2 in its high nibble, both signed (-8..7), as
@@ -15,6 +15,9 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 __device__ __forceinline__ float frt_bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
@@ -48,5 +51,32 @@ __device__ __forceinline__ void frt_bf16x8(const uint4 u, float f[8]) {
     const float2 t = __bfloat1622float2(h2[e]);
     f[2 * e] = t.x;
     f[2 * e + 1] = t.y;
+  }
+}
+
+// 16 packed bytes of one weight row (packed rows r..r+15; word j holds rows
+// r+4j..r+4j+3) -> the bf16 fragments of k-step j on the low and the high
+// nibble side, each weight bf16(q * scale) with the product in fp32. The
+// nibble becomes a float without a conversion instruction: q + 8 in the low
+// mantissa bits of 2^23, minus 2^23 + 8, is q exactly.
+__device__ __forceinline__ void frt_int4_bfrags(const uint4 w, float s_lo,
+                                                float s_hi, uint32_t blo[4][2],
+                                                uint32_t bhi[4][2]) {
+  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t v = words[j] ^ 0x88888888u;       // each nibble q + 8
+    float lo[4], hi[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      lo[e] = (__uint_as_float(0x4B000000u | ((v >> (8 * e)) & 15u)) -
+               8388616.f) * s_lo;
+      hi[e] = (__uint_as_float(0x4B000000u | ((v >> (8 * e + 4)) & 15u)) -
+               8388616.f) * s_hi;
+    }
+    blo[j][0] = frt_pack_bf16(lo[0], lo[1]);
+    blo[j][1] = frt_pack_bf16(lo[2], lo[3]);
+    bhi[j][0] = frt_pack_bf16(hi[0], hi[1]);
+    bhi[j][1] = frt_pack_bf16(hi[2], hi[3]);
   }
 }

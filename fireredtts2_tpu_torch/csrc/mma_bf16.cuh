@@ -1,6 +1,7 @@
-// bf16 tensor-core helpers shared by kernel C (flash_decode_update.cu) and
-// kernel E (int4_matmul.cu): mma.sync m16n8k16 with fp32 accumulation,
-// ldmatrix, and 16-byte cp.async with zero fill.
+// Tensor-core helpers shared by kernels B (fused_depth_decode.cu), C
+// (flash_decode_update.cu) and E (int4_matmul.cu): mma.sync m16n8k16 bf16
+// with fp32 accumulation, m16n8k32 s8 with int32 accumulation, ldmatrix,
+// and 16-byte cp.async with zero fill.
 //
 // Fragment layout of mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32,
 // lane = 4 * gq + t (gq = lane / 4, t = lane % 4):
@@ -11,6 +12,9 @@
 //   b1 (k 2t+8, 2t+9; n gq);
 // - C/D (16 x 8 fp32): c0, c1 (row gq, cols 2t, 2t+1), c2, c3 (row gq+8).
 // The lower 16 bits of a register hold the element of the lower index.
+// m16n8k32 s8 takes four int8 a register: A a0 (row gq, k 4t..4t+3), a1
+// (row gq+8, the same k), a2 (row gq, k 16+4t..), a3 (row gq+8, k 16+4t..);
+// B b0 (k 4t..4t+3; n gq), b1 (k 16+4t..; n gq); C as above, in int32.
 
 #pragma once
 
@@ -24,6 +28,16 @@ __device__ __forceinline__ void frt_mma_bf16(float c[4], const uint32_t a[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
       "{%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void frt_mma_s8(int c[4], const uint32_t a[4],
+                                           uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

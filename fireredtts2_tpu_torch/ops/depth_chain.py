@@ -188,6 +188,16 @@ def _dot_s8(xq: torch.Tensor, w_om: torch.Tensor) -> torch.Tensor:
     return (xq @ w_om.to(torch.float64).T).to(torch.float32)
 
 
+def _kth_largest(x: torch.Tensor, k: int) -> torch.Tensor:
+    """pallas_depth.py: _kth_largest: the k-th largest value per row with
+    ties collapsed (k - 1 rounds of replacing the maximum by -1e30)."""
+    cur = x
+    for _ in range(k - 1):
+        cur = torch.where(cur >= cur.amax(dim=-1, keepdim=True),
+                          torch.full_like(cur, _NEG), cur)
+    return cur.amax(dim=-1, keepdim=True)
+
+
 def fused_depth_decode_plain(bundle: dict[str, Any], cfg: LLMConfig,
                              last_h: torch.Tensor, c0: torch.Tensor,
                              noise: torch.Tensor, depth_topk: int = 10,
@@ -293,11 +303,7 @@ def fused_depth_decode_plain(bundle: dict[str, Any], cfg: LLMConfig,
             tok = torch.argmax(logits, dim=-1)
         else:
             lf = logits / depth_temperature
-            cur = lf
-            for _ in range(depth_topk - 1):
-                cur = torch.where(cur >= cur.amax(dim=-1, keepdim=True),
-                                  torch.full_like(cur, _NEG), cur)
-            kth = cur.amax(dim=-1, keepdim=True)
+            kth = _kth_largest(lf, depth_topk)
             filt = torch.where(lf < kth, torch.full_like(lf, _NEG), lf)
             ex2 = torch.exp(filt - filt.amax(dim=-1, keepdim=True))
             pr = ex2 / ex2.sum(dim=-1, keepdim=True)
@@ -316,11 +322,123 @@ _PTRS = ("last_h", "c0", "noise", "forced", "proj_t", "emb_rows", "head_t",
          "rope_cos", "rope_sin", "attn_norm", "mlp_norm", "final_norm", "bqkv",
          "wqkv", "wqkv_s", "wo", "wo_s", "w_gate", "w_gate_s", "w_up", "w_up_s",
          "w_down", "w_down_s", "samples", "logits_out", "h", "qkv", "t",
-         "k_store", "v_store", "tok", "logits", "barrier")
+         "k_store", "v_store", "tok", "logits", "barrier", "o")
 _INTS = ("B", "Db", "Dd", "Hq", "Hkv", "Dh", "I", "V", "ncb", "L", "g_gate",
-         "g_up", "g_down", "m_gate", "m_up", "m_down", "topk", "greedy", "kmax",
-         "xs_bytes")
+         "g_up", "g_down", "m_gate", "m_up", "m_down", "topk", "greedy")
 _barriers: dict = {}
+
+# A reference of the kernel's work partition and shared-memory plan. The
+# library decides both (csrc/fused_depth_decode.cu: tile_range,
+# frt_depth_chain_plan) and every launch uses its layout; the CPU tests check
+# these functions, and tests/test_torch_gpu.py holds them equal to the
+# library's (library_tiles, library_layout).
+TILE = 16                   # output rows of a tile (the mma's m)
+CHUNK = 7 * 64              # bytes of each tile row a ring stage holds
+STAGE_BYTES = TILE * (-(-CHUNK // 128) * 128 + 64)
+MAX_STAGES = 16
+STATIC_RESERVE = 12288      # the kernel's static shared memory, at most
+SMEM_PER_BLOCK = 232448     # an H100 block's shared memory (227 KB)
+
+
+def tile_range(O: int, block: int, grid: int) -> tuple[int, int]:
+    """Tiles [t0, t1) of an O-row matrix that block `block` of `grid` owns
+    (tile t holds rows 16 t .. 16 t + 15): the kernel's tile_range."""
+    T = -(-O // TILE)
+    return block * T // grid, (block + 1) * T // grid
+
+
+def _r128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def chain_layout(cfg: LLMConfig, B: int, plan: str = "") -> dict[str, int]:
+    """Shared memory of one block of kernel B for B streams, as the
+    library's frt_depth_chain_plan lays it out on an H100: the staged
+    activations (the largest any phase stages, rows padded as the kernel
+    pads them, with the copy of h and the sampling rows), then the ring's
+    stages in what is left of 227 KB (at most MAX_STAGES). Raises if fewer
+    than two stages fit."""
+    dcfg, modes = cfg.decoder, parse_plan(plan)
+    Db, Dd, I = cfg.backbone.embed_dim, dcfg.embed_dim, dcfg.intermediate_dim
+    HqDh, V = dcfg.num_heads * dcfg.head_dim, cfg.audio_vocab_size
+    Vp = -(-V // 4) * 4
+    a8 = {m: modes[m] in ("r8a8", "s8a8") for m in _MLP}
+    pitch_bf, pitch_x = (lambda K: 2 * K + 64), (lambda K: 2 * K + 16)
+    pitch_q = lambda K: _r128(K) + 64                          # noqa: E731
+    need = [B * pitch_bf(Db),                                  # proj
+            _r128(B * pitch_x(Dd))
+            + (B * pitch_q(Dd) if a8["w_gate"] or a8["w_up"] else 0),  # QKV, gate/up
+            B * pitch_x(HqDh),                                 # wo
+            B * (pitch_q(I) if a8["w_down"] else pitch_x(I)),  # down
+            B * pitch_bf(Dd),                                  # logits
+            B * 2 * Vp * 4,                                    # sampling
+            _r128(B * pitch_bf(Dd)) + _r128(B * pitch_q(Dd))
+            + B * Dd * 4 + Dd * 2]                             # h, norm weight
+    act = _r128(max(need))
+    stages = min(MAX_STAGES,
+                 (SMEM_PER_BLOCK - STATIC_RESERVE - act) // STAGE_BYTES)
+    if stages < 2:
+        raise ValueError(f"fused_depth_decode: {act} bytes of activations at "
+                         f"B={B} leave room for {stages} ring stages")
+    return dict(act_bytes=act, stages=stages,
+                smem_bytes=act + stages * STAGE_BYTES + STATIC_RESERVE)
+
+
+def block_schedule(cfg: LLMConfig, block: int, grid: int, plan: str = ""):
+    """The (matrix, step or (step, layer), tile, chunk) stages that block
+    `block` streams through its ring in one frame, in the order of the
+    kernel's producer warp: per micro-step the projection, per layer QKV,
+    wo, gate and up tile by tile, down, then (after step 0) the audio head.
+    A transcription of that walk: its tile ranges are the library's (held
+    equal on the card), its order is checked only by the kernel's results."""
+    dcfg, modes = cfg.decoder, parse_plan(plan)
+    Db, Dd, I = cfg.backbone.embed_dim, dcfg.embed_dim, dcfg.intermediate_dim
+    HqDh = dcfg.num_heads * dcfg.head_dim
+    Wqkv = (dcfg.num_heads + 2 * dcfg.num_kv_heads) * dcfg.head_dim
+    mlp_row = {m: (K // 2 if modes[m] == "r4" else K)
+               for m, K in (("w_gate", Dd), ("w_up", Dd), ("w_down", I))}
+
+    def tiles(name, key, O, row_bytes):
+        t0, t1 = tile_range(O, block, grid)
+        return [(name, key, t, c) for t in range(t0, t1)
+                for c in range(-(-row_bytes // CHUNK))]
+
+    out = []
+    for p in range(cfg.audio_num_codebooks):
+        out += tiles("proj", p, Dd, 2 * Db)
+        for l in range(dcfg.num_layers):
+            out += tiles("wqkv", (p, l), Wqkv, Dd) + tiles("wo", (p, l), Dd, HqDh)
+            t0, t1 = tile_range(I, block, grid)
+            for t in range(t0, t1):
+                for m in ("w_gate", "w_up"):
+                    out += [(m, (p, l), t, c)
+                            for c in range(-(-mlp_row[m] // CHUNK))]
+            out += tiles("w_down", (p, l), Dd, mlp_row["w_down"])
+        if p > 0:
+            out += tiles("head", p, cfg.audio_vocab_size, 2 * Dd)
+    return out
+
+
+def barriers_per_frame(cfg: LLMConfig) -> int:
+    """Grid barriers in one launch: per micro-step the projection's and five
+    a layer (QKV, attention, wo, gate/up, down), and after step 0 one more,
+    whose last block samples."""
+    ncb, L = cfg.audio_num_codebooks, cfg.decoder.num_layers
+    return ncb * (1 + 5 * L) + ncb - 1
+
+
+def kth_largest_by_passes(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The top-k threshold per row of x (..., V): the k-th largest distinct
+    value as pallas_depth.py: _kth_largest defines it (k - 1 rounds of
+    replacing the row's maximum by -1e30, then the maximum), by passes:
+    t_0 = max(x), t_i = max(max{x < t_(i-1)}, -1e30). Returns (..., 1)."""
+    t = x.amax(dim=-1, keepdim=True)
+    neg = torch.tensor(_NEG, dtype=x.dtype, device=x.device)
+    for _ in range(k - 1):
+        below = torch.where(x < t, x, torch.full_like(x, -math.inf))
+        t = torch.maximum(below.amax(dim=-1, keepdim=True), neg)
+    return t
+
 
 
 def load_library(abl: int | None = None) -> ctypes.CDLL:
@@ -342,34 +460,79 @@ def load_library(abl: int | None = None) -> ctypes.CDLL:
         if lib.frt_depth_chain_abl() != (abl or 0):
             raise RuntimeError(f"fused_depth_decode library built with FRT_ABL="
                                f"{lib.frt_depth_chain_abl()}, wanted {abl}")
-        lib.frt_depth_chain_grid.argtypes = [ctypes.c_int]
-        lib.frt_depth_chain_grid.restype = ctypes.c_int
-        lib.frt_fused_depth_decode.argtypes = [ctypes.c_void_p] * 4
+        lib.frt_depth_chain_plan.argtypes = [ctypes.c_void_p] * 2
+        lib.frt_depth_chain_tiles.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.frt_depth_chain_trace.argtypes = [ctypes.c_void_p] * 2
+        lib.frt_depth_chain_trace_shape.argtypes = [ctypes.c_void_p]
+        lib.frt_fused_depth_decode.argtypes = [ctypes.c_void_p] * 5
         lib.frt_fused_depth_decode.restype = ctypes.c_int
     return lib
 
 
 def _barrier(dev: torch.device) -> torch.Tensor:
-    """The kernel's grid-barrier words on `dev` (count, generation). Made
-    zero once; each launch leaves the count at zero again. Launches of the
-    kernel on one device must therefore not overlap (one stream)."""
+    """The kernel's grid-barrier words on `dev` (csrc/grid_sync.cuh:
+    arrivals, flag, departures, and word 3: the barriers block 0 has passed
+    over all launches). Made zero once; each launch leaves words 0-2 at zero
+    again. Launches of the kernel on one device must therefore not overlap
+    (one stream)."""
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     key = (dev.type, dev.index)
     if key not in _barriers:
-        _barriers[key] = torch.zeros(2, dtype=torch.int32, device=dev)
+        _barriers[key] = torch.zeros(4, dtype=torch.int32, device=dev)
     return _barriers[key]
 
 
-def _launch(lib: ctypes.CDLL, bd: dict, cfg: LLMConfig, modes: dict,
+def _ints(cfg: LLMConfig, B: int, plan: str, groups: dict, topk: int,
+          greedy: bool):
+    """The kernel's integer arguments (_INTS) as a C array."""
+    dcfg, modes = cfg.decoder, parse_plan(plan)
+    ints = dict(B=B, Db=cfg.backbone.embed_dim, Dd=dcfg.embed_dim,
+                Hq=dcfg.num_heads, Hkv=dcfg.num_kv_heads, Dh=dcfg.head_dim,
+                I=dcfg.intermediate_dim, V=cfg.audio_vocab_size,
+                ncb=cfg.audio_num_codebooks, L=dcfg.num_layers,
+                g_gate=groups["w_gate"], g_up=groups["w_up"],
+                g_down=groups["w_down"], m_gate=_MODE_ID[modes["w_gate"]],
+                m_up=_MODE_ID[modes["w_up"]], m_down=_MODE_ID[modes["w_down"]],
+                topk=topk, greedy=int(greedy))
+    return (ctypes.c_int * len(_INTS))(*[ints[n] for n in _INTS])
+
+
+def _layout_dict(out) -> dict[str, int]:
+    return dict(grid=out[0], stages=out[1], act_bytes=out[2])
+
+
+def library_layout(cfg: LLMConfig, B: int, plan: str = "",
+                   lib: ctypes.CDLL | None = None) -> dict[str, int]:
+    """The layout the library gives a launch of B streams on the current
+    CUDA device (frt_depth_chain_plan): grid, stages, act_bytes."""
+    lib = lib or load_library()
+    out = (ctypes.c_int * 3)()
+    err = lib.frt_depth_chain_plan(
+        _ints(cfg, B, plan, dict.fromkeys(_MLP, 0), 10, False), out)
+    if err:
+        raise RuntimeError(f"frt_depth_chain_plan: CUDA error {err}")
+    return _layout_dict(out)
+
+
+def library_tiles(O: int, block: int, grid: int,
+                  lib: ctypes.CDLL | None = None) -> tuple[int, int]:
+    """The kernel's own tile_range (frt_depth_chain_tiles)."""
+    out = (ctypes.c_int * 2)()
+    (lib or load_library()).frt_depth_chain_tiles(O, block, grid, out)
+    return out[0], out[1]
+
+
+def _launch(lib: ctypes.CDLL, bd: dict, cfg: LLMConfig, plan: str,
             groups: dict, last_h, c0, noise, forced, topk, temperature,
             greedy, logits_out) -> torch.Tensor:
     dcfg = cfg.decoder
     dev = last_h.device
-    B, Db = last_h.shape
+    B = last_h.shape[0]
     ncb, V = cfg.audio_num_codebooks, cfg.audio_vocab_size
     Dd, I, L = dcfg.embed_dim, dcfg.intermediate_dim, dcfg.num_layers
     Hq, Hkv, Dh = dcfg.num_heads, dcfg.num_kv_heads, dcfg.head_dim
-    kmax = max(Db, Dd, Hq * Dh, I)
-    xs_bytes = -(-max(B * kmax * 2, 8 * V) // 16) * 16
+    modes = parse_plan(plan)
     f32, bf = torch.float32, torch.bfloat16
     t = dict(bd)
     t.update(
@@ -377,30 +540,28 @@ def _launch(lib: ctypes.CDLL, bd: dict, cfg: LLMConfig, modes: dict,
         samples=torch.empty((B, ncb), dtype=torch.int32, device=dev),
         h=torch.empty((B, Dd), dtype=f32, device=dev),
         qkv=torch.empty((B, (Hq + 2 * Hkv) * Dh), dtype=f32, device=dev),
+        o=torch.empty((B, Hq * Dh), dtype=bf, device=dev),
         t=torch.empty((B, I), dtype=bf, device=dev),
         k_store=torch.empty((L, ncb, B, Hkv, Dh), dtype=bf, device=dev),
         v_store=torch.empty((L, ncb, B, Hkv, Dh), dtype=bf, device=dev),
         tok=torch.empty((B,), dtype=torch.int32, device=dev),
-        logits=torch.empty((B, V), dtype=f32, device=dev),
+        logits=torch.empty((B, -(-V // 4) * 4), dtype=f32, device=dev),
         barrier=_barrier(dev))
     for m in _MLP:
         if modes[m] == "r4":
             t[m + "_s"] = t[m + "_s4"]
-    ints = dict(B=B, Db=Db, Dd=Dd, Hq=Hq, Hkv=Hkv, Dh=Dh, I=I, V=V, ncb=ncb, L=L,
-                g_gate=groups["w_gate"], g_up=groups["w_up"],
-                g_down=groups["w_down"], m_gate=_MODE_ID[modes["w_gate"]],
-                m_up=_MODE_ID[modes["w_up"]], m_down=_MODE_ID[modes["w_down"]],
-                topk=topk, greedy=int(greedy), kmax=kmax, xs_bytes=xs_bytes)
     ptrs = (ctypes.c_void_p * len(_PTRS))(
         *[0 if t[n] is None else t[n].data_ptr() for n in _PTRS])
-    ints_c = (ctypes.c_int * len(_INTS))(*[ints[n] for n in _INTS])
+    ints_c = _ints(cfg, B, plan, groups, topk, greedy)
     floats = (ctypes.c_float * 3)(temperature, dcfg.norm_eps, 1.0 / math.sqrt(Dh))
+    layout = (ctypes.c_int * 3)()
     err = lib.frt_fused_depth_decode(
         ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(ints_c, ctypes.c_void_p),
         ctypes.cast(floats, ctypes.c_void_p),
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream, layout)
     if err:
         raise RuntimeError(f"fused_depth_decode launch failed: CUDA error {err}")
+    fused_depth_decode.last_layout = _layout_dict(layout)
     if lib is load_library():       # the ablation builds' launches are not counted
         fused_depth_decode.launches += 1
     return t["samples"]
@@ -463,10 +624,11 @@ def run_chain(lib: ctypes.CDLL, bundle: dict[str, Any], cfg: LLMConfig,
     Wqkv = (Hq + 2 * Hkv) * Dh
     B, Db = last_h.shape
     bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
-    if Dh != 128 or any(d % 32 for d in (Db, Dd, I, Hq * Dh)) or ncb > 16:
-        raise ValueError(f"fused_depth_decode: the kernel takes Dh = 128, widths "
-                         f"that are multiples of 32 and <= 16 codebooks, got "
-                         f"Dh={Dh}, Db={Db}, Dd={Dd}, I={I}, ncb={ncb}")
+    if Dh != 128 or Db % 32 or Dd % 128 or I % 128 or ncb > 16:
+        raise ValueError(f"fused_depth_decode: the kernel takes Dh = 128, Db a "
+                         f"multiple of 32, Dd and I multiples of 128 and <= 16 "
+                         f"codebooks, got Dh={Dh}, Db={Db}, Dd={Dd}, I={I}, "
+                         f"ncb={ncb}")
     modes = parse_plan(plan)
     last_h, noise = last_h.contiguous(), noise.contiguous()
     _check("last_h", last_h, dev, bf, (B, Db))
@@ -505,7 +667,7 @@ def run_chain(lib: ctypes.CDLL, bundle: dict[str, Any], cfg: LLMConfig,
         lo = (torch.zeros((sl.stop - i, ncb, V), dtype=f32, device=dev)
               if return_logits else None)
         parts.append(_launch(
-            lib, bundle, cfg, modes, groups, last_h[sl], c0[sl], noise[sl],
+            lib, bundle, cfg, plan, groups, last_h[sl], c0[sl], noise[sl],
             None if forced is None else forced[sl], depth_topk,
             depth_temperature, greedy, lo))
         logit_parts.append(lo)
@@ -516,3 +678,4 @@ def run_chain(lib: ctypes.CDLL, bundle: dict[str, Any], cfg: LLMConfig,
 
 
 fused_depth_decode.launches = 0
+fused_depth_decode.last_layout = None   # the layout the last launch used

@@ -164,7 +164,7 @@ def _barrier(dev: torch.device) -> torch.Tensor:
     ready for the next (launches on one stream)."""
     key = (dev.type, dev.index)
     if key not in _barriers:
-        _barriers[key] = torch.zeros(2, dtype=torch.int32, device=dev)
+        _barriers[key] = torch.zeros(4, dtype=torch.int32, device=dev)
     return _barriers[key]
 
 

@@ -8,13 +8,17 @@ attention and sampling). On the card these are compile-time bits of
 ``csrc/fused_depth_decode.cu`` (``FRT_ABL``), each a separate library built
 beside the serving one:
 
-  half     : the MLP GEMVs (gate, up, down) read half of each row (halfdma)
-  tiny     : ... one 16-byte chunk a lane per row (tinydma)
-  noload   : ... no weight loads; conversion and FMAs kept (dmas)
+  half     : the MLP matrices (gate, up, down) stream half of each row
+             (halfdma)
+  tiny     : ... one ring chunk (448 bytes) of each row (tinydma)
+  noload   : no weight copies: the producer releases the ring's stages
+             unfilled; conversion and products kept (dmas)
   noattn   : no QKV, attention or wo phases (probe_step without attn)
   nosample : no logits or sampling phases (probe_step without samp)
   nosync   : the grid barrier becomes a block barrier (no TPU twin: the
              TPU's grid ran in order)
+  noattncore: QKV, wo and their barriers kept, the attention core replaced
+             by o = the fresh v (splits noattn into the core and the rest)
 
 The numbers are garbage under every bit; the time is honest. Against
 ``none`` (the serving code, built as the variant FRT_ABL=0), the deltas
@@ -27,10 +31,22 @@ Repeat counts: one call is one frame (16 micro-steps), as the model runs
 it; each time is the CUDA-event mean of calls queued on the card, beside
 the host's time to issue one call.
 
+A further build, ``trace`` (FRT_ABL_TRACE), ablates nothing: its numbers
+are the serving build's, and thread 0 of blocks 0, G/2 and G-1 of the
+grid stamps the device clock (globaltimer, ns) where it enters and leaves
+each grid barrier, each phase's staging of its inputs, each tile (the wait
+for its ring stages, the products and the epilogue), the attention core and
+the logits barrier whose last block samples (``trace_frame``). The time
+between consecutive stamps, summed by kind over one frame, splits a block's
+frame into barrier waits, staging round trips, tiles, attention, sampling
+and the rest; each stamp costs a timer read and a store.
+
     python -m fireredtts2_tpu_torch.tools.ablate_depth
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -43,13 +59,21 @@ from fireredtts2_tpu_torch.tools._common import (
 
 PRESET = "gate=r8,up=s8,down=s8"
 BITS = {"half": 1, "tiny": 2, "noload": 4, "noattn": 8, "nosample": 16,
-        "nosync": 32}
+        "nosync": 32, "noattncore": 64}
 VARIANTS = {"none": 0, **BITS}
+TRACE = 128                     # FRT_ABL_TRACE: stamps, the numbers kept
+EVENTS = ("bar_in", "bar_out", "stage_in", "stage_out", "tile_in", "tile_out",
+          "attn_in", "attn_out", "samp_in", "samp_out")    # codes 1..10
+SPANS = {"bar_in -> bar_out": "barrier", "stage_in -> stage_out": "staging",
+         "tile_in -> tile_out": "tiles", "attn_in -> attn_out": "attention",
+         "samp_in -> samp_out": "sampling"}
 
 
 def build_jobs(variants=VARIANTS) -> list:
-    """cuda_build.build jobs of kernel B's variants (FRT_ABL=0 included)."""
-    return [("fused_depth_decode", (f"FRT_ABL={v}",)) for v in variants.values()]
+    """cuda_build.build jobs of kernel B's variants (FRT_ABL=0 included)
+    and of its trace build."""
+    return [("fused_depth_decode", (f"FRT_ABL={v}",))
+            for v in (*variants.values(), TRACE)]
 
 
 def random_depth_bundle(dev, plan: str = PRESET, seed: int = 0):
@@ -132,6 +156,56 @@ def time_variants(bundle, cfg, B: int, gen, variants=VARIANTS,
     return out
 
 
+def read_trace(lib) -> list[list[tuple[int, str]]]:
+    """The trace build's stamps of its last launch, per traced block: (ns,
+    event) in order."""
+    shape = (ctypes.c_int * 2)()
+    lib.frt_depth_chain_trace_shape(shape)
+    slots, cap = shape
+    buf = (ctypes.c_ulonglong * (slots * cap))()
+    counts = (ctypes.c_int * slots)()
+    err = lib.frt_depth_chain_trace(buf, counts)
+    if err:
+        raise RuntimeError(f"frt_depth_chain_trace: CUDA error {err}")
+    return [[(buf[s * cap + i] >> 4, EVENTS[(buf[s * cap + i] & 15) - 1])
+             for i in range(counts[s])] for s in range(slots)]
+
+
+def split_trace(events: list[tuple[int, str]]) -> dict:
+    """One block's frame: the stamps of each event, and the us between
+    consecutive stamps summed by (from, to) pair and by kind (SPANS; every
+    other pair is "between")."""
+    pairs: dict[str, float] = {}
+    for (t0, a), (t1, b) in zip(events, events[1:]):
+        key = f"{a} -> {b}"
+        pairs[key] = pairs.get(key, 0.0) + (t1 - t0) / 1e3
+    split = dict.fromkeys((*SPANS.values(), "between"), 0.0)
+    for key, us in pairs.items():
+        split[SPANS.get(key, "between")] += us
+    counts = dict.fromkeys(EVENTS, 0)
+    for _, e in events:
+        counts[e] += 1
+    return dict(events=len(events), counts=counts,
+                span_us=(events[-1][0] - events[0][0]) / 1e3 if events else 0.0,
+                split_us=split,
+                pairs_us=dict(sorted(pairs.items(), key=lambda kv: -kv[1])))
+
+
+def trace_frame(bundle, cfg, B: int, gen, plan: str = PRESET) -> dict:
+    """One frame of B streams through the trace build, after two warm-up
+    frames: each traced block's split, and whether its samples equal the
+    serving build's."""
+    inputs = frame_inputs(cfg, B, gen)
+    ref = run_variant(None, bundle, cfg, inputs, plan)
+    lib = dc.load_library(TRACE)
+    for _ in range(3):
+        got = dc.run_chain(lib, bundle, cfg, *inputs, plan=plan)
+    grid = dc.fused_depth_decode.last_layout["grid"]
+    blocks = [split_trace(ev) for ev in read_trace(lib)]
+    return dict(samples_equal=bool(torch.equal(got, ref)),
+                block_ids=[0, grid // 2, grid - 1], blocks=blocks)
+
+
 def main(dev="cuda", batches=(1, 8)) -> dict:
     dev = cuda_device(dev)
     print(f"{card_line()}; device {torch.cuda.get_device_name(dev)}", flush=True)
@@ -147,6 +221,14 @@ def main(dev="cuda", batches=(1, 8)) -> dict:
             print(f"ABL={name:8s} B={B}: {r['ms']:.4f} ms/frame (change "
                   f"{r['delta_ms']:+.4f}), host issue {r['host_ms']:.4f} ms",
                   flush=True)
+    out["trace"] = {}
+    for B in batches:
+        tr = out["trace"][B] = trace_frame(bundle, cfg, B, gen)
+        for blk, r in zip(tr["block_ids"], tr["blocks"]):
+            split = ", ".join(f"{k} {v:.1f}" for k, v in r["split_us"].items())
+            print(f"trace B={B} block {blk}: {r['events']} stamps over "
+                  f"{r['span_us']:.1f} us: {split} us; samples equal the "
+                  f"serving build's: {tr['samples_equal']}", flush=True)
     return out
 
 

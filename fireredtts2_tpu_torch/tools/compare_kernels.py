@@ -1,16 +1,23 @@
-"""Times of kernels C, D and E from two checkouts on one card, in turns.
+"""Times of kernels B, C, D and E from two checkouts on one card, in turns.
 
     python -m fireredtts2_tpu_torch.tools.compare_kernels [OTHER_DIR]
-        [--kernels c,d,e] [--out chiprun_out/compare_kernels.json]
+        [--kernels b,c,d,e] [--out chiprun_out/compare_kernels.json]
 
-Runs ``chip_smoke.py``'s ``check_kernel_c``, ``check_kernel_d`` and
-``check_kernel_e`` (every case at the flagship shapes, checked against the
-plain version, timed beside the library call) of OTHER_DIR -- another
+Runs ``chip_smoke.py``'s ``check_kernel_b`` (the preset, r4 and a8 plans at
+B = 1 and 8, checked against the plain version and timed alone by queued
+CUDA events), ``check_kernel_c``, ``check_kernel_d`` and ``check_kernel_e``
+(every case at the flagship shapes, checked against the plain version,
+timed beside the library call) of OTHER_DIR -- another
 checkout of the repo, e.g. an earlier commit unpacked with ``git archive``
 -- and of this checkout, each in a process of its own that builds its own
 kernels, in the order other, this, this, other. Without OTHER_DIR it runs
 this checkout once. Prints one line per case with the device time of each
-run and writes every result to ``--out``. Needs a CUDA device.
+run (kernel B: the CUDA-event time of calls queued on the card, since the
+profiler loses some of its launches) and writes every result to
+``--out``. Needs a CUDA device.
+
+    python -m fireredtts2_tpu_torch.tools.compare_kernels OTHER --kernels b
+    (kernel B alone: ~1 min a run)
 """
 
 from __future__ import annotations
@@ -30,6 +37,24 @@ torch.backends.cudnn.allow_tf32 = False
 kernels = sys.argv[1].split(",")
 voc = cs.FLAGSHIP["voc"]
 out = {"card": cs.card_line()}
+if "b" in kernels:
+    # checked as chip_smoke checks it, timed here alone: queued CUDA events
+    # of the kernel (the plain version's time is chip_smoke's to report)
+    from fireredtts2_tpu_torch.ops import depth_chain as dc
+    out["b"] = cs.check_kernel_b("cuda", timed=False)
+    bundles = {}
+    for r in out["b"]:
+        if r["plan"] not in bundles:
+            bundles[r["plan"]] = cs.depth_bundle("cuda", r["plan"])
+        cfg, bundle, gen = bundles[r["plan"]]
+        B, ncb, V = r["B"], cfg.audio_num_codebooks, cfg.audio_vocab_size
+        last_h = cs._rnd(gen, B, cfg.backbone.embed_dim)
+        c0 = torch.randint(0, V, (B,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+        noise = torch.empty((B, ncb, V), device="cuda").exponential_(generator=gen)
+        r["queued_ms"] = cs.queued_ms(lambda: dc.fused_depth_decode(
+            bundle, cfg, last_h, c0, noise, plan=r["plan"]), 20)
+    del bundles
 if "c" in kernels:
     out["c"] = cs.check_kernel_c("cuda", voc["L"], voc["T"], voc["H"],
                                  voc["Dh"], voc["reps"])
@@ -40,7 +65,9 @@ if "e" in kernels:
 print("RESULT " + json.dumps(out, default=str), flush=True)
 """
 
-_KEYS = {"c": ("B", "S", "live", "overshoot"), "d": (), "e": ("name", "M")}
+_KEYS = {"b": ("plan", "B"), "c": ("B", "S", "live", "overshoot"), "d": (),
+         "e": ("name", "M")}
+_TIME = {"b": "queued_ms"}     # kernel B: queued CUDA events, else device
 
 
 def run(root: str, kernels: str) -> dict:
@@ -57,7 +84,7 @@ def run(root: str, kernels: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", nargs="?", help="another checkout of the repo")
-    ap.add_argument("--kernels", default="c,d,e")
+    ap.add_argument("--kernels", default="b,c,d,e")
     ap.add_argument("--out", default="chiprun_out/compare_kernels.json")
     args = ap.parse_args(argv)
     here = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -80,7 +107,9 @@ def main(argv=None) -> int:
             for label, res in runs:
                 r = res[k][i]
                 ok &= bool(r["ok"])
-                ms = r.get("ms") if r.get("ms") is not None else r.get("queued_ms")
+                ms = r.get(_TIME.get(k, "ms"))
+                if ms is None:
+                    ms = r.get("queued_ms")
                 row.append(f"{label} {ms} (ok={r['ok']})")
             last = runs[-1][1][k][i]
             print(f"kernel {k.upper()} {key}: " + "; ".join(row)

@@ -194,7 +194,7 @@ def _small_depth_cfg(monkeypatch, plan):
 @pytest.mark.parametrize("plan", ["gate=r8,up=s8,down=s8",
                                   "gate=r4,up=s8,down=s8",
                                   "gate=r8a8,up=s8a8,down=s8"])
-@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("B", [1, 3, 8])
 def test_kernel_b_matches_plain(cuda, monkeypatch, plan, B):
     from fireredtts2_tpu_torch.models.lm.model import init_lm_params
     from fireredtts2_tpu_torch.ops import depth_chain as dc
@@ -219,6 +219,76 @@ def test_kernel_b_matches_plain(cuda, monkeypatch, plan, B):
     assert float((logits - ref_logits).abs().max()) <= B_TOL * peak
     assert torch.equal(out[:, 0], c0.to(torch.int32))
     assert bool(((out >= 0) & (out < 300)).all())
+    # two free launches back to back: the barrier words and the mbarrier
+    # phases come back to their start, so both sample the same tokens
+    first = dc.fused_depth_decode(bundle, cfg, last_h, c0, noise, plan=plan)
+    second = dc.fused_depth_decode(bundle, cfg, last_h, c0, noise, plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_kernel_b_flagship_preset(cuda, B):
+    """The serving preset at the flagship depth decoder (qwen-200m, 16
+    codebooks of 2051): logits with the plain version's tokens forced
+    within B_TOL of its peak, two free launches back to back sampling the
+    same tokens, and the grid barriers of a launch (the barrier words'
+    count of them) as barriers_per_frame counts them, with the words back
+    at zero."""
+    from fireredtts2_tpu_torch.ops import depth_chain as dc
+    from fireredtts2_tpu_torch.tools import ablate_depth as ad
+
+    plan = "gate=r8,up=s8,down=s8"
+    cfg, bundle, gen = ad.random_depth_bundle(cuda, plan)
+    last_h, c0, noise = ad.frame_inputs(cfg, B, gen)
+    ref, ref_logits = dc.fused_depth_decode_plain(bundle, cfg, last_h, c0,
+                                                  noise, plan=plan)
+    _, logits = dc.fused_depth_decode(bundle, cfg, last_h, c0, noise,
+                                      plan=plan, forced=ref, return_logits=True)
+    bar = dc._barrier(cuda)
+    passed = int(bar[3])
+    first = dc.fused_depth_decode(bundle, cfg, last_h, c0, noise, plan=plan)
+    torch.cuda.synchronize()
+    assert (int(bar[3]) - passed) % 2 ** 32 == dc.barriers_per_frame(cfg) == 351
+    assert bar[:3].tolist() == [0, 0, 0]
+    second = dc.fused_depth_decode(bundle, cfg, last_h, c0, noise, plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.isfinite(logits).all()
+    peak = float(ref_logits.abs().max())
+    assert float((logits - ref_logits).abs().max()) <= B_TOL * peak
+    # the layout the launches used: the library's, 16 ring stages at B=1
+    # and 8 at B=8
+    used = dc.fused_depth_decode.last_layout
+    assert used == dc.library_layout(cfg, B, plan)
+    assert used["stages"] == {1: 16, 8: 8}[B]
+
+
+@pytest.mark.parametrize("plan", ["gate=r8,up=s8,down=s8",
+                                  "gate=r4,up=s8,down=r4",
+                                  "gate=r8a8,up=s8a8,down=s8a8"])
+def test_kernel_b_library_layout_matches_reference(cuda, plan):
+    """The library decides each launch's layout and partition
+    (frt_depth_chain_plan, tile_range); ops/depth_chain.py's chain_layout
+    and tile_range, which the CPU tests check, must be the same numbers:
+    at the flagship depth decoder for B = 1..8, a grid of one block per SM,
+    and the tiles of every matrix height over the CPU tests' grids."""
+    from fireredtts2_tpu_torch.config import LLMConfig
+    from fireredtts2_tpu_torch.ops import depth_chain as dc
+
+    cfg = LLMConfig(fused_depth_plan=plan)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for B in range(1, 9):
+        ref = dc.chain_layout(cfg, B, plan)
+        assert dc.library_layout(cfg, B, plan) == dict(
+            grid=sms, stages=ref["stages"], act_bytes=ref["act_bytes"])
+    d = cfg.decoder
+    heights = {d.embed_dim, d.intermediate_dim, cfg.audio_vocab_size,
+               (d.num_heads + 2 * d.num_kv_heads) * d.head_dim}
+    for grid in (1, 7, 66, 132, 264):
+        for O in heights:
+            for b in range(grid):
+                assert dc.library_tiles(O, b, grid) == dc.tile_range(O, b, grid)
 
 
 @pytest.mark.parametrize("M", [1, 2, 5, 16, 17, 32])
@@ -393,8 +463,28 @@ def test_kernel_b_abl0_build_identical_to_serving_build(cuda, monkeypatch):
     assert dc.fused_depth_decode.launches == before + 1
 
 
+def test_kernel_b_trace_build_samples_as_serving_and_stamps(cuda, monkeypatch):
+    """The trace build keeps the serving build's numbers, and each traced
+    block stamps every phase barrier (1 + 5 L a micro-step) and every
+    logits barrier (one a micro-step after the first) in and out once."""
+    from fireredtts2_tpu_torch.tools import ablate_depth as ad
+
+    cfg, bundle, _, plan = _small_depth_run(monkeypatch, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    tr = ad.trace_frame(bundle, cfg, 2, gen, plan)
+    assert tr["samples_equal"]
+    ncb, L = cfg.audio_num_codebooks, cfg.decoder.num_layers
+    for r in tr["blocks"]:
+        c = r["counts"]
+        assert c["bar_in"] == c["bar_out"] == ncb * (1 + 5 * L)
+        assert c["samp_in"] == c["samp_out"] == ncb - 1
+        assert c["attn_in"] == c["attn_out"] == ncb * L
+        assert c["tile_in"] == c["tile_out"]
+        assert 0 < r["span_us"] and r["split_us"]["barrier"] > 0
+
+
 @pytest.mark.parametrize("name", ["half", "tiny", "noload", "noattn",
-                                  "nosample", "nosync"])
+                                  "nosample", "nosync", "noattncore"])
 def test_kernel_b_ablation_builds_launch_and_finish(cuda, monkeypatch, name):
     from fireredtts2_tpu_torch.tools import ablate_depth as ad
 
