@@ -10,7 +10,10 @@ Phases (any failure exits non-zero and prints no result line):
    parallel) and report the build time;
 3. kernel A (flash_decode_gqa1) against its plain PyTorch version at the
    flagship LM slab (28, B, 3584, 256) bf16, B in {1, 8}, ragged windows
-   with live lengths near 200 and near 3000;
+   with live lengths near 200 and near 3000, and at B=1 near 16 and 1000
+   too: the live sweep's intercept (the fixed cost) and slope; each case's
+   split size (the library's plan) and its CUDA launches per call
+   (profiler);
 4. kernel C (flash_decode_update_bounded) against its plain version at the
    flagship vocoder slab (12, B, 3008, 1024) bf16, B in {1, 8}, S in {8, 32,
    128} (stream blocks of 1, 4 and 16 frames) and 64 (generate's vocoder
@@ -90,7 +93,8 @@ time per call, which also counts the host's launch gaps. Timed calls of kernels 
 slab's layers in turn, as the model does, so each layer's K/V comes from
 device memory and not from the 50 MB L2 cache (the LM slab is ~100 MB at
 B=1, the vocoder slab ~150 MB). After the main path, one short generate
-call is traced to give the device's busy share and its largest kernels.
+call is traced to give the device's busy share, its largest kernels and
+kernel A's time and CUDA launches in it.
 Each number is printed with the card's name and power limit; details go
 to chiprun_out/chip_smoke.json.
 """
@@ -330,16 +334,22 @@ def check_kernel_a(dev, L, T, Hkv, G, Dh, reps, cases=None, timed=True):
     from fireredtts2_tpu_torch.ops import flash_decode as fd
 
     rng = np.random.default_rng(0)
-    cases = cases or [(1, 200), (1, 3000), (8, 200), (8, 3000)]
+    # the main path's shapes, then B=1 at ~16 and ~1000 live: with ~200 and
+    # ~3000 a live sweep whose intercept is the fixed cost (launch, merge)
+    # and whose slope the stream rate
+    cases = cases or [(1, 200), (1, 3000), (8, 200), (8, 3000), (1, 16),
+                      (1, 1000)]
     results = []
     for B, live in cases:
         gen = torch.Generator(device=dev).manual_seed(B * 7919 + live)
         q = _rnd(gen, B, Hkv * G, Dh)
         k4, v4 = _rnd(gen, L, B, T, Hkv * Dh), _rnd(gen, L, B, T, Hkv * Dh)
-        # ragged windows: left padding up to 40 slots, ends near `live`;
-        # stream 0 ends on a chunk edge when the window is long
-        q_start = rng.integers(0, 40, B)
-        q_end = np.minimum(live + rng.integers(-20, 20, B), T)
+        # ragged windows: left padding up to 40 slots (a quarter of a short
+        # window), ends near `live`; stream 0 ends on a chunk edge when the
+        # window is long
+        pad = min(40, max(live // 4, 1))
+        q_start = rng.integers(0, pad, B)
+        q_end = np.minimum(live + rng.integers(-min(20, pad), min(20, pad), B), T)
         if live > 1000:
             q_end[0] = min(T, (live // 512) * 512)
         qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
@@ -353,6 +363,10 @@ def check_kernel_a(dev, L, T, Hkv, G, Dh, reps, cases=None, timed=True):
         live_slots = int((q_end - q_start).sum())
         bnd, by = bound_ms(4 * B * Hkv * G * Dh + live_slots * Hkv * Dh * 4,
                            4 * Hkv * G * Dh * live_slots)
+        launches = None
+        if torch.device(dev).type == "cuda":
+            launches = cuda_launches(lambda: fd.flash_decode_gqa1(
+                q, k4, v4, layer, qs, qe, lo, hi))
         times = {}
         if timed:
             step = itertools.count()
@@ -368,10 +382,28 @@ def check_kernel_a(dev, L, T, Hkv, G, Dh, reps, cases=None, timed=True):
             mask = ((slot >= qs[:, None]) & (slot < qe[:, None]))[:, None, None]
             times["library_ms"] = library_ms(
                 sdpa_call(q[:, :, None], kv[0], kv[1], mask), reps)
+        split = None
+        if torch.device(dev).type == "cuda":
+            split = fd.gqa1_plan(B, Hkv, G, T, Dh,
+                                 torch.device(dev).index or 0)[0]
         results.append(dict(B=B, live=live, max_abs_err=err, ok=ok,
-                            bound_ms=bnd, bound_by=by, **times))
+                            bound_ms=bnd, bound_by=by, split=split,
+                            cuda_launches_per_call=launches, **times))
         del q, k4, v4
     return results
+
+
+def live_sweep(rows, key: str = "ms") -> dict | None:
+    """Least squares of kernel A's time on the live length over the B=1
+    cases: the intercept (fixed cost: launch, copies' latency, merge) and
+    the slope (ms per 1000 live slots). None without three timed cases."""
+    pts = [(r["live"], r.get(key)) for r in rows if r["B"] == 1]
+    pts = [(x, y) for x, y in pts if y is not None]
+    if len(pts) < 3:
+        return None
+    slope, icpt = np.polyfit([x for x, _ in pts], [y for _, y in pts], 1)
+    return dict(fixed_ms=float(icpt), ms_per_1000_slots=float(slope * 1e3),
+                points=len(pts), timed_by=key)
 
 
 def check_kernel_c(dev, L, T, H, Dh, reps, cases=None, timed=True):
@@ -1019,7 +1051,8 @@ def check_small_model(dev):
 
 def trace_generate(eng, dev, max_ms: float = 800.0) -> dict:
     """Trace one short generate call: wall time, summed device kernel time
-    (busy share = device / wall) and the largest kernels by device time."""
+    (busy share = device / wall), the largest kernels by device time (with
+    their launch counts) and kernel A's time and launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1035,19 +1068,24 @@ def trace_generate(eng, dev, max_ms: float = 800.0) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         by_name: dict = {}
+        count: dict = {}
         n = 0
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
                 by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+                count[e.name] = count.get(e.name, 0) + 1
                 n += 1
     except Exception as e:   # the profiler is optional here
         log(f"profiler unavailable: {e!r}")
         return {}
     busy = sum(by_name.values()) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    gqa1 = [name for name in by_name if "gqa1" in name]     # kernel A
     return dict(wall_s=wall, device_s=busy, busy_share=busy / wall,
                 kernel_launches=n, frames=eng.last_stats.get("frames"),
-                top=[(name[:90], us / 1e3) for name, us in top])
+                kernel_a_ms=sum(by_name[k] for k in gqa1) / 1e3,
+                kernel_a_launches=sum(count[k] for k in gqa1),
+                top=[(name[:90], us / 1e3, count[name]) for name, us in top])
 
 
 def reset_counts() -> None:
@@ -1235,9 +1273,17 @@ def main() -> int:
                            lm["reps"])
     for r in res_a:
         log(f"kernel A B={r['B']} live~{r['live']}: max_abs_err "
-            f"{r['max_abs_err']:.3e} ok={r['ok']}  {fmt_times(r)}  [{card}]")
+            f"{r['max_abs_err']:.3e} ok={r['ok']}  {fmt_times(r)}; split "
+            f"{r['split']} slots, {r['cuda_launches_per_call']} CUDA launch(es) "
+            f"a call  [{card}]")
         ok &= r["ok"]
+    sweep_a = {k: live_sweep(res_a, k) for k in ("ms", "queued_ms")}
+    for k, f in sweep_a.items():
+        if f:
+            log(f"kernel A live sweep at B=1 ({k}): fixed {f['fixed_ms']:.4f} ms "
+                f"+ {f['ms_per_1000_slots']:.4f} ms per 1000 live slots  [{card}]")
     report["kernel_a"] = res_a
+    report["kernel_a_live_sweep"] = sweep_a
 
     # 4. kernel C (and D)
     voc = FLAGSHIP["voc"]
@@ -1361,9 +1407,10 @@ def main() -> int:
                 f"{pr['wall_s']:.3f} s, device {pr['device_s']:.3f} s, busy share "
                 f"{pr['busy_share']:.3f}, {pr['kernel_launches']} CUDA kernel "
                 f"launches ({pr['kernel_launches'] / max(pr['frames'] or 1, 1):.0f}"
-                f" per frame)  [{card}]")
-            for name, ms in pr["top"]:
-                log(f"  {ms:9.3f} ms  {name}")
+                f" per frame); kernel A {pr['kernel_a_ms']:.3f} ms in "
+                f"{pr['kernel_a_launches']} CUDA launches  [{card}]")
+            for name, ms, n in pr["top"]:
+                log(f"  {ms:9.3f} ms {n:6d} x  {name}")
         log(f"[{label}] engine checks: {eng['checks']}")
         ok &= eng["ok"]
         report[f"engine_{label}"] = eng
@@ -1402,7 +1449,10 @@ def main() -> int:
         entry("flash_decode_gqa1", csrc + "flash_decode_gqa1.cu",
               "fireredtts2_tpu/ops/pallas_flash.py:600",
               main_launches["flash_decode_gqa1"], res_a,
-              pick(res_a, B=1, live=3000)),
+              pick(res_a, B=1, live=3000),
+              cuda_launches_per_call=pick(res_a, B=1, live=3000)[
+                  "cuda_launches_per_call"],
+              live_sweep=sweep_a["ms"] or sweep_a["queued_ms"]),
         entry("fused_depth_decode", csrc + "fused_depth_decode.cu",
               "fireredtts2_tpu/ops/pallas_depth.py:749",
               main_launches["fused_depth_decode"], res_b,

@@ -114,13 +114,6 @@ __device__ __forceinline__ void chunk_range(const int* live_lo,
   *hi = nc * C;
 }
 
-// 2^x in one MUFU instruction (denormal results flush to 0; 2^-inf = 0).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -337,8 +330,8 @@ bounded_attn_kernel(const Args a) {
     }
     // finite: slot t0 lies inside the range, so every row has a score
     const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    const float corr_a = m_a == -INFINITY ? 0.f : fast_exp2(m_a - mn_a);
-    const float corr_b = m_b == -INFINITY ? 0.f : fast_exp2(m_b - mn_b);
+    const float corr_a = m_a == -INFINITY ? 0.f : frt_fast_exp2(m_a - mn_a);
+    const float corr_b = m_b == -INFINITY ? 0.f : frt_fast_exp2(m_b - mn_b);
     m_a = mn_a;
     m_b = mn_b;
     float ps_a = 0.f, ps_b = 0.f;
@@ -346,8 +339,8 @@ bounded_attn_kernel(const Args a) {
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        sc[j][e] = fast_exp2(sc[j][e] - mn_a);
-        sc[j][2 + e] = fast_exp2(sc[j][2 + e] - mn_b);
+        sc[j][e] = frt_fast_exp2(sc[j][e] - mn_a);
+        sc[j][2 + e] = frt_fast_exp2(sc[j][2 + e] - mn_b);
         ps_a += sc[j][e];
         ps_b += sc[j][2 + e];
       }
@@ -456,7 +449,7 @@ bounded_attn_kernel(const Args a) {
     float L = 0.f;
     for (int sp = 0; sp < a.NS; ++sp) {
       const float m = sw[sp * kQB + r];
-      const float w = m == -INFINITY ? 0.f : fast_exp2(m - M);  // empty split
+      const float w = m == -INFINITY ? 0.f : frt_fast_exp2(m - M);  // empty split
       sw[sp * kQB + r] = w;
       L = fmaf(w, sl[sp * kQB + r], L);
     }

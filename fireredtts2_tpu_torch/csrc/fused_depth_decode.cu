@@ -98,6 +98,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
 #include "grid_sync.cuh"
 #include "int4_unpack.cuh"
 #include "mma_bf16.cuh"
@@ -244,43 +245,7 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// ---- the ring: mbarriers and bulk copies --------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t a, unsigned n) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(a), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t a) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(a) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t a, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(a), "r"(bytes) : "memory");
-}
-
-// Until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t a, unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" :: "r"(a), "r"(parity) : "memory");
-}
-
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                                          unsigned bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" :: "r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
+// ---- the ring (mbarriers and bulk copies: bulk_copy.cuh) ----------------
 
 struct Ring {
   unsigned char* base;                // stage 0
@@ -357,16 +322,17 @@ __device__ __forceinline__ void produce_tile(const Mat& m, int t, Ring& r, int l
   const int row0 = t * kTile, nr = min(kTile, m.O - row0);
   for (int c = 0; c < chunks(m); ++c) {
     const int s = r.slot();
-    mbar_wait(r.empty + 8 * s, r.parity() ^ 1u);
+    frt_mbar_wait(r.empty + 8 * s, r.parity() ^ 1u);
 #if FRT_ABL & FRT_ABL_NOLOAD
-    if (lane == 0) mbar_arrive(r.full + 8 * s);
+    if (lane == 0) frt_mbar_arrive(r.full + 8 * s);
 #else
     const int off = c * kChunk, nb = min(kChunk, m.read_bytes - off);
-    if (lane == 0) mbar_expect_tx(r.full + 8 * s, (unsigned)(nr * nb));
+    if (lane == 0) frt_mbar_expect_tx(r.full + 8 * s, (unsigned)(nr * nb));
     __syncwarp();
     if (lane < nr)
-      bulk_copy(smem_addr(r.base + s * kStage + lane * kPitch),
-                m.w + (size_t)(row0 + lane) * m.row_bytes + off, nb, r.full + 8 * s);
+      frt_bulk_copy(frt_smem_addr(r.base + s * kStage + lane * kPitch),
+                    m.w + (size_t)(row0 + lane) * m.row_bytes + off, nb,
+                    r.full + 8 * s);
 #endif
     ++r.it;
   }
@@ -433,7 +399,7 @@ __device__ __forceinline__ void copy_rows(unsigned char* dst, int dst_pitch,
                                           int rows, int row16) {
   for (int i = threadIdx.x; i < rows * row16; i += kCThreads) {
     const int rr = i / row16, c = i - rr * row16;
-    frt_cp_async16(smem_addr(dst + rr * dst_pitch + 16 * c),
+    frt_cp_async16(frt_smem_addr(dst + rr * dst_pitch + 16 * c),
                    static_cast<const unsigned char*>(src) + rr * src_stride + 16 * c, 16);
   }
   frt_cp_async_commit();
@@ -536,13 +502,13 @@ __device__ __forceinline__ void tile_products(const Args& A, const Mat& m,
   }
   for (int c = 0; c < chunks(m); ++c) {
     const int s = r.slot();
-    mbar_wait(r.full + 8 * s, r.parity());
+    frt_mbar_wait(r.full + 8 * s, r.parity());
     const int kb = c * kChunk + kKB * warp;
     if (kb < m.read_bytes)
       kblock(m, x, r.base + s * kStage + kKB * warp, kb, t * kTile, scales, g,
              A.B, acc, lane);
     __syncwarp();
-    if (lane == 0) mbar_arrive(r.empty + 8 * s);
+    if (lane == 0) frt_mbar_arrive(r.empty + 8 * s);
     ++r.it;
   }
   csync();                            // the last tile's sums have been read
@@ -862,11 +828,11 @@ __device__ __forceinline__ void sample_stream(const Args& A, int b, int p, float
   const int lane = threadIdx.x & 31, V = A.V, Vp = (V + 3) / 4 * 4;
   float* nz = buf + Vp;
   for (int i = lane; i < Vp / 4; i += 32)
-    frt_cp_async16(smem_addr(buf + 4 * i), A.logits + (size_t)b * Vp + 4 * i, 16);
+    frt_cp_async16(frt_smem_addr(buf + 4 * i), A.logits + (size_t)b * Vp + 4 * i, 16);
   const float* ng = A.noise + ((size_t)b * A.ncb + p) * V;
   for (int v = lane; v < V; v += 32)
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
-                 :: "r"(smem_addr(nz + v)), "l"(ng + v) : "memory");
+                 :: "r"(frt_smem_addr(nz + v)), "l"(ng + v) : "memory");
   frt_cp_async_commit();
   frt_cp_async_wait<0>();
   __syncwarp();
@@ -998,7 +964,7 @@ __device__ __forceinline__ void consumer(const Args& A, Ring& r,
             const int tk = min(max(__ldcg(A.tok + b), 0), V - 1);
             src = A.emb + (size_t)(tk + (p - 1) * V) * Db;
           }
-          frt_cp_async16(smem_addr(act + b * x.xs_pitch + 16 * c), src + 8 * c, 16);
+          frt_cp_async16(frt_smem_addr(act + b * x.xs_pitch + 16 * c), src + 8 * c, 16);
         }
         frt_cp_async_commit();
         copy_wait();
@@ -1182,12 +1148,12 @@ depth_chain_kernel(const Args A) {
   __shared__ Shared sh;
   __shared__ __align__(8) unsigned long long bars[2 * kMaxStages];
   const int tid = threadIdx.x;
-  Ring r{dyn + round128(A.act_bytes), smem_addr(bars),
-         smem_addr(bars + kMaxStages), A.stages, 0u};
+  Ring r{dyn + round128(A.act_bytes), frt_smem_addr(bars),
+         frt_smem_addr(bars + kMaxStages), A.stages, 0u};
   if (tid == 0) {
     for (int s = 0; s < A.stages; ++s) {
-      mbar_init(r.full + 8 * s, 1);
-      mbar_init(r.empty + 8 * s, kCWarps);
+      frt_mbar_init(r.full + 8 * s, 1);
+      frt_mbar_init(r.empty + 8 * s, kCWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }

@@ -1,6 +1,7 @@
 // The grid-wide barrier of the persistent cooperative kernels: kernel B
 // (fused_depth_decode.cu) separates its phases with it, and kernel P
-// (gemv_probe.cu) measures it, so both run this one barrier.
+// (gemv_probe.cu) measures it, so both run this one barrier. Kernel A
+// (flash_decode_gqa1.cu) counts its merges with the acquire-release add.
 //
 // Four words: bar[0] counts arrivals through a launch, bar[1] is the flag
 // of the barriers whose last block works before it lets the others go,

@@ -1,7 +1,8 @@
-// Tensor-core helpers shared by kernels B (fused_depth_decode.cu), C
-// (flash_decode_update.cu) and E (int4_matmul.cu): mma.sync m16n8k16 bf16
-// with fp32 accumulation, m16n8k32 s8 with int32 accumulation, ldmatrix,
-// and 16-byte cp.async with zero fill.
+// Tensor-core helpers shared by kernels A (flash_decode_gqa1.cu), B
+// (fused_depth_decode.cu), C (flash_decode_update.cu) and E
+// (int4_matmul.cu): mma.sync m16n8k16 bf16 with fp32 accumulation,
+// m16n8k32 s8 with int32 accumulation, ldmatrix, 16-byte cp.async with
+// zero fill, and the base-2 exponential of the flash softmaxes (A, C).
 //
 // Fragment layout of mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32,
 // lane = 4 * gq + t (gq = lane / 4, t = lane % 4):
@@ -81,4 +82,11 @@ __device__ __forceinline__ void frt_cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void frt_cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// 2^x in one MUFU instruction (denormal results flush to 0; 2^-inf = 0).
+__device__ __forceinline__ float frt_fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }

@@ -87,6 +87,22 @@ def _check_slab(name: str, t: torch.Tensor, device, ndim: int) -> None:
     _require(t.is_contiguous(), f"{name}: not contiguous")
 
 
+_counters: dict = {}   # (kernel, device) -> int32 merge counts, zero between calls
+
+
+def _merge_counters(device, n: int, kernel: str) -> torch.Tensor:
+    """Merge counts of kernel A (one per stream and kv head) or C (one per
+    stream, head and query block): zeros that the kernel leaves zero after
+    each call, allocated once per kernel and device (and again, larger,
+    when a call needs more; warm a shape before capturing it in a CUDA
+    graph)."""
+    c = _counters.get((kernel, device))
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[(kernel, device)] = c
+    return c
+
+
 # ---------------------------------------------------------------------------
 # Kernel A: S=1 GQA decode over one layer of a carried (L, B, T, Hkv*Dh) slab
 # ---------------------------------------------------------------------------
@@ -101,42 +117,64 @@ def flash_decode_gqa1_plain(q, k4, v4, layer: int, q_start, q_end,
     return attn[:, 0]
 
 
-def _gqa1_lib() -> ctypes.CDLL:
-    lib = cuda_build.load("flash_decode_gqa1")
+def _gqa1_lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """csrc/flash_decode_gqa1.cu, or a variant built with `defines`
+    (FRT_GQA1_SPLIT=<slots>, FRT_GQA1_NOGROW, FRT_GQA1_TRACE: the builds
+    of tools/sweep_gqa1.py; the wrappers load the serving build)."""
+    lib = cuda_build.load("flash_decode_gqa1", defines)
     if lib.frt_flash_decode_gqa1.argtypes is None:
-        for fn in (lib.frt_gqa1_split_size, lib.frt_gqa1_max_group):
-            fn.argtypes, fn.restype = [], _I
-        lib.frt_flash_decode_gqa1.argtypes = [_P] * 11 + [_I] * 7 + [_F, _P]
+        lib.frt_gqa1_plan.argtypes = [_I] * 5 + [_P] * 4
+        lib.frt_gqa1_plan.restype = _I
+        lib.frt_flash_decode_gqa1.argtypes = [_P] * 10 + [_I] * 9 + [_F, _P]
         lib.frt_flash_decode_gqa1.restype = _I
     return lib
 
 
-def _gqa1_launch(q, k3, v3, q_start, q_end, live_lo, live_hi) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def gqa1_plan(B: int, Hkv: int, G: int, T: int, Dh: int, device_index: int = 0,
+              defines: tuple[str, ...] = ()) -> tuple[int, int, int, int]:
+    """Kernel A's launch plan from its library (frt_gqa1_plan): the split in
+    slab slots, the number of splits, the launch's dynamic shared memory in
+    bytes and the fp32 scratch a call needs. The library sizes them from
+    (B, Hkv, G, T, Dh) and the card it runs on; the live length stays on
+    the device."""
+    lib = _gqa1_lib(defines)
+    split, ns, smem, scratch = _I(), _I(), _I(), ctypes.c_longlong()
+    with torch.cuda.device(device_index):
+        err = lib.frt_gqa1_plan(B, Hkv, G, T, Dh, ctypes.byref(split),
+                                ctypes.byref(ns), ctypes.byref(smem),
+                                ctypes.byref(scratch))
+    _require(err == 0, f"kernel A takes no plan for B={B}, Hkv={Hkv}, G={G}, "
+             f"T={T}, Dh={Dh} (CUDA error {err})")
+    return split.value, ns.value, smem.value, scratch.value
+
+
+def _gqa1_launch(q, k3, v3, q_start, q_end, live_lo, live_hi,
+                 defines: tuple[str, ...] = ()) -> torch.Tensor:
     """Shared launch of csrc/flash_decode_gqa1.cu on (B, T, Hkv*Dh) views
-    of one layer's slabs."""
+    of one layer's slabs: one CUDA launch, its fp32 scratch in one
+    torch.empty, its merge counts in a per-device buffer the kernel leaves
+    zero. Nothing is copied from or to the host."""
     dev = q.device
     B, Hq, Dh = q.shape
     _, T, W = k3.shape
     Hkv = W // Dh
-    lib = _gqa1_lib()
     G = Hq // Hkv
-    _require(G <= lib.frt_gqa1_max_group(), f"group {G} too large")
     C = pick_chunk(T)
     _require(C is not None, f"slab length {T} has no 16-aligned chunking")
+    split, ns, smem, scratch = gqa1_plan(B, Hkv, G, T, Dh, dev.index or 0,
+                                         defines)
     q_start = _index(q_start, (B,), "q_start", dev)
     q_end = _index(q_end, (B,), "q_end", dev)
     lo, hi = _scalar(live_lo, dev), _scalar(live_hi, dev)
-    NS = -(-T // lib.frt_gqa1_split_size())
-    part_m = torch.empty((B, Hkv, NS, G), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B, Hkv, NS, G, Dh), dtype=torch.float32, device=dev)
+    part = torch.empty(scratch, dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
-    err = lib.frt_flash_decode_gqa1(
+    err = _gqa1_lib(defines).frt_flash_decode_gqa1(
         q.data_ptr(), k3.data_ptr(), v3.data_ptr(),
         q_start.data_ptr(), q_end.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-        out.data_ptr(), B, Hkv, G, Dh, T, C, NS, 1.0 / math.sqrt(Dh),
-        _stream(dev))
+        part.data_ptr(), _merge_counters(dev, B * Hkv, "gqa1").data_ptr(),
+        out.data_ptr(), B, Hkv, G, Dh, T, C, split, ns, smem,
+        1.0 / math.sqrt(Dh), _stream(dev))
     if err:
         raise RuntimeError(f"flash_decode_gqa1 launch failed: CUDA error {err}")
     return out
@@ -244,18 +282,6 @@ def split_ranges(T: int, B: int, H: int) -> list[tuple[int, int]]:
     return [(s, min(s + sp, T)) for s in range(0, T, sp)]
 
 
-_counters: dict = {}       # device -> int32 merge counts, zero between calls
-
-
-def _merge_counters(device, n: int) -> torch.Tensor:
-    """Kernel C's per-(stream, head, query block) merge counts: zeros that
-    the kernel leaves zero after each call, allocated once per device (and
-    again, larger, when a call needs more)."""
-    c = _counters.get(device)
-    if c is None or c.numel() < n:
-        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _counters[device] = c
-    return c
 
 
 def _bounded_launch(q, new_k, new_v, k3, v3, pos, q_end, q_start, live_lo,
@@ -284,7 +310,7 @@ def _bounded_launch(q, new_k, new_v, k3, v3, pos, q_end, q_start, live_lo,
         p0 = scratch.data_ptr()
         nq = -(-S // BOUNDED_QUERIES)
         part = [p0, p0 + 4 * n, p0 + 4 * acc0,
-                _merge_counters(q.device, B * H * nq).data_ptr()]
+                _merge_counters(q.device, B * H * nq, "c").data_ptr()]
     out = torch.empty_like(q)
     err = lib.frt_flash_decode_update(
         q.data_ptr(),

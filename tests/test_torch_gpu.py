@@ -40,23 +40,86 @@ def _close(out, ref):
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=2e-2)
 
 
-@pytest.mark.parametrize("B,q_start,q_end", [
-    (1, [0], [200]),
-    (3, [0, 37, 511], [3000, 1024, 3584]),   # ragged; chunk edge; slab end
-])
-def test_kernel_a_matches_plain(cuda, B, q_start, q_end):
-    gen = torch.Generator(device=cuda).manual_seed(B)
-    L, T, Hkv, G, Dh = 3, 3584, 2, 6, 128
+def _kernel_a_inputs(dev, B, Hkv, G, Dh, q_start, q_end, L=3, T=3584):
+    gen = torch.Generator(device=dev).manual_seed(B * 100 + G * 10 + Dh)
     q = _rnd(gen, B, Hkv * G, Dh)
     k4, v4 = _rnd(gen, L, B, T, Hkv * Dh), _rnd(gen, L, B, T, Hkv * Dh)
-    qs = torch.tensor(q_start, dtype=torch.int32, device=cuda)
-    qe = torch.tensor(q_end, dtype=torch.int32, device=cuda)
+    qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
+    qe = torch.tensor(q_end, dtype=torch.int32, device=dev)
+    return q, k4, v4, qs, qe
+
+
+# windows as functions of the split the library plans (sp slots)
+@pytest.mark.parametrize("B,Hkv,G,Dh,windows", [
+    pytest.param(1, 2, 6, 128, lambda sp: ([0], [200]), id="1-q_start0-q_end0"),
+    # ragged; chunk edge; slab end
+    pytest.param(3, 2, 6, 128, lambda sp: ([0, 37, 511], [3000, 1024, 3584]),
+                 id="3-q_start1-q_end1"),
+    pytest.param(1, 2, 6, 128, lambda sp: ([sp + 3], [2 * sp - 5]),
+                 id="inside-one-split"),
+    pytest.param(2, 2, 6, 128, lambda sp: ([0, 17], [3 * sp, 5 * sp]),
+                 id="ends-on-split-edges"),
+    # live_lo 1100: chunks and splits below 1024 are skipped
+    pytest.param(2, 2, 6, 128, lambda sp: ([1100, 1300], [2500, 3100]),
+                 id="live-lo-skips-splits"),
+    pytest.param(8, 2, 6, 128, lambda sp: (
+        [0, 5, 40, 0, 300, 17, 2, 900], [3584, 200, 1000, 7, 2900, 1601, 33, 901]),
+        id="B8-ragged"),
+    pytest.param(2, 2, 6, 64, lambda sp: ([0, 10], [1000, 3000]), id="Dh64"),
+    pytest.param(2, 2, 1, 128, lambda sp: ([0, 10], [1000, 3000]), id="G1"),
+    pytest.param(2, 2, 8, 128, lambda sp: ([0, 10], [1000, 3000]), id="G8"),
+])
+def test_kernel_a_matches_plain(cuda, B, Hkv, G, Dh, windows):
+    T = 3584
+    sp = fd.gqa1_plan(B, Hkv, G, T, Dh, cuda.index or 0)[0]
+    q_start, q_end = windows(sp)
+    q, k4, v4, qs, qe = _kernel_a_inputs(cuda, B, Hkv, G, Dh, q_start, q_end)
     before = fd.flash_decode_gqa1.launches
     out = fd.flash_decode_gqa1(q, k4, v4, 2, qs, qe, min(q_start), max(q_end))
     torch.cuda.synchronize()
     assert fd.flash_decode_gqa1.launches == before + 1
     _close(out, fd.flash_decode_gqa1_plain(q, k4, v4, 2, qs, qe,
                                            min(q_start), max(q_end)))
+
+
+def test_kernel_a_merge_counts_reset(cuda):
+    """Kernel A twice at one batch, then at another: the last block of each
+    (stream, kv head) leaves its merge count at zero for the next call."""
+    for B in (2, 2, 5):
+        q_start = [3 * b for b in range(B)]
+        q_end = [3000 - 100 * b for b in range(B)]
+        q, k4, v4, qs, qe = _kernel_a_inputs(cuda, B, 2, 6, 128, q_start, q_end)
+        lo, hi = qs.min(), qe.max()
+        out = fd.flash_decode_gqa1(q, k4, v4, 1, qs, qe, lo, hi)
+        torch.cuda.synchronize()
+        _close(out, fd.flash_decode_gqa1_plain(q, k4, v4, 1, qs, qe, lo, hi))
+        counts = fd._counters[("gqa1", q.device)]
+        assert int(counts.abs().sum()) == 0
+
+
+def test_kernel_a_replays_in_cuda_graph(cuda):
+    """One call of kernel A captured in a CUDA graph: the replay equals the
+    eager call, before and after new queries are copied into the input."""
+    q, k4, v4, qs, qe = _kernel_a_inputs(cuda, 2, 2, 6, 128, [0, 40], [2900, 1500])
+    lo, hi = qs.min(), qe.max()
+    eager = fd.flash_decode_gqa1(q, k4, v4, 1, qs, qe, lo, hi)   # warm
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fd.flash_decode_gqa1(q, k4, v4, 1, qs, qe, lo, hi)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = fd.flash_decode_gqa1(q, k4, v4, 1, qs, qe, lo, hi)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(static, eager)
+    q.copy_(torch.flip(q, dims=(0,)))
+    graph.replay()
+    eager = fd.flash_decode_gqa1(q, k4, v4, 1, qs, qe, lo, hi)
+    torch.cuda.synchronize()
+    assert torch.equal(static, eager)
+    _close(static, fd.flash_decode_gqa1_plain(q, k4, v4, 1, qs, qe, lo, hi))
 
 
 @pytest.mark.parametrize("S,pos", [(8, [0, 200]), (32, [1000, 40]),

@@ -5,7 +5,7 @@ the CPU at float32.
 - its copies of config.py, utils/text.py and utils/tokenizer.py equal the
   JAX package's;
 - rope, masks, sampling (with the JAX draws injected as noise), attention,
-  the iSTFT, and the plain versions of kernels A and C against the JAX
+  the iSTFT, and the plain versions of kernels A, C and F against the JAX
   functions -- the kernels through their Pallas versions in interpret mode.
 
 Tolerances: 1e-5 absolute where the only difference is the order of fp32
@@ -33,6 +33,10 @@ from fireredtts2_tpu.ops import masks as jmasks
 from fireredtts2_tpu.ops import rope as jrope
 from fireredtts2_tpu.ops import sampling as jsamp
 from fireredtts2_tpu.ops import stft as jstft
+from fireredtts2_tpu.ops.pallas_attention import (
+    pallas_decode_attention as j_decode_attn,
+    pick_chunk as j_attn_chunk,
+)
 from fireredtts2_tpu.ops.pallas_flash import (
     flash_decode_gqa1 as j_gqa1,
     flash_decode_update_bounded as j_update,
@@ -235,16 +239,18 @@ def test_istft_pieces_match_jax(rng):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("q_start,q_end", [
+@pytest.mark.parametrize("q_start,q_end,G", [
     # ragged starts (left padding), the middle window ends on a chunk edge
-    ([0, 100, 700], [600, 1024, 1500]),
+    pytest.param([0, 100, 700], [600, 1024, 1500], 3, id="q_start0-q_end0"),
     # live_lo > 0: the first chunk is skipped for every stream
-    ([520, 530, 600], [1000, 1536, 2048]),
+    pytest.param([520, 530, 600], [1000, 1536, 2048], 3, id="q_start1-q_end1"),
     # one slot each, at the slab's head and tail
-    ([0, 0, 2047], [1, 513, 2048]),
+    pytest.param([0, 0, 2047], [1, 513, 2048], 3, id="q_start2-q_end2"),
+    # the flagship's grouping: 6 query heads on each of 2 kv heads
+    pytest.param([0, 100, 700], [600, 1024, 1500], 6, id="flagship-grouping"),
 ])
-def test_kernel_a_plain_matches_pallas(rng, q_start, q_end):
-    L, B, T, Hkv, G, Dh = 2, 3, 2048, 2, 3, 16
+def test_kernel_a_plain_matches_pallas(rng, q_start, q_end, G):
+    L, B, T, Hkv, Dh = 2, 3, 2048, 2, 16
     assert j_pick_chunk(T) == tfd.pick_chunk(T) == 512
     q = rng.standard_normal((B, Hkv * G, Dh)).astype(np.float32)
     k4 = rng.standard_normal((L, B, T, Hkv * Dh)).astype(np.float32)
@@ -259,6 +265,32 @@ def test_kernel_a_plain_matches_pallas(rng, q_start, q_end):
                                     _t(qe), lo, hi)
         _close(got, want)
     assert tfd.flash_decode_gqa1.launches == 0   # CPU tensors: plain version
+
+
+# ---------------------------------------------------------------------------
+# Kernel F's plain version vs the Pallas kernel (interpret mode)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("start,end", [
+    # ragged left padding; a one-slot window; one crosses two chunk edges
+    ([0, 37, 100], [120, 300, 101]),
+    # starts past the first chunk; windows run to the slab's end
+    ([130, 200, 0], [384, 250, 384]),
+])
+def test_kernel_f_plain_matches_pallas(rng, start, end):
+    B, T, Hkv, G, D = 3, 384, 2, 6, 16
+    assert j_attn_chunk(T) == 128
+    q = rng.standard_normal((B, Hkv * G, D)).astype(np.float32)
+    k = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    st, en = np.array(start, np.int32), np.array(end, np.int32)
+    want = j_decode_attn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         jnp.asarray(st), jnp.asarray(en), interpret=True)
+    before = tfd.pallas_decode_attention.launches
+    got = tfd.pallas_decode_attention(_t(q), _t(k), _t(v), _t(st), _t(en))
+    assert tfd.pallas_decode_attention.launches == before  # CPU: plain version
+    _close(got, want)
 
 
 # ---------------------------------------------------------------------------
