@@ -62,7 +62,27 @@ Phases (any failure exits non-zero and prints no result line):
    (25 frames); an int4 depth decoder (quantize_depth_bits=4, generate of 10
    frames, kernel E launched). Audio must be finite and one 1920-sample
    chunk per frame, stream and generate must sample the same frames, and
-   kernels A and C must have launched in every run.
+   kernels A and C must have launched in every run;
+10. voice cloning and dialogue: first an fp32 codec of narrow depth at the
+   flagship widths encodes two prompts on the card, with PyTorch's
+   process-wide TF32 flags on, and on the CPU: the codes must be equal, a
+   flip allowed only where the CPU's best-vs-second distance gap is below
+   1e-5 relative (counted); then the serving preset at flagship width with
+   the full codec: two prompt wavs of 3.2 s and 7.4 s made from the seed
+   (encode_prompt_tokens: ceil(n / 1280) + 1 tokens, one encode each, wall
+   and device ms cold, warm and as a cache hit; device ms of each stage of
+   a 6 s window and the encoders' attention's share; the bf16 codec's
+   tokens against fp32 weights of the same draws), a clone streamed three
+   times (plain path, voice state built, cache hit: one build) whose
+   generate gives the stream's frames, and a 3-turn dialogue over both
+   prompts, generate_dialogue then generate_dialogue_stream on the same
+   seeds (turn 0's frames equal; the streamed audio of each turn is what
+   re-entered, its encode cached; the wait between streamed turns and the
+   offline decode that feeding that back instead would add; kernels A, B
+   and C launched in each; LM ms/frame, prefill ms and kernel A's live
+   window per turn); kernel A is
+   held against its plain version over the last turn's live window of the
+   dialogue's KV slab.
 
 Bounds are the larger of the bytes a call must move (each input read once,
 each output written once) over 3.35 TB/s and its operations over the bf16
@@ -1215,6 +1235,457 @@ def run_engine(dev, card: str, config=None, max_ms: float = 4000.0,
     return result
 
 
+# ---------------------------------------------------------------------------
+# Voice cloning and dialogue at flagship width
+# ---------------------------------------------------------------------------
+
+PROMPTS = (("[S1]Here is how I sound when I read a short line.", 3.2),
+           ("[S2]And this is my voice, a little longer, over two of the "
+            "encoder's six second windows.", 7.4))
+DIALOGUE = ["[S1]Did you hear the news this morning?",
+            "[S2]I did, and I still can not believe it.",
+            "[S1]Neither can I, let us talk it over."]
+CLONE_TEXT = "This sentence is spoken in the cloned voice."
+NEAR_TIE = 1e-5          # relative distance gap of an allowed fp32 code flip
+
+
+def voiced(n: int, seed: int, sr: int = 16_000) -> np.ndarray:
+    """A prompt-like waveform from the seed: harmonics of a gliding pitch
+    under a syllable-rate envelope, plus a little noise; float32."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / sr
+    f0 = 120 + 40 * np.sin(2 * np.pi * 0.7 * t) + rng.uniform(0, 60)
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    x = sum(np.sin(k * phase) / k for k in range(1, 6))
+    x *= 0.5 + 0.5 * np.sin(2 * np.pi * 2.5 * t) ** 2
+    x += 0.02 * rng.standard_normal(n)
+    return (0.3 * x / np.abs(x).max()).astype(np.float32)
+
+
+def window_batch(audios, win: int):
+    """Prompts cut into zero-padded windows as codec_encode cuts them ->
+    ((n_windows, win) float32, valid samples per window)."""
+    rows = []
+    for a in audios:
+        n_win = max(1, -(-len(a) // win))
+        padded = np.zeros(n_win * win, np.float32)
+        padded[:len(a)] = a
+        rows += [padded[i * win:(i + 1) * win] for i in range(n_win)]
+    return np.stack(rows), np.full(len(rows), win, np.int32)
+
+
+def profiled(fn, dev) -> tuple:
+    """One call of fn -> (its result, {wall_ms: host clock, synced;
+    device_ms: the CUDA kernels' summed time in a torch.profiler trace;
+    kernels: how many ran}); on the CPU the wall time only."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if torch.device(dev).type != "cuda":
+        t0 = time.perf_counter()
+        result = fn()
+        return result, dict(wall_ms=(time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return result, dict(wall_ms=wall, kernels=len(ev), device_ms=sum(
+        e.time_range.elapsed_us() for e in ev) / 1e3)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def check_fp32_encode(dev, config=None) -> dict:
+    """An fp32 codec of narrow depth at the flagship widths (SSL 2 x 1280,
+    adaptor 1 x 768, acoustic encoder 2 x 768, the full RVQ), weights drawn
+    on the CPU and copied to `dev`, encodes the two prompts (three 6 s
+    windows) on both, with PyTorch's process-wide TF32 flags turned ON:
+    the codes must be equal, a flip allowed only where the CPU's own
+    best-vs-second distance gap is below NEAR_TIE relative (counted). Also
+    shows the hazard the policy removes: the STFT power's error on `dev`
+    with a plain TF32 conv against the policy's."""
+    import dataclasses
+    import torch
+    import torch.nn.functional as F
+    from fireredtts2_tpu_torch.config import CodecConfig
+    from fireredtts2_tpu_torch.models.codec.model import (
+        encode_features, encode_window, init_codec_params,
+    )
+    from fireredtts2_tpu_torch.models.codec.rvq import (
+        code_gaps, code_mismatches, rvq_encode,
+    )
+    from fireredtts2_tpu_torch.ops import stft
+
+    base = config or CodecConfig()
+    cfg = dataclasses.replace(
+        base, dtype="float32",
+        ssl=dataclasses.replace(base.ssl, num_layers=min(2, base.ssl.num_layers)),
+        ssl_adaptor=dataclasses.replace(base.ssl_adaptor, num_layers=1),
+        acoustic_encoder=dataclasses.replace(
+            base.acoustic_encoder, num_layers=min(2, base.acoustic_encoder.num_layers)),
+        acoustic_decoder=dataclasses.replace(base.acoustic_decoder, num_layers=1))
+    cpu = init_codec_params(torch.Generator().manual_seed(21), cfg)
+    card = _tree_to(cpu, dev)
+    win = cfg.encode_chunk_seconds * cfg.input_sample_rate
+    audio, lengths = window_batch(
+        [voiced(int(s * 16_000), 11 + i) for i, (_, s) in enumerate(PROMPTS)], win)
+    with torch.inference_mode():
+        feats = encode_features(cpu, cfg, torch.from_numpy(audio),
+                                torch.from_numpy(lengths))
+        want = rvq_encode(cpu["rvq"], cfg.rvq, feats)
+        gaps = code_gaps(cpu["rvq"], cfg.rvq, feats, want)
+        saved = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            got = encode_window(card, cfg, torch.from_numpy(audio).to(dev),
+                                torch.from_numpy(lengths).to(dev))
+            # the hazard: the same STFT power through a plain (TF32) conv
+            x = torch.from_numpy(audio[:1]).to(dev)
+            ref = stft.stft_power(torch.from_numpy(audio[:1]), cfg.mel.n_fft,
+                                  cfg.mel.hop_length)
+            pad = cfg.mel.n_fft // 2
+            filt = torch.from_numpy(np.concatenate(
+                stft._stft_basis_np(cfg.mel.n_fft))[:, None, :]).to(dev)
+            y = F.conv1d(F.pad(x[:, None], (pad, pad), mode="reflect"), filt,
+                         stride=cfg.mel.hop_length)
+            nf = cfg.mel.n_fft // 2 + 1
+            tf32 = (y[:, :nf] ** 2 + y[:, nf:] ** 2).cpu()
+            policy = stft.stft_power(x, cfg.mel.n_fft, cfg.mel.hop_length).cpu()
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    diff, bad = code_mismatches(want.numpy(), got.cpu().numpy(), gaps.numpy(),
+                                NEAR_TIE)
+    peak = float(ref.abs().max())
+    return dict(windows=int(audio.shape[0]), frames=int(want.shape[2] * want.shape[1]),
+                codes=int(want.numel()), frames_differing=diff, near_ties=diff - bad,
+                not_near_ties=bad,
+                min_gap=float(gaps.min()),
+                stft_rel_err_tf32_conv=float((tf32 - ref).abs().max()) / peak,
+                stft_rel_err_policy=float((policy - ref).abs().max()) / peak,
+                ok=bad == 0)
+
+
+def encode_stages(eng, audio16k: np.ndarray) -> dict:
+    """Device ms (profiler, mean of 3) of each stage of one 6 s window's
+    encode at B=1 on the engine's codec: mel, SSL encoder, adaptor,
+    acoustic encoder, downsample, RVQ and the whole window; and the
+    encoders' attention alone (mha_attention at each stack's shape, times
+    its layer count), its share of the window. The stages are composed
+    here as encode_features composes them; `stages_equal_window` says
+    whether their codes are encode_window's."""
+    import torch
+    from fireredtts2_tpu_torch.models.codec.encoder import (
+        down_conv_forward, ssl_adaptor_forward,
+    )
+    from fireredtts2_tpu_torch.models.codec.model import _mel, encode_window
+    from fireredtts2_tpu_torch.models.codec.rvq import rvq_encode
+    from fireredtts2_tpu_torch.models.codec.whisper_nn import (
+        whisper_encoder_forward,
+    )
+    from fireredtts2_tpu_torch.ops.attention import mha_attention
+
+    if eng.device.type != "cuda":
+        return {}
+    p, cfg, dev = eng.codec_params, eng.config.codec, eng.device
+    win = cfg.encode_chunk_seconds * cfg.input_sample_rate
+    a = torch.from_numpy(window_batch([audio16k[:win]], win)[0]).to(dev)
+    lens = torch.full((1,), win, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        mel, ml = _mel(p, cfg, a, lens)
+        ssl, sl = whisper_encoder_forward(p["ssl"], cfg.ssl.num_heads, mel, ml)
+        sem, _ = ssl_adaptor_forward(p["ssl_adaptor"], cfg.ssl_adaptor, ssl, sl)
+        aco, al = whisper_encoder_forward(p["acoustic_encoder"],
+                                          cfg.acoustic_encoder.num_heads, mel, ml)
+        feats = torch.cat([sem, aco], dim=-1)
+        down, _ = down_conv_forward(p["downsample"], cfg.downsample_factor,
+                                    feats, al)
+        stages = {
+            "mel": lambda: _mel(p, cfg, a, lens),
+            "ssl": lambda: whisper_encoder_forward(p["ssl"], cfg.ssl.num_heads,
+                                                   mel, ml),
+            "ssl_adaptor": lambda: ssl_adaptor_forward(
+                p["ssl_adaptor"], cfg.ssl_adaptor, ssl, sl),
+            "acoustic_encoder": lambda: whisper_encoder_forward(
+                p["acoustic_encoder"], cfg.acoustic_encoder.num_heads, mel, ml),
+            "downsample": lambda: down_conv_forward(
+                p["downsample"], cfg.downsample_factor, feats, al),
+            "rvq": lambda: rvq_encode(p["rvq"], cfg.rvq, down),
+            "window": lambda: encode_window(p, cfg, a, lens),
+        }
+        out = {k: device_ms(f, 3) for k, f in stages.items()}
+        out["stages_equal_window"] = bool(torch.equal(
+            rvq_encode(p["rvq"], cfg.rvq, down), encode_window(p, cfg, a, lens)))
+        T = ssl.shape[1]
+        mask = torch.ones((1, T, T), dtype=torch.bool, device=dev)
+        attn = 0.0
+        for D, H, L in ((cfg.ssl.embed_dim, cfg.ssl.num_heads, cfg.ssl.num_layers),
+                        (cfg.ssl_adaptor.embed_dim, cfg.ssl_adaptor.num_heads,
+                         cfg.ssl_adaptor.num_layers),
+                        (cfg.acoustic_encoder.embed_dim,
+                         cfg.acoustic_encoder.num_heads,
+                         cfg.acoustic_encoder.num_layers)):
+            q = torch.randn((1, T, H, D // H), device=dev)
+            attn += (device_ms(lambda: mha_attention(q, q, q, mask), 3) or 0) * L
+    out["attention"] = attn
+    if out.get("window"):
+        out["attention_share"] = attn / out["window"]
+    return out
+
+
+def run_clone_dialogue(dev, card: str, config=None, max_ms: float = 2000.0,
+                       seed: int = 2024) -> dict:
+    """Voice cloning and dialogue through the engine's entry points, on
+    the serving preset at flagship width by default: two prompt wavs
+    (3.2 s and 7.4 s, the second over two 6 s windows) written from the
+    seed and read back by prepare_prompt; each prompt's encode (token
+    count, wall and device ms cold, warm and as a cache hit, encode_calls);
+    the bf16 codec's tokens against an fp32 codec's of the same draws; a
+    clone streamed three times (plain path, voice state built, cache hit)
+    and generated once with the same utterance seed; a 3-turn dialogue
+    [S1] [S2] [S1] over both prompts, batch then streamed on the same
+    seeds, the wait between streamed turns timed. Every run is counted with the launch counts set to 0 just
+    before and read just after; kernel A is then held against its plain
+    version over the last turn's live window of the dialogue's KV slab."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from scipy.io import wavfile
+    from fireredtts2_tpu_torch.config import EngineConfig
+    from fireredtts2_tpu_torch.engine import FireRedTTS2Engine
+    from fireredtts2_tpu_torch.models.codec.model import codec_encode
+    from fireredtts2_tpu_torch.ops import flash_decode as fd
+    from fireredtts2_tpu_torch.utils.audio_io import resample
+    from fireredtts2_tpu_torch.weights import init_random
+
+    cuda = torch.device(dev).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    base = EngineConfig()
+    config = config or dataclasses.replace(base, llm=dataclasses.replace(
+        base.llm, quantize_backbone=True, fused_depth_plan=PRESET))
+    t0 = time.perf_counter()
+    eng = FireRedTTS2Engine(config, seed=0, device=dev)
+    sync()
+    res: dict = dict(card=card, init_s=time.perf_counter() - t0)
+    list(eng.generate_stream("Warm up.", "[S1]", max_audio_length_ms=400,
+                             utt_seed=1))                    # warm-up
+    checks: dict = {}
+    runs: dict = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i, (_, secs) in enumerate(PROMPTS):
+            paths.append(os.path.join(tmp, f"prompt{i}.wav"))
+            wavfile.write(paths[-1], 16_000, (voiced(int(secs * 16_000), 11 + i)
+                                              * 32767).astype(np.int16))
+        segs = [eng.prepare_prompt(text, text[:4], path)
+                for (text, _), path in zip(PROMPTS, paths)]
+
+        # encode: cold (first call, a cache miss), a cache hit, and warm
+        # (the same encode again, past the cache)
+        enc = []
+        for i, seg in enumerate(segs):
+            calls = eng.encode_calls
+            (frames, _), cold = profiled(
+                lambda: eng.encode_prompt_tokens(seg.audio), dev)
+            _, hit = profiled(lambda: eng.encode_prompt_tokens(seg.audio.copy()),
+                              dev)
+            (codes, tlen), warm = profiled(lambda: codec_encode(
+                eng.codec_params, eng.config.codec, seg.audio[None]), dev)
+            checks[f"prompt{i}_encode_repeats"] = bool(np.array_equal(
+                codes[0, :, :tlen[0]].T, frames[:-1, :-1]))
+            n = len(seg.audio)
+            enc.append(dict(samples=n, tokens=len(frames), cold=cold,
+                            cache_hit=hit, warm=warm,
+                            encode_calls=eng.encode_calls - calls))
+            checks[f"prompt{i}_tokens"] = len(frames) == -(-n // 1280) + 1
+            checks[f"prompt{i}_encoded_once"] = eng.encode_calls - calls == 1
+        res["encode"] = enc
+        res["encode_stages"] = encode_stages(eng, segs[1].audio)
+        if cuda:
+            checks["encode_stages_equal_window"] = \
+                res["encode_stages"]["stages_equal_window"]
+
+        # the bf16 codec against fp32 weights of the same draws
+        cfg32 = dataclasses.replace(config, codec=dataclasses.replace(
+            config.codec, dtype="float32"))
+        _, codec32 = init_random(cfg32, 0, dev)
+        equal = total = 0
+        with torch.inference_mode():
+            for seg in segs:
+                want = eng.encode_prompt_tokens(seg.audio)[0][:-1, :-1].T
+                got, _ = codec_encode(codec32, cfg32.codec, seg.audio[None])
+                equal += int((got[0] == want).sum())
+                total += want.size
+        del codec32
+        res["bf16_vs_fp32_token_share"] = equal / total
+
+        # clone: plain path, voice state built, cache hit; then generate
+        clone = []
+        for k in range(3):
+            reset_counts()
+            t0 = time.perf_counter()
+            chunks = list(eng.generate_stream(CLONE_TEXT, "[S1]", [segs[0]],
+                                              max_audio_length_ms=max_ms,
+                                              utt_seed=seed))
+            sync()
+            wall = time.perf_counter() - t0
+            runs[f"clone_stream{k}"] = read_counts()
+            audio = np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
+            clone.append(dict(first_packet_ms=(eng._first_packet_s or 0) * 1e3,
+                              wall_s=wall, frames=len(eng.last_tokens),
+                              voice_state_builds=eng.voice_state_builds,
+                              finite=bool(np.isfinite(audio).all()),
+                              len_ok=len(audio) == len(eng.last_tokens) * 1920 > 0))
+        stream_tokens = eng.last_tokens
+        reset_counts()
+        audio = eng.generate(CLONE_TEXT, "[S1]", [segs[0]],
+                             max_audio_length_ms=max_ms, utt_seed=seed)
+        sync()
+        runs["clone_generate"] = read_counts()
+        checks["clone_voice_state_built_once"] = eng.voice_state_builds == 1
+        checks["clone_audio"] = all(c["finite"] and c["len_ok"] for c in clone) \
+            and bool(np.isfinite(audio).all()) \
+            and len(audio) == len(eng.last_tokens) * 1920 > 0
+        checks["clone_generate_equals_stream"] = bool(
+            np.array_equal(eng.last_tokens, stream_tokens))
+        res["clone"] = clone
+
+        # dialogue: batch (incremental KV), then streamed on the same seeds
+        kw = dict(prompt_wav_list=paths,
+                  prompt_text_list=[t for t, _ in PROMPTS],
+                  max_utterance_ms=max_ms, utt_seed=seed)
+        reset_counts()
+        t0 = time.perf_counter()
+        audio = eng.generate_dialogue(list(DIALOGUE), **kw)
+        sync()
+        wall = time.perf_counter() - t0
+        runs["dialogue"] = read_counts()
+        turns = [dict(frames=s["frames"],
+                      lm_ms_per_frame=s["lm_s"] / max(s["frames"], 1) * 1e3,
+                      prefill_ms=s["prefill_s"] * 1e3,
+                      live=s["live_end"] - s["live_start"])
+                 for s in eng.last_turn_stats]
+        batch_tokens = list(eng.last_turn_tokens)
+        # every turn's re-encode a cache miss, as in a new conversation
+        # (the prompts stay cached)
+        eng._audio_token_cache.clear()
+        for seg in segs:
+            eng.encode_prompt_tokens(seg.audio)
+        reset_counts()
+        t0 = time.perf_counter()
+        pieces, at = [], []
+        for i, chunk in eng.generate_dialogue_stream(list(DIALOGUE), **kw):
+            at.append((i, time.perf_counter()))
+            pieces.append((i, chunk))
+        sync()
+        stream_wall = time.perf_counter() - t0
+        runs["dialogue_stream"] = read_counts()
+        stream_audio = np.concatenate([c for _, c in pieces])
+        # the wait between turns: a turn's last piece to the next one's first
+        turn_gaps = [(min(t for j, t in at if j == i + 1)
+                      - max(t for j, t in at if j == i)) * 1e3
+                     for i in range(len(DIALOGUE) - 1)]
+        # what re-entered after each turn was its streamed audio: its
+        # encode is cached
+        calls = eng.encode_calls
+        for i in range(len(DIALOGUE) - 1):
+            heard = np.concatenate([c for j, c in pieces if j == i])
+            eng.encode_prompt_tokens(resample(heard, eng.output_sample_rate,
+                                              eng.sample_rate))
+        checks["dialogue_stream_feeds_back_its_audio"] = eng.encode_calls == calls
+        # what feeding back the offline decode instead would add: one
+        # vocoder pass over the turn
+        offline_ms = []
+        for frames in eng.last_turn_tokens[:-1]:
+            sync()
+            t0 = time.perf_counter()
+            eng._decode_tokens([frames])
+            sync()
+            offline_ms.append((time.perf_counter() - t0) * 1e3)
+        checks["dialogue_audio"] = bool(np.isfinite(audio).all()) \
+            and len(audio) == sum(len(t) for t in batch_tokens) * 1920 > 0 \
+            and bool(np.isfinite(stream_audio).all())
+        # turn 0 is the same computation; later turns re-encode audio that
+        # the streamed and offline bf16 decodes round differently
+        equal_turns = [bool(np.array_equal(a, b)) for a, b in
+                       zip(eng.last_turn_tokens, batch_tokens)]
+        checks["dialogue_stream_turn0_equals_batch"] = \
+            len(equal_turns) == len(batch_tokens) == len(DIALOGUE) \
+            and equal_turns[0]
+        for k in ("flash_decode_gqa1", "fused_depth_decode",
+                  "flash_decode_update_bounded"):
+            if k == "fused_depth_decode" and not config.llm.fused_depth_plan:
+                continue
+            checks[f"dialogue_{k}_launched"] = \
+                runs["dialogue"][k] > 0 and runs["dialogue_stream"][k] > 0
+        res["dialogue"] = dict(wall_s=wall, stream_wall_s=stream_wall,
+                               audio_s=len(audio) / eng.output_sample_rate,
+                               turns=turns,
+                               first_packet_ms=(eng._first_packet_s or 0) * 1e3,
+                               stream_turn_frames=[len(t) for t in
+                                                   eng.last_turn_tokens],
+                               stream_turns_equal=equal_turns,
+                               turn_gaps_ms=turn_gaps,
+                               offline_decode_ms=offline_ms)
+
+    # kernel A over the last turn's live window of the dialogue's slab
+    last = eng.last_turn_stats[-1]
+    state, bb = eng.last_lm_state, eng.config.llm.backbone
+    lo, hi = last["live_start"], last["live_end"]
+    q = _rnd(torch.Generator(device=dev).manual_seed(5), 1, bb.num_heads,
+             bb.head_dim)
+    ints = [torch.tensor(v, dtype=torch.int32, device=dev) for v in
+            ([lo], [hi], lo, hi)]
+    layer = bb.num_layers - 1
+    with torch.inference_mode():
+        out = fd.flash_decode_gqa1(q, state.cache_k, state.cache_v, layer, *ints)
+        ref = fd.flash_decode_gqa1_plain(q, state.cache_k, state.cache_v,
+                                         layer, *ints)
+        err, ok = _compare(out, ref)
+        times = {}
+        if cuda:
+            step = itertools.count()
+            times = time_pair(
+                lambda: fd.flash_decode_gqa1(q, state.cache_k, state.cache_v,
+                                             next(step) % bb.num_layers, *ints),
+                lambda: fd.flash_decode_gqa1_plain(
+                    q, state.cache_k, state.cache_v, next(step) % bb.num_layers,
+                    *ints), 30)
+    Hkv, Dh = bb.num_kv_heads, bb.head_dim
+    if cuda:
+        kv = [t[layer, :, lo:hi].view(1, hi - lo, Hkv, Dh).transpose(1, 2)
+              for t in (state.cache_k, state.cache_v)]
+        times["library_ms"] = library_ms(sdpa_call(
+            q[:, :, None], kv[0], kv[1],
+            torch.ones((1, 1, 1, hi - lo), dtype=torch.bool, device=dev)), 30)
+    bnd, by = bound_ms(4 * bb.num_heads * Dh + (hi - lo) * Hkv * Dh * 4,
+                       4 * bb.num_heads * Dh * (hi - lo))
+    res["kernel_a_at_dialogue"] = dict(B=1, live=hi - lo, live_start=lo,
+                                       max_abs_err=err, ok=ok, bound_ms=bnd,
+                                       bound_by=by, **times)
+    checks["dialogue_kernel_a_matches_plain"] = ok
+    res.update(phase_s=time.perf_counter() - t_phase, checks=checks,
+               launches=runs, ok=all(checks.values()))
+    del eng, state
+    if cuda:
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -1415,6 +1886,65 @@ def main() -> int:
         ok &= eng["ok"]
         report[f"engine_{label}"] = eng
         torch.cuda.empty_cache()
+
+    # 10. voice cloning and dialogue on the serving preset at flagship width
+    fp32 = check_fp32_encode(dev)
+    log(f"fp32 encode on the card (process-wide TF32 flags on) vs the CPU, "
+        f"narrow depth at flagship widths, {fp32['windows']} windows: "
+        f"{fp32['frames_differing']} of {fp32['frames']} frames differ, "
+        f"{fp32['near_ties']} near-ties (gap < {NEAR_TIE} relative), "
+        f"{fp32['not_near_ties']} others; smallest gap {fp32['min_gap']:.3e}; "
+        f"STFT power vs CPU (of peak): plain TF32 conv "
+        f"{fp32['stft_rel_err_tf32_conv']:.3e}, the policy's "
+        f"{fp32['stft_rel_err_policy']:.3e}; ok={fp32['ok']}  [{card}]")
+    ok &= fp32["ok"]
+    report["fp32_encode"] = fp32
+    cd = run_clone_dialogue(dev, card)
+    for i, e in enumerate(cd["encode"]):
+        log(f"[clone] prompt {i}: {e['samples'] / 16_000:.1f} s, {e['tokens']} "
+            f"tokens; encode_prompt_tokens cold: wall {e['cold']['wall_ms']:.1f} "
+            f"ms, device {e['cold']['device_ms']:.1f} ms; cache hit: wall "
+            f"{e['cache_hit']['wall_ms']:.3f} ms, encodes {e['encode_calls']}; "
+            f"warm codec_encode: wall {e['warm']['wall_ms']:.1f} ms, device "
+            f"{e['warm']['device_ms']:.1f} ms ({e['warm']['kernels']} kernels)"
+            f"  [{card}]")
+    st = cd["encode_stages"]
+    log(f"[clone] one 6 s window, device ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in st.items() if v is not None) + f"  [{card}]")
+    log(f"[clone] bf16 codec vs fp32 weights of the same draws: "
+        f"{cd['bf16_vs_fp32_token_share']:.4f} of tokens equal")
+    for k, c in enumerate(cd["clone"]):
+        log(f"[clone] generate_stream {('plain path', 'voice state built', 'cache hit')[k]}"
+            f": first packet {c['first_packet_ms']:.2f} ms, {c['frames']} frames "
+            f"in {c['wall_s']:.3f} s, voice_state_builds "
+            f"{c['voice_state_builds']}  [{card}]")
+    d = cd["dialogue"]
+    for i, t in enumerate(d["turns"]):
+        log(f"[dialogue] turn {i}: {t['frames']} frames, LM "
+            f"{t['lm_ms_per_frame']:.2f} ms/frame, prefill {t['prefill_ms']:.2f} "
+            f"ms, kernel A's live window {t['live']} slots  [{card}]")
+    log(f"[dialogue] generate_dialogue {d['wall_s']:.2f} s for {d['audio_s']:.2f} "
+        f"s of audio; generate_dialogue_stream {d['stream_wall_s']:.2f} s, first "
+        f"packet {d['first_packet_ms']:.2f} ms, frames per turn "
+        f"{d['stream_turn_frames']}, equal to the batch's per turn "
+        f"{d['stream_turns_equal']}  [{card}]")
+    log(f"[dialogue] wait between streamed turns (ms, a turn's last piece to "
+        f"the next turn's first): " + ", ".join(
+            f"{g:.2f}" for g in d["turn_gaps_ms"])
+        + "; an offline decode of the turn (what feeding it back instead "
+        "would add): " + ", ".join(f"{g:.2f}" for g in d["offline_decode_ms"])
+        + f"  [{card}]")
+    ka = cd["kernel_a_at_dialogue"]
+    log(f"[dialogue] kernel A at the last turn's window ({ka['live']} live "
+        f"from slot {ka['live_start']}): max_abs_err {ka['max_abs_err']:.3e} "
+        f"ok={ka['ok']}  {fmt_times(ka)}  [{card}]")
+    log(f"[clone+dialogue] launches per run: {cd['launches']}")
+    log(f"[clone+dialogue] checks: {cd['checks']}; phase {cd['phase_s']:.1f} s")
+    for counts in cd["launches"].values():
+        for k, n in counts.items():
+            main_launches[k] = main_launches.get(k, 0) + n
+    ok &= cd["ok"]
+    report["clone_dialogue"] = cd
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

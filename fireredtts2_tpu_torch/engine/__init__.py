@@ -1,1 +1,1 @@
-from fireredtts2_tpu_torch.engine.engine import FireRedTTS2Engine  # noqa: F401
+from fireredtts2_tpu_torch.engine.engine import FireRedTTS2Engine, Segment  # noqa: F401

@@ -1,10 +1,16 @@
-"""Text-to-speech engine on PyTorch: text in, 24 kHz audio out.
+"""Text-to-speech engine on PyTorch: text (and voice prompts) in, 24 kHz
+audio out.
 
-Counterpart of ``fireredtts2_tpu/engine/engine.py`` for synthesis without a
-voice prompt: ``generate`` (whole utterance, then a bucketed vocoder
-pass), ``generate_stream`` (K-frame LM + vocoder blocks, ~80 ms chunks)
-and ``generate_batch`` (several texts decoded together). Prompt audio,
-voice cloning, dialogue and the voice-state cache come later.
+Counterpart of ``fireredtts2_tpu/engine/engine.py``:
+- ``generate`` (whole utterance, then a bucketed vocoder pass),
+  ``generate_stream`` (K-frame LM + vocoder blocks, ~80 ms chunks) and
+  ``generate_batch`` (several texts decoded together), each optionally
+  conditioned on context segments (voice cloning);
+- ``generate_dialogue`` (incremental KV, or the reference's re-prefill),
+  ``generate_dialogue_stream`` and ``generate_monologue``;
+- ``encode_prompt_tokens`` / ``prepare_prompt`` and two caches under one
+  lock: prompt-audio tokens by content hash, and the voice state (the LM
+  state after a context's prefill, built on the context's second use).
 
 Serving transforms (``_apply_serving_transforms``) follow the JAX engine:
 a fused-depth plan installs kernel B's bundle, ``quantize_depth`` makes the
@@ -14,16 +20,23 @@ vocoder's transformer int8. The measured JAX serving preset is
 ``quantize_backbone=True, fused_depth_plan="gate=r8,up=s8,down=s8"``.
 
 Prompts are left-padded into static buckets, as in the JAX package (RoPE
-shift invariance keeps this exact). Sampling noise of global frame t comes
-from a generator seeded by (utterance seed, t), so ``generate`` and
-``generate_stream`` sample the same tokens for one utterance seed -- the
-counterpart of the JAX package's fold_in(key, t).
+shift invariance keeps this exact); windows appended onto a live state
+(the voice-state cache, incremental dialogue) are right-padded with
+``real_len``. Sampling noise of global frame t comes from a generator
+seeded by (utterance seed, t), so ``generate`` and ``generate_stream``
+sample the same tokens for one utterance seed -- the counterpart of the
+JAX package's fold_in(key, t) -- and so do ``generate_dialogue`` and
+``generate_dialogue_stream`` turn by turn (turn i's seed: utt_seed + i).
 """
 
 from __future__ import annotations
 
+import hashlib
+import itertools
 import threading
 import time
+from collections import OrderedDict
+from dataclasses import dataclass
 from typing import Callable, Iterator, List, Optional
 
 import numpy as np
@@ -31,13 +44,14 @@ import torch
 
 from fireredtts2_tpu_torch.config import EngineConfig
 from fireredtts2_tpu_torch.models.codec.model import (
-    assemble_chunks, codec_decode_chunks, stream_decode_init,
+    assemble_chunks, codec_decode_chunks, codec_encode, stream_decode_init,
 )
 from fireredtts2_tpu_torch.models.codec.whisper_nn import (
     quantize_whisper_layers_int8,
 )
 from fireredtts2_tpu_torch.models.lm.model import (
-    init_lm_state, lm_generate_frame, lm_generate_loop,
+    LMState, clone_lm_state, init_lm_state, lm_generate_frame,
+    lm_generate_loop, rewind_lm_state,
 )
 from fireredtts2_tpu_torch.models.lm.transformer import (
     quantize_transformer_int4, quantize_transformer_int8,
@@ -45,16 +59,35 @@ from fireredtts2_tpu_torch.models.lm.transformer import (
 from fireredtts2_tpu_torch.models.pipeline import stream_block
 from fireredtts2_tpu_torch.ops.depth_chain import enable_fused_depth
 from fireredtts2_tpu_torch.ops.int4 import prepare_int4_layout
+from fireredtts2_tpu_torch.utils.audio_io import load_prompt_audio_16k, resample
+from fireredtts2_tpu_torch.utils.text import (
+    SPEAKER_TAGS, clean_text, process_text_list, split_text,
+)
 from fireredtts2_tpu_torch.utils.tokenizer import load_tokenizer
 from fireredtts2_tpu_torch.weights import dtype_of, init_random, resolve_device
+
+AUDIO_TOKEN_CACHE = 64          # prompt-audio token entries (LRU)
 
 
 def _frame_seed(utt_seed: int, t: int) -> int:
     return (utt_seed * 1_000_003 + t) & ((1 << 63) - 1)
 
 
+@dataclass
+class Segment:
+    """One conversational segment: a speaker tag, its text and its audio
+    (float32 at 16 kHz). audio_tokens / audio_tokens_mask: optional
+    pre-encoded (T, ncols) frames of `audio` (``encode_prompt_tokens``);
+    when set the engine skips the encode."""
+    speaker: str
+    text: str
+    audio: np.ndarray
+    audio_tokens: Optional[np.ndarray] = None
+    audio_tokens_mask: Optional[np.ndarray] = None
+
+
 class FireRedTTS2Engine:
-    """Single-utterance and streaming synthesis from text."""
+    """Synthesis, voice cloning and dialogue."""
 
     def __init__(self, config: Optional[EngineConfig] = None, seed: int = 0,
                  device=None, lm_params: Optional[dict] = None,
@@ -86,6 +119,7 @@ class FireRedTTS2Engine:
 
         acfg = config.codec.acoustic_decoder
         self.max_seq_len = config.max_seq_len
+        self.sample_rate = config.codec.input_sample_rate
         self.output_sample_rate = config.codec.output_sample_rate
         self._ncb = llm.audio_num_codebooks
         self._ncols = llm.num_columns
@@ -93,13 +127,26 @@ class FireRedTTS2Engine:
         self._tail_samples = (acfg.n_fft - acfg.hop_length) \
             - (acfg.n_fft - acfg.hop_length) // 2
         self._lead_samples = self._tail_samples
-        self._lock = threading.Lock()
+        # One re-entrant lock guards the mutable shared state: the seed
+        # chain and the two caches (lookup, encode or build, insert).
+        self._lock = threading.RLock()
         self._seeds = np.random.default_rng(seed + 17)
+        self._audio_token_cache: "OrderedDict[str, tuple]" = OrderedDict()
+        self.encode_calls = 0          # prompt-audio encodes (cache misses)
+        self._voice_state_cache: "OrderedDict[str, tuple]" = OrderedDict()
+        self._voice_ctx_seen: "OrderedDict[str, bool]" = OrderedDict()
+        self.voice_state_builds = 0
         self._first_packet_s: Optional[float] = None
         # The frames (T, ncb) of the last generate / generate_stream call,
         # and the host-clock split of the last generate call.
         self.last_tokens: Optional[np.ndarray] = None
         self.last_stats: dict = {}
+        # The last dialogue's frames and stats per turn, and its LM state
+        # after the last turn (kept for inspection; its KV slab holds the
+        # whole conversation).
+        self.last_turn_tokens: list[np.ndarray] = []
+        self.last_turn_stats: list[dict] = []
+        self.last_lm_state: Optional[LMState] = None
 
     def _apply_serving_transforms(self, lm_params: dict, codec_params: dict
                                   ) -> tuple[dict, dict]:
@@ -137,6 +184,11 @@ class FireRedTTS2Engine:
         with self._lock:
             return int(self._seeds.integers(0, 1 << 31))
 
+    def _turn_seeds(self, n: int, utt_seed: Optional[int]) -> list[int]:
+        if utt_seed is None:
+            return [self._next_seed() for _ in range(n)]
+        return [utt_seed + i for i in range(n)]
+
     def noise_fn(self, utt_seed: int, B: int) -> Callable[[int], torch.Tensor]:
         """Frame t's sampling noise (B, ncb, V_audio), Exp(1) draws from a
         generator seeded by (utt_seed, t)."""
@@ -158,11 +210,62 @@ class FireRedTTS2Engine:
         mask[:, -1] = True
         return frame, mask
 
-    def _build_prompt(self, context: Optional[list], text: str, speaker: str):
-        if context:
-            raise NotImplementedError("prompt audio / context segments are "
-                                      "not ported yet")
-        return self._tokenize_text_segment(text, speaker)
+    def _tokenize_audio(self, audio16k: np.ndarray
+                        ) -> tuple[np.ndarray, np.ndarray]:
+        """Prompt audio (16 kHz) -> its codec frames plus an all-zero EOS
+        frame, audio columns masked in (the EOS frame's too).
+
+        A content-hash LRU of AUDIO_TOKEN_CACHE entries: a dialogue
+        re-tokenizes its prompts every turn and clone requests reuse one
+        voice, and the 32-layer SSL encode is the dominant cost of a
+        prompt. The lookup, encode and insert run under the engine lock,
+        so concurrent encodes of the same audio coalesce. `encode_calls`
+        counts the encodes (misses)."""
+        audio16k = np.ascontiguousarray(audio16k, np.float32)
+        key = hashlib.sha1(audio16k.tobytes()).hexdigest()
+        with self._lock:
+            hit = self._audio_token_cache.get(key)
+            if hit is not None:
+                self._audio_token_cache.move_to_end(key)
+                return hit
+            self.encode_calls += 1
+            with torch.inference_mode():
+                codes, tlen = codec_encode(self.codec_params, self.config.codec,
+                                           audio16k[None, :])
+            tokens = codes[0, :, :tlen[0]]                   # (nq, T)
+            T = tokens.shape[1] + 1                          # + EOS frame
+            frame = np.zeros((T, self._ncols), np.int32)
+            mask = np.zeros((T, self._ncols), bool)
+            frame[:T - 1, :-1] = tokens.T
+            mask[:, :-1] = True
+            self._audio_token_cache[key] = (frame, mask)
+            while len(self._audio_token_cache) > AUDIO_TOKEN_CACHE:
+                self._audio_token_cache.popitem(last=False)
+            return frame, mask
+
+    def encode_prompt_tokens(self, audio16k: np.ndarray
+                             ) -> tuple[np.ndarray, np.ndarray]:
+        """Pre-encode prompt audio: (T, ncols) frames + mask for
+        ``Segment.audio_tokens`` / ``generate_monologue(prompt_tokens=)``."""
+        return self._tokenize_audio(audio16k)
+
+    def _tokenize_segment(self, seg: Segment) -> tuple[np.ndarray, np.ndarray]:
+        tf, tm = self._tokenize_text_segment(seg.text, seg.speaker)
+        if seg.audio_tokens is not None:
+            af, am = seg.audio_tokens, seg.audio_tokens_mask
+        else:
+            af, am = self._tokenize_audio(seg.audio)
+        return np.concatenate([tf, af]), np.concatenate([tm, am])
+
+    def _build_prompt(self, context: Optional[List[Segment]],
+                      text: Optional[str], speaker: Optional[str]):
+        """Context segments (text, then audio frames) and the new text ->
+        ((T, ncols) tokens, mask)."""
+        pieces = [self._tokenize_segment(s) for s in context or []]
+        if text is not None:
+            pieces.append(self._tokenize_text_segment(text, speaker))
+        return (np.concatenate([p[0] for p in pieces]),
+                np.concatenate([p[1] for p in pieces]))
 
     def _bucket(self, length: int) -> int:
         for b in self.config.prefill_buckets:
@@ -186,8 +289,22 @@ class FireRedTTS2Engine:
             valid[i, pad:] = True
         return bucket, tokens, mask, valid
 
-    def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
+    def _right_pad(self, win: np.ndarray, wmask: np.ndarray):
+        """Right-pad an append window into its static bucket (content
+        left-aligned; run with real_len) -> (bucket, tokens, mask, valid),
+        each with a leading 1."""
+        L = win.shape[0]
+        bucket = self._bucket(L)
+        tokens = np.zeros((1, bucket, self._ncols), np.int32)
+        mask = np.zeros((1, bucket, self._ncols), bool)
+        valid = np.zeros((1, bucket), bool)
+        tokens[0, :L] = win
+        mask[0, :L] = wmask
+        valid[0, :L] = True
+        return bucket, tokens, mask, valid
+
+    def _dev(self, a) -> torch.Tensor:
+        return torch.as_tensor(a).to(self.device)
 
     def _new_lm_state(self, B: int):
         return init_lm_state(self.config.llm, B, dtype_of(self.config.llm.dtype),
@@ -197,6 +314,50 @@ class FireRedTTS2Engine:
         return stream_decode_init(self.config.codec, B,
                                   dtype_of(self.config.codec.dtype),
                                   device=self.device)
+
+    @torch.inference_mode()
+    def _context_state(self, context: Optional[List[Segment]]):
+        """(a copy of the cached LM state after this context's prefill,
+        its length), or None: no context, the cache is off, or the
+        context's first use.
+
+        A context is cached on its second use (a one-shot prompt keeps the
+        plain left-padded path): its segments are prefilled once into a
+        fresh state at positions 0..L-1 (a right-padded window, then a
+        rewind over the pad), keyed by the context's token content. Every
+        hit hands out a clone, since generation writes the state in place.
+        RoPE shift invariance makes greedy decode equal to the uncached
+        layout's; sampled decode draws from the same distribution."""
+        if self.config.voice_state_cache <= 0 or not context:
+            return None
+        with self._lock:
+            win, wmask = self._build_prompt(context, None, None)
+            L = int(win.shape[0])
+            key = hashlib.sha256(win.tobytes() + wmask.tobytes()).hexdigest()
+            hit = self._voice_state_cache.get(key)
+            if hit is None:
+                if key not in self._voice_ctx_seen:
+                    self._voice_ctx_seen[key] = True
+                    while len(self._voice_ctx_seen) > \
+                            8 * self.config.voice_state_cache:
+                        self._voice_ctx_seen.popitem(last=False)
+                    return None
+                self.voice_state_builds += 1
+                _, tokens, mask, valid = self._right_pad(win, wmask)
+                real_len = self._dev(np.array([L], np.int32))
+                state, _ = lm_generate_frame(
+                    self.lm_params, self.config.llm, self._new_lm_state(1),
+                    self._dev(tokens), self._dev(mask), self._dev(valid),
+                    self.noise_fn(0, 1)(0), temperature=1.0, topk=1,
+                    real_len=real_len)          # the sampled frame is unused
+                hit = (rewind_lm_state(state, real_len), L)
+                self._voice_state_cache[key] = hit
+                while len(self._voice_state_cache) > \
+                        self.config.voice_state_cache:
+                    self._voice_state_cache.popitem(last=False)
+            else:
+                self._voice_state_cache.move_to_end(key)
+            return clone_lm_state(hit[0]), hit[1]
 
     # ------------------------------------------------------------------
     # Core generation
@@ -208,23 +369,60 @@ class FireRedTTS2Engine:
                     depth_temperature=self.config.depth_temperature)
 
     @torch.inference_mode()
+    def _loop(self, state: LMState, tokens, mask, valid, max_frames: int,
+              cap: int, temperature: float, topk: int, seed: int,
+              real_len: Optional[int] = None
+              ) -> tuple[LMState, list[np.ndarray]]:
+        """lm_generate_loop on host arrays -> (state, B arrays of (T_i, ncb)
+        int32 frames). Sets last_stats' "frames", "lm_s", "prefill_s"."""
+        B = tokens.shape[0]
+        stats: dict = {}
+        t0 = time.perf_counter()
+        state, buf, n_frames = lm_generate_loop(
+            self.lm_params, self.config.llm, state, self._dev(tokens),
+            self._dev(mask), self._dev(valid), self.noise_fn(seed, B),
+            max_frames=max_frames, frame_cap=cap,
+            real_len=(None if real_len is None
+                      else self._dev(np.array([real_len], np.int32))),
+            stats=stats, **self._sampling(temperature, topk))
+        buf, n_frames = buf.cpu().numpy(), n_frames.cpu().numpy()
+        self.last_stats = {"frames": int(n_frames.max()),
+                           "lm_s": time.perf_counter() - t0, **stats}
+        return state, [buf[i, :n_frames[i]] for i in range(B)]
+
     def _run_ar(self, prompts: list, max_generation_len: int,
                 temperature: float, topk: int,
                 utt_seed: Optional[int] = None) -> list[np.ndarray]:
         """AR generation of B utterances together (shared bucket,
         per-stream EOS) -> B arrays of (T_i, ncb) int32 frames."""
         bucket, tokens, mask, valid = self._bucketize(prompts)
-        B = len(prompts)
         max_frames = self.max_seq_len - bucket
-        cap = min(max_generation_len, max_frames)
         seed = self._next_seed() if utt_seed is None else utt_seed
-        _, buf, n_frames = lm_generate_loop(
-            self.lm_params, self.config.llm, self._new_lm_state(B),
-            self._dev(tokens), self._dev(mask), self._dev(valid),
-            self.noise_fn(seed, B), max_frames=max_frames, frame_cap=cap,
-            **self._sampling(temperature, topk))
-        buf, n_frames = buf.cpu().numpy(), n_frames.cpu().numpy()
-        return [buf[i, :n_frames[i]] for i in range(B)]
+        _, frames = self._loop(self._new_lm_state(len(prompts)), tokens, mask,
+                               valid, max_frames,
+                               min(max_generation_len, max_frames),
+                               temperature, topk, seed)
+        return frames
+
+    def _run_ar_from(self, state: LMState, pos: int, win: np.ndarray,
+                     wmask: np.ndarray, max_generation_len: int,
+                     temperature: float, topk: int,
+                     utt_seed: Optional[int] = None) -> np.ndarray:
+        """Whole-utterance generation appended onto a live state at
+        absolute position pos (the voice-state cache path): the window
+        holds only the new tokens, right-padded (real_len)."""
+        L = win.shape[0]
+        bucket, tokens, mask, valid = self._right_pad(win, wmask)
+        if pos + bucket > self.max_seq_len:
+            raise ValueError(
+                f"prompt too long: {pos} + {bucket} > {self.max_seq_len}")
+        seed = self._next_seed() if utt_seed is None else utt_seed
+        _, [gen] = self._loop(state, tokens, mask, valid,
+                              self.max_seq_len - bucket,
+                              min(max_generation_len,
+                                  self.max_seq_len - pos - L - 1),
+                              temperature, topk, seed, real_len=L)
+        return gen
 
     @torch.inference_mode()
     def _decode_tokens(self, frames: list[np.ndarray]) -> list[np.ndarray]:
@@ -248,75 +446,35 @@ class FireRedTTS2Engine:
                 .astype(np.float32) if f.shape[0] else np.zeros(0, np.float32)
                 for i, f in enumerate(frames)]
 
-    # ------------------------------------------------------------------
-    # Public API
-    # ------------------------------------------------------------------
+    def _stream_utterance(self, state: LMState, tokens, tmask, valid,
+                          real_len: Optional[int], max_len: int, seed: int,
+                          temperature: float, topk: int, t_start: float):
+        """Stream one utterance from a prompt window: yields float32 chunks
+        at 24 kHz and returns the LM state after it.
 
-    def generate(self, text: str, speaker: str, context: Optional[list] = None,
-                 max_audio_length_ms: float = 90_000, temperature: float = 0.9,
-                 topk: int = 20, utt_seed: Optional[int] = None) -> np.ndarray:
-        """One utterance -> (n,) float32 at 24 kHz. utt_seed fixes the
-        sampling noise (default: the engine's seed chain)."""
-        prompt = self._build_prompt(context, text, speaker)
-        t0 = time.perf_counter()
-        [gen] = self._run_ar([prompt], int(max_audio_length_ms / 80),
-                             temperature, topk, utt_seed)
-        t1 = time.perf_counter()
-        [audio] = self._decode_tokens([gen])
-        self.last_tokens = gen
-        self.last_stats = {"frames": int(gen.shape[0]), "lm_s": t1 - t0,
-                           "vocode_s": time.perf_counter() - t1}
-        return audio
-
-    def generate_batch(self, texts: List[str], speakers: List[str],
-                       max_audio_length_ms: float = 30_000,
-                       temperature: float = 0.9, topk: int = 20,
-                       utt_seed: Optional[int] = None) -> list[np.ndarray]:
-        """Several utterances decoded together (shared bucket, per-stream
-        EOS) -> list of (n_i,) float32 waveforms at 24 kHz."""
-        if len(texts) != len(speakers):
-            raise ValueError(f"{len(texts)} texts but {len(speakers)} speakers")
-        prompts = [self._build_prompt(None, t, s) for t, s in zip(texts, speakers)]
-        frames = self._run_ar(prompts, int(max_audio_length_ms / 80),
-                              temperature, topk, utt_seed)
-        return self._decode_tokens(frames)
-
-    def generate_stream(self, text: str, speaker: str,
-                        context: Optional[list] = None,
-                        max_audio_length_ms: float = 90_000,
-                        temperature: float = 0.9, topk: int = 20,
-                        utt_seed: Optional[int] = None) -> Iterator[np.ndarray]:
-        """Streaming synthesis: yields float32 chunks at 24 kHz.
-
-        The first call prefills the prompt and runs a 1-frame block; blocks
-        then grow 1 -> 4 -> 16 (stream_block_cap) frames. Each block is one
-        LM + vocoder pass with one packed host copy; the host emits middles
-        for live frames and closes with the tail of the last live frame.
-        The utterance is capped by the vocoder's KV slab (8 latents per
-        frame)."""
-        max_len = int(max_audio_length_ms / 80)
-        max_len = min(max_len,
-                      self.config.codec.acoustic_decoder.max_stream_latents // 8)
-        t_start = time.perf_counter()
-        self._first_packet_s = None
-        self.last_tokens = np.zeros((0, self._ncb), np.int32)
-        bucket, tokens, tmask, valid = self._bucketize(
-            [self._build_prompt(context, text, speaker)])
-        max_len = min(max_len, self.max_seq_len - bucket)
-        seed = self._next_seed() if utt_seed is None else utt_seed
+        The first call prefills the window (real_len: appended onto
+        `state`) and runs a 1-frame block; blocks then grow 1 -> 4 -> 16
+        (stream_block_cap) frames. Each block is one LM + vocoder pass with
+        one packed host copy; the host emits middles for live frames and
+        closes with the tail of the last live frame. Sets last_tokens, and
+        the first-packet latency from t_start if none is set yet."""
         noise_fn = self.noise_fn(seed, 1)
         kw = self._sampling(temperature, topk)
         cs, ts = self._chunk_samples, self._tail_samples
         llm_cfg, codec_cfg = self.config.llm, self.config.codec
+        self.last_tokens = np.zeros((0, self._ncb), np.int32)
 
         def block_noise(t_base: int, block: int) -> torch.Tensor:
             return torch.stack([noise_fn(t_base + t) for t in range(block)])
 
         with torch.inference_mode():
-            state, vstate = self._new_lm_state(1), self._new_vstate(1)
+            vstate = self._new_vstate(1)
             state, frame = lm_generate_frame(
                 self.lm_params, llm_cfg, state, self._dev(tokens),
-                self._dev(tmask), self._dev(valid), noise_fn(0), **kw)
+                self._dev(tmask), self._dev(valid), noise_fn(0),
+                real_len=(None if real_len is None
+                          else self._dev(np.array([real_len], np.int32))),
+                **kw)
             emitted = torch.zeros((1,), dtype=torch.int32, device=self.device)
             block = 1
             state, vstate, frame, emitted, packed = stream_block(
@@ -355,3 +513,331 @@ class FireRedTTS2Engine:
                     block, **kw)
         if n_emitted > 0 and last_tail is not None:
             yield last_tail.astype(np.float32)
+        return state
+
+    # ------------------------------------------------------------------
+    # Public API
+    # ------------------------------------------------------------------
+
+    def prepare_prompt(self, text: str, speaker: str, audio_path: str
+                       ) -> Segment:
+        """A context segment from a wav file (any rate, read at 16 kHz)."""
+        return Segment(speaker=speaker, text=text,
+                       audio=load_prompt_audio_16k(audio_path))
+
+    def generate(self, text: str, speaker: str,
+                 context: Optional[List[Segment]] = None,
+                 max_audio_length_ms: float = 90_000, temperature: float = 0.9,
+                 topk: int = 20, utt_seed: Optional[int] = None) -> np.ndarray:
+        """One utterance conditioned on context -> (n,) float32 at 24 kHz.
+        utt_seed fixes the sampling noise (default: the engine's seed
+        chain). With a cached voice state for the context only the new
+        text is prefilled, onto a copy of the context's KV."""
+        max_len = int(max_audio_length_ms / 80)
+        ctx = self._context_state(context)
+        if ctx is not None:
+            state, pos = ctx
+            win, wmask = self._tokenize_text_segment(text, speaker)
+            gen = self._run_ar_from(state, pos, win, wmask, max_len,
+                                    temperature, topk, utt_seed)
+        else:
+            [gen] = self._run_ar([self._build_prompt(context, text, speaker)],
+                                 max_len, temperature, topk, utt_seed)
+        t1 = time.perf_counter()
+        [audio] = self._decode_tokens([gen])
+        self.last_tokens = gen
+        self.last_stats["vocode_s"] = time.perf_counter() - t1
+        return audio
+
+    def generate_single(self, context: List[Segment], temperature: float = 0.9,
+                        topk: int = 20, utt_seed: Optional[int] = None
+                        ) -> np.ndarray:
+        """The monologue clone's inner call: the context alone, its last 3
+        frames dropped, at most 400 frames -> raw (T, ncb) frames."""
+        prompt, mask = self._build_prompt(context, None, None)
+        [gen] = self._run_ar([(prompt[:-3], mask[:-3])], 400, temperature,
+                             topk, utt_seed)
+        return gen
+
+    def generate_batch(self, texts: List[str], speakers: List[str],
+                       contexts: Optional[List[List[Segment]]] = None,
+                       max_audio_length_ms: float = 30_000,
+                       temperature: float = 0.9, topk: int = 20,
+                       utt_seed: Optional[int] = None) -> list[np.ndarray]:
+        """Several utterances decoded together (shared bucket, per-stream
+        EOS) -> list of (n_i,) float32 waveforms at 24 kHz."""
+        if len(texts) != len(speakers):
+            raise ValueError(f"{len(texts)} texts but {len(speakers)} speakers")
+        contexts = contexts or [None] * len(texts)
+        prompts = [self._build_prompt(c, t, s)
+                   for c, t, s in zip(contexts, texts, speakers)]
+        frames = self._run_ar(prompts, int(max_audio_length_ms / 80),
+                              temperature, topk, utt_seed)
+        return self._decode_tokens(frames)
+
+    def generate_stream(self, text: str, speaker: str,
+                        context: Optional[List[Segment]] = None,
+                        max_audio_length_ms: float = 90_000,
+                        temperature: float = 0.9, topk: int = 20,
+                        utt_seed: Optional[int] = None) -> Iterator[np.ndarray]:
+        """Streaming synthesis: yields float32 chunks at 24 kHz (see
+        _stream_utterance). The utterance is capped by the vocoder's KV
+        slab (8 latents per frame). With a cached voice state for the
+        context, the first call appends only the new text onto a copy of
+        the context's KV."""
+        max_len = min(int(max_audio_length_ms / 80),
+                      self.config.codec.acoustic_decoder.max_stream_latents // 8)
+        t_start = time.perf_counter()
+        self._first_packet_s = None
+        ctx = self._context_state(context)
+        if ctx is not None:
+            state, pos = ctx
+            win, wmask = self._tokenize_text_segment(text, speaker)
+            L = win.shape[0]
+            _, tokens, tmask, valid = self._right_pad(win, wmask)
+            real_len = L
+            max_len = min(max_len, self.max_seq_len - pos - L - 1)
+        else:
+            bucket, tokens, tmask, valid = self._bucketize(
+                [self._build_prompt(context, text, speaker)])
+            real_len = None
+            max_len = min(max_len, self.max_seq_len - bucket)
+            state = self._new_lm_state(1)
+        seed = self._next_seed() if utt_seed is None else utt_seed
+        yield from self._stream_utterance(state, tokens, tmask, valid,
+                                          real_len, max_len, seed,
+                                          temperature, topk, t_start)
+
+    def _prompt_segments(self, prompt_wav_list: Optional[List[str]],
+                         prompt_text_list: Optional[List[str]]
+                         ) -> list[Segment]:
+        if prompt_wav_list is None:
+            return []
+        if prompt_text_list is None or \
+                len(prompt_wav_list) != len(prompt_text_list):
+            raise ValueError("each prompt wav needs its prompt text")
+        segs = []
+        for wav, ptext in zip(prompt_wav_list, prompt_text_list):
+            speaker = _speaker_of(ptext)
+            segs.append(self.prepare_prompt(ptext, speaker, wav))
+        return segs
+
+    def _dialogue_window(self, i: int, utterance: str, speaker: str,
+                         prompt_segments: list[Segment], audio_piece,
+                         pos: int):
+        """Turn i's append window: the prompts (turn 0) or the previous
+        turn's re-encoded audio, then this turn's text; right-padded.
+        Raises when the conversation outgrows the LM's context."""
+        pieces = ([self._tokenize_segment(s) for s in prompt_segments]
+                  if i == 0 else [audio_piece])
+        pieces.append(self._tokenize_text_segment(utterance, speaker))
+        win = np.concatenate([p[0] for p in pieces])
+        wmask = np.concatenate([p[1] for p in pieces])
+        L = win.shape[0]
+        bucket, tokens, mask, valid = self._right_pad(win, wmask)
+        if pos + bucket > self.max_seq_len:
+            raise ValueError(f"dialogue context overflow at utterance {i}: "
+                             f"{pos} + {bucket} > {self.max_seq_len}")
+        return L, tokens, mask, valid
+
+    def _close_turn(self, state: LMState, pos: int, frames: np.ndarray,
+                    stats: dict) -> LMState:
+        """Record a finished turn (its frames, its stats and the live
+        window its last decode step read) and rewind the state to pos."""
+        live_end = int(state.pos[0])
+        live_start = int(torch.argmax(state.slot_valid[0].to(torch.int8)))
+        self.last_turn_tokens.append(frames)
+        self.last_turn_stats.append(dict(stats, live_start=live_start,
+                                         live_end=live_end))
+        with torch.inference_mode():
+            state = rewind_lm_state(state, self._dev(np.array([pos], np.int32)))
+        self.last_lm_state = state
+        return state
+
+    def generate_dialogue(self, text_list: List[str],
+                          prompt_wav_list: Optional[List[str]] = None,
+                          prompt_text_list: Optional[List[str]] = None,
+                          temperature: float = 0.9, topk: int = 20,
+                          max_utterance_ms: float = 30_000,
+                          incremental: bool = True,
+                          utt_seed: Optional[int] = None) -> np.ndarray:
+        """Multi-speaker dialogue -> (n,) float32 at 24 kHz. Each text
+        starts with its speaker tag; optional prompt wavs (with their
+        texts, tag first) clone the voices.
+
+        incremental=True keeps the LM state across turns and appends only
+        each turn's new tokens (the previous turn's audio re-encoded at 16
+        kHz, then the text); the decode-era KV is rewound, so the slab's
+        content and positions match the re-prefill path's token for token
+        (greedy decode is equal; sampled decode draws from the same
+        distribution). incremental=False re-prefills the growing
+        conversation every turn, as the reference does."""
+        prompt_segments = self._prompt_segments(prompt_wav_list,
+                                                prompt_text_list)
+        text_list = process_text_list(text_list)
+        seeds = self._turn_seeds(len(text_list), utt_seed)
+        self.last_turn_tokens, self.last_turn_stats = [], []
+        if incremental:
+            return self._generate_dialogue_incremental(
+                text_list, prompt_segments, temperature, topk,
+                max_utterance_ms, seeds)
+        generated: list[Segment] = []
+        storage: list[np.ndarray] = []
+        for text, seed in zip(text_list, seeds):
+            speaker, utterance = _split_tag(text)
+            audio24 = self.generate(utterance, speaker,
+                                    prompt_segments + generated,
+                                    max_utterance_ms, temperature, topk, seed)
+            self.last_turn_tokens.append(self.last_tokens)
+            self.last_turn_stats.append(dict(self.last_stats))
+            generated.append(Segment(speaker=speaker, text=utterance,
+                                     audio=resample(audio24,
+                                                    self.output_sample_rate,
+                                                    self.sample_rate)))
+            storage.append(audio24)
+        return np.concatenate(storage) if storage else np.zeros(0, np.float32)
+
+    def _generate_dialogue_incremental(self, text_list: list[str],
+                                       prompt_segments: list[Segment],
+                                       temperature: float, topk: int,
+                                       max_utterance_ms: float,
+                                       seeds: list[int]) -> np.ndarray:
+        """KV-persistent dialogue: per turn one append window (right-padded,
+        real_len) and a decode loop, then a rewind over the decode-era KV;
+        the turn's audio comes back as codec tokens in the next window
+        (the reference's own feedback loop)."""
+        state = self._new_lm_state(1)
+        utt_cap = int(max_utterance_ms / 80)
+        pos = 0
+        storage: list[np.ndarray] = []
+        audio_piece = None
+        for i, (text, seed) in enumerate(zip(text_list, seeds)):
+            speaker, utterance = _split_tag(text)
+            L, tokens, mask, valid = self._dialogue_window(
+                i, utterance, speaker, prompt_segments, audio_piece, pos)
+            state, [gen] = self._loop(
+                state, tokens, mask, valid, utt_cap,
+                min(utt_cap, self.max_seq_len - (pos + L) - 1),
+                temperature, topk, seed, real_len=L)
+            pos += L
+            state = self._close_turn(state, pos, gen, self.last_stats)
+            [audio24] = self._decode_tokens([gen])
+            storage.append(audio24)
+            audio_piece = self._tokenize_audio(
+                resample(audio24, self.output_sample_rate, self.sample_rate))
+        return np.concatenate(storage) if storage else np.zeros(0, np.float32)
+
+    def generate_dialogue_stream(self, text_list: List[str],
+                                 prompt_wav_list: Optional[List[str]] = None,
+                                 prompt_text_list: Optional[List[str]] = None,
+                                 temperature: float = 0.9, topk: int = 20,
+                                 max_utterance_ms: float = 30_000,
+                                 utt_seed: Optional[int] = None,
+                                 ) -> Iterator[tuple[int, np.ndarray]]:
+        """Streaming incremental dialogue: yields (turn index, float32
+        chunk at 24 kHz) as each turn decodes, the LM state persisting
+        across turns. Per turn: one fused append-prefill + first block,
+        then the block ladder; at the turn's end the state rewinds over
+        the decode-era KV and the turn's audio re-enters as codec tokens.
+
+        The audio that re-enters is what the listener heard, the streamed
+        chunks, as in the JAX engine. On the same seeds turn 0 equals
+        generate_dialogue's; later turns equal it where the streamed audio
+        encodes as the offline decode does (at f32; in bf16 the vocoder's
+        passes of other shapes round differently, and their tokens may
+        differ). Feeding back the offline decode instead would add a vocoder
+        pass to the wait between turns (``chip_smoke.py`` phase 10 times
+        both)."""
+        prompt_segments = self._prompt_segments(prompt_wav_list,
+                                                prompt_text_list)
+        text_list = process_text_list(text_list)
+        seeds = self._turn_seeds(len(text_list), utt_seed)
+        self.last_turn_tokens, self.last_turn_stats = [], []
+        state = self._new_lm_state(1)
+        # every turn streams through a fresh vocoder state, whose KV slab
+        # holds max_stream_latents / 8 frames
+        utt_cap = min(int(max_utterance_ms / 80),
+                      self.config.codec.acoustic_decoder.max_stream_latents
+                      // 8)
+        pos = 0
+        self._first_packet_s = None
+        t_start = time.perf_counter()
+        audio_piece = None
+        for i, (text, seed) in enumerate(zip(text_list, seeds)):
+            speaker, utterance = _split_tag(text)
+            L, tokens, mask, valid = self._dialogue_window(
+                i, utterance, speaker, prompt_segments, audio_piece, pos)
+            stream = self._stream_utterance(
+                state, tokens, mask, valid, L,
+                min(utt_cap, self.max_seq_len - (pos + L) - 1), seed,
+                temperature, topk, t_start)
+            chunks = []
+            while True:
+                try:
+                    chunk = next(stream)
+                except StopIteration as stop:     # the state after the turn
+                    state = stop.value
+                    break
+                chunks.append(chunk)
+                yield i, chunk
+            pos += L
+            frames = self.last_tokens
+            state = self._close_turn(state, pos, frames,
+                                     {"frames": len(frames)})
+            if i + 1 < len(text_list):
+                audio24 = (np.concatenate(chunks) if chunks
+                           else np.zeros(0, np.float32))
+                audio_piece = self._tokenize_audio(
+                    resample(audio24, self.output_sample_rate,
+                             self.sample_rate))
+
+    def generate_monologue(self, text: str, prompt_wav: Optional[str] = None,
+                           prompt_text: Optional[str] = None,
+                           temperature: float = 0.75, topk: int = 20,
+                           prompt_tokens: Optional[tuple] = None,
+                           utt_seed: Optional[int] = None) -> np.ndarray:
+        """Long-form monologue, optionally voice-cloned -> (n,) float32 at
+        24 kHz. With a prompt, the text is split into chunks of at most
+        400 bytes; each chunk runs as the prompt text merged with it over
+        the prompt audio (generate_single), retried until it gives more
+        than 18 frames, its first 2 frames trimmed. prompt_tokens:
+        pre-encoded (frames, mask) of the prompt (encode_prompt_tokens),
+        which skips the wav load and the encode; prompt_wav may then be
+        None. utt_seed: the first call's seed, each later call the next."""
+        seeds = None if utt_seed is None else itertools.count(utt_seed)
+        if prompt_wav is None and prompt_tokens is None:
+            return self.generate(clean_text(text.strip()), "[S1]", None,
+                                 30_000, temperature, topk,
+                                 None if seeds is None else next(seeds))
+        if prompt_text is None:
+            raise ValueError("a voice prompt needs its prompt_text")
+        prompt_text = clean_text(prompt_text)
+        prompt_audio = (np.zeros(0, np.float32) if prompt_wav is None
+                        else load_prompt_audio_16k(prompt_wav))
+        frames, fmask = prompt_tokens if prompt_tokens is not None \
+            else (None, None)
+        pieces: list[np.ndarray] = []
+        for chunk in split_text(clean_text(text), 400):
+            seg = Segment(speaker="[S1]",
+                          text=prompt_text[:-1] + "," + clean_text(chunk),
+                          audio=prompt_audio, audio_tokens=frames,
+                          audio_tokens_mask=fmask)
+            for _ in range(8):
+                gen = self.generate_single([seg], temperature, topk,
+                                           None if seeds is None else next(seeds))
+                if gen.shape[0] > 18:
+                    break
+            pieces.append(self._decode_tokens([gen[2:]])[0])
+        return np.concatenate(pieces) if pieces else np.zeros(0, np.float32)
+
+
+def _speaker_of(text: str) -> str:
+    speaker = text[:4]
+    if speaker not in SPEAKER_TAGS:
+        raise ValueError(f"text must start with a speaker tag "
+                         f"{SPEAKER_TAGS}: {text[:12]!r}")
+    return speaker
+
+
+def _split_tag(text: str) -> tuple[str, str]:
+    return _speaker_of(text), text[4:]

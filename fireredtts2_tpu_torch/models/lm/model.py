@@ -1,10 +1,11 @@
 """Dual-transformer text-speech LM (backbone + depth decoder): the main
 generation path.
 
-Counterpart of ``fireredtts2_tpu/models/lm/model.py`` (generation subset:
-no training loss, speculative depth, slot admission or append-prefill
-yet). With a fused-depth plan and a ``depth_chain`` bundle in the tree the
-depth decode is one launch of kernel B per frame (``ops.depth_chain``).
+Counterpart of ``fireredtts2_tpu/models/lm/model.py`` (generation subset,
+append-prefill and rewind included: no training loss, speculative depth or
+slot admission yet). With a fused-depth plan and a ``depth_chain`` bundle
+in the tree the depth decode is one launch of kernel B per frame
+(``ops.depth_chain``).
 Frames interleave audio_num_codebooks audio columns and one text column;
 the backbone samples codebook 0, the depth decoder codebooks 1..N-1.
 
@@ -16,12 +17,21 @@ same tokens.
 
 KV slabs and the slot-validity map are updated IN PLACE (the JAX package
 threads them as immutable state); ``LMState`` keeps pointing at the same
-tensors.
+tensors, so a state kept for later (the engine's voice-state cache) is
+handed out as a :func:`clone_lm_state`.
+
+Valid slots stay contiguous, [first valid, pos + S), which kernel A relies
+on (it reads every slot of that window unmasked): a left-padded prompt
+starts with pad and then only real slots; a right-padded append window
+(``real_len``) leaves its pad past pos + real_len, where the next decode
+step or window writes; :func:`rewind_lm_state` invalidates every slot from
+pos on.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -173,10 +183,16 @@ def lm_generate_frame(params: Params, cfg: LLMConfig, state: LMState,
                       valid: torch.Tensor, noise: torch.Tensor,
                       temperature: float = 0.9, topk: int = 20,
                       depth_topk: int = 10, depth_temperature: float = 0.75,
+                      real_len: torch.Tensor | None = None,
                       ) -> tuple[LMState, torch.Tensor]:
     """One AR step: consume a token window (B, S, C+1) -- a left-padded
     prompt bucket (prefill) or one frame (S = 1) -- and sample the next
-    frame (B, ncb) int32. noise: (B, ncb, V_audio) Exp(1) draws."""
+    frame (B, ncb) int32. noise: (B, ncb, V_audio) Exp(1) draws.
+
+    real_len: (B,) int, append-prefill. The window is RIGHT-padded instead
+    (content left-aligned, real_len real slots): the frame samples from
+    slot real_len - 1 and pos advances by real_len only, so the next step
+    overwrites the pad slots and the slab has no interior gap."""
     B, S, _ = tokens.shape
     dtype = state.cache_k.dtype
     dev = tokens.device
@@ -204,15 +220,39 @@ def lm_generate_frame(params: Params, cfg: LLMConfig, state: LMState,
         {"k": state.cache_k, "v": state.cache_v}, state.pos,
         live_window=(live_start, live_end))
 
-    last_h = h_out[:, -1, :]
+    if real_len is None:
+        last_h = h_out[:, -1, :]     # right-aligned content: the newest
+    else:
+        idx = (real_len.to(torch.int64) - 1)[:, None, None]
+        last_h = torch.gather(
+            h_out, 1, idx.expand(-1, 1, h_out.shape[-1]))[:, 0]
     c0_logits = (last_h.to(torch.float32)
                  @ params["codebook0_head"].to(torch.float32))
     c0 = sample_topk(c0_logits, topk, temperature, noise[:, 0])
     samples = _depth_decode(params, cfg, last_h, c0, noise, depth_topk,
                             depth_temperature)
+    step = S if real_len is None else real_len.to(torch.int32)
     new_state = LMState(cache_k=state.cache_k, cache_v=state.cache_v,
-                        slot_valid=state.slot_valid, pos=state.pos + S)
+                        slot_valid=state.slot_valid, pos=state.pos + step)
     return new_state, samples
+
+
+def rewind_lm_state(state: LMState, pos: torch.Tensor) -> LMState:
+    """Roll every stream back to absolute position pos (B,): slots at and
+    beyond pos are invalidated in place (their K/V stays; masking hides it
+    until the next window overwrites it). Incremental dialogue replaces
+    an utterance's decode-era KV with its re-encoded audio this way."""
+    idx = torch.arange(state.slot_valid.shape[1], device=pos.device)
+    state.slot_valid &= idx[None, :] < pos[:, None]
+    return LMState(cache_k=state.cache_k, cache_v=state.cache_v,
+                   slot_valid=state.slot_valid, pos=pos.to(torch.int32))
+
+
+def clone_lm_state(state: LMState) -> LMState:
+    """A copy whose tensors later in-place steps leave untouched."""
+    return LMState(cache_k=state.cache_k.clone(),
+                   cache_v=state.cache_v.clone(),
+                   slot_valid=state.slot_valid.clone(), pos=state.pos.clone())
 
 
 def build_step_frame(cfg: LLMConfig, frame: torch.Tensor
@@ -235,12 +275,17 @@ def lm_generate_loop(params: Params, cfg: LLMConfig, state: LMState,
                      max_frames: int, frame_cap: int,
                      temperature: float = 0.9, topk: int = 20,
                      depth_topk: int = 10, depth_temperature: float = 0.75,
+                     real_len: torch.Tensor | None = None,
+                     stats: dict | None = None,
                      ) -> tuple[LMState, torch.Tensor, torch.Tensor]:
     """Whole-utterance generation: prefill, then one decode frame per
     host-loop iteration until every stream has emitted EOS (the all-zero
     frame) or min(max_frames, frame_cap) frames exist. The EOS check reads
     the device once per frame. noise_fn(t) gives frame t's noise (prefill
-    is t = 0).
+    is t = 0). real_len: append-prefill of a right-padded window onto a
+    live state (see lm_generate_frame). stats: when given, receives
+    "prefill_s", the host seconds up to the first EOS read (which waits
+    for the prefill's frame).
 
     Returns (state, frames (B, max_frames, ncb) int32 zeroed after each
     stream's EOS, n_frames (B,) int32 with the EOS frame excluded)."""
@@ -249,8 +294,10 @@ def lm_generate_loop(params: Params, cfg: LLMConfig, state: LMState,
     dev = tokens.device
     kw = dict(temperature=temperature, topk=topk, depth_topk=depth_topk,
               depth_temperature=depth_temperature)
+    t0 = time.perf_counter()
     state, frame = lm_generate_frame(params, cfg, state, tokens, tokens_mask,
-                                     valid, noise_fn(0), **kw)
+                                     valid, noise_fn(0), real_len=real_len,
+                                     **kw)
     buf = torch.zeros((B, max_frames, ncb), dtype=torch.int32, device=dev)
     n_frames = torch.zeros((B,), dtype=torch.int32, device=dev)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -264,13 +311,17 @@ def lm_generate_loop(params: Params, cfg: LLMConfig, state: LMState,
         done = done | is_eos
 
     record(frame, 0)
+    all_done = bool(done.all())
+    if stats is not None:
+        stats["prefill_s"] = time.perf_counter() - t0
     step_valid = torch.ones((B, 1), dtype=torch.bool, device=dev)
     t = 1
-    while t < min(max_frames, frame_cap) and not bool(done.all()):
+    while t < min(max_frames, frame_cap) and not all_done:
         st_tokens, st_mask = build_step_frame(cfg, frame)
         state, frame = lm_generate_frame(params, cfg, state, st_tokens,
                                          st_mask, step_valid, noise_fn(t),
                                          **kw)
         record(frame, t)
+        all_done = bool(done.all())
         t += 1
     return state, buf, n_frames

@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from fireredtts2_tpu_torch.ops.precision import all_fp32, fp32_exact
+
 _MASK_VALUE = -1e30
 
 
@@ -38,6 +40,19 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhgst,bthd->bshgd", probs, v)
     return out.reshape(B, S, Hq, D).to(q.dtype)
+
+
+def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Multi-head attention (Hq == Hkv), the codec encoders' stateless
+    attention: :func:`gqa_attention`, in full fp32 when q, k and v are
+    fp32 (JAX runs those products at ``Precision.HIGHEST``). Plain matmul
+    and softmax; the JAX package runs it as plain XLA, outside any Pallas
+    kernel."""
+    if all_fp32(q, k, v):
+        with fp32_exact():
+            return gqa_attention(q, k, v, mask)
+    return gqa_attention(q, k, v, mask)
 
 
 def _slab_chunk(T: int, target: int = 640) -> int:

@@ -30,6 +30,7 @@ from typing import Any
 import torch
 
 from fireredtts2_tpu_torch.ops.int4 import int4_matmul
+from fireredtts2_tpu_torch.ops.precision import pmatmul
 
 Params = dict[str, Any]
 
@@ -89,6 +90,14 @@ def quantized_matmul(x: torch.Tensor, lp: Params, name: str) -> torch.Tensor:
         return int4_matmul(x, w, lp[name + "_scale4"], lp.get(name + "_t4"),
                            lp.get(name + "_s4t"))
     if w.dtype == torch.int8:
-        y = x @ w.to(x.dtype)
+        y = pmatmul(x, w.to(x.dtype))
         return y * lp[name + "_scale"][0].to(y.dtype)
-    return x @ w
+    return promoting_matmul(x, w)
+
+
+def promoting_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w under the precision policy (``ops.precision.pmatmul``); mixed
+    float dtypes promote (fp32 x bf16 -> fp32), as JAX's type promotion
+    does where PyTorch's matmul would raise."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return pmatmul(x.to(dt), w.to(dt))

@@ -1,10 +1,13 @@
-"""Streaming iSTFT pieces: a matmul inverse DFT, overlap-add and the
-window envelope, no FFT primitive.
+"""STFT power and streaming iSTFT pieces as matmul DFTs and strided
+convolutions, no FFT primitive.
 
-Counterpart of the synthesis half of ``fireredtts2_tpu/ops/stft.py`` that
-the streaming vocoder uses (the mel frontend's forward STFT belongs to
-prompt encoding, a later slice). The bases are built once in float64
-numpy, exactly as the JAX package builds them, and cached per device.
+Counterpart of ``fireredtts2_tpu/ops/stft.py``: the mel frontend's forward
+STFT (``stft_power``: reflect pad, then the windowed DFT as one strided
+conv over the basis) and what the streaming vocoder uses (a matmul inverse
+DFT, overlap-add and the window envelope). The bases are built once in
+float64 numpy, exactly as the JAX package builds them, and cached per
+device; the products follow ``ops.precision`` (full fp32 for fp32
+operands), as JAX runs them at ``Precision.HIGHEST``.
 """
 
 from __future__ import annotations
@@ -13,12 +16,28 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from fireredtts2_tpu_torch.ops.precision import pconv1d, peinsum
 
 
 def hann_window(win_length: int, dtype=np.float32) -> np.ndarray:
     """Periodic Hann window (matches torch.hann_window's default)."""
     n = np.arange(win_length, dtype=np.float64)
     return (0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)).astype(dtype)
+
+
+@lru_cache(maxsize=8)
+def _stft_basis_np(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
+    """Windowed rDFT analysis basis: (F, n_fft) cos and -sin matrices such
+    that re = cos_b @ frame, im = sin_b @ frame equal rfft(window*frame)."""
+    freqs = np.arange(n_fft // 2 + 1, dtype=np.float64)
+    times = np.arange(n_fft, dtype=np.float64)
+    ang = 2.0 * np.pi * freqs[:, None] * times[None, :] / n_fft
+    w = hann_window(n_fft, np.float64)
+    cos_b = (np.cos(ang) * w[None, :]).astype(np.float32)
+    sin_b = (-np.sin(ang) * w[None, :]).astype(np.float32)
+    return cos_b, sin_b
 
 
 @lru_cache(maxsize=8)
@@ -54,14 +73,31 @@ def hann_tensor(n_fft: int, dtype, device) -> torch.Tensor:
     return _const("hann", n_fft, lambda: hann_window(n_fft), dtype, device)
 
 
+def stft_power(audio: torch.Tensor, n_fft: int, hop_length: int
+               ) -> torch.Tensor:
+    """|STFT|^2 with center=True reflect padding and a hann(n_fft) window:
+    audio (B, T) -> (B, n_fft//2 + 1, 1 + T//hop) float32, the frame count
+    of torch.stft(center=True). One strided conv of the padded signal with
+    the (2F, 1, n_fft) basis, in full fp32."""
+    pad = n_fft // 2
+    x = F.pad(audio.to(torch.float32)[:, None, :], (pad, pad), mode="reflect")
+    filt = _const("stft", n_fft,
+                  lambda: np.concatenate(_stft_basis_np(n_fft))[:, None, :],
+                  torch.float32, audio.device)
+    y = pconv1d(x, filt, stride=hop_length)                    # (B, 2F, N)
+    nf = n_fft // 2 + 1
+    re, im = y[:, :nf], y[:, nf:]
+    return re * re + im * im
+
+
 def irfft_frames(spec_re: torch.Tensor, spec_im: torch.Tensor, n_fft: int
                  ) -> torch.Tensor:
     """Per-frame inverse rDFT (no window): (B, F, T) -> (B, n_fft, T)."""
     dt, dev = spec_re.dtype, spec_re.device
     cr = _const("cr", n_fft, lambda: _istft_basis_np(n_fft)[0], dt, dev)
     ci = _const("ci", n_fft, lambda: _istft_basis_np(n_fft)[1], dt, dev)
-    return (torch.einsum("nf,bft->bnt", cr, spec_re)
-            + torch.einsum("nf,bft->bnt", ci, spec_im))
+    return (peinsum("nf,bft->bnt", cr, spec_re)
+            + peinsum("nf,bft->bnt", ci, spec_im))
 
 
 def overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:

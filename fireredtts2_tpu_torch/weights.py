@@ -50,8 +50,8 @@ def init_random(config: EngineConfig, seed: int = 0, device=None
                 ) -> tuple[dict, dict]:
     """(lm_params, codec_params) of random weights at the config's widths,
     drawn on `device` ("cuda" by default; "cpu" only when asked for) from a
-    generator seeded with `seed`. The codec tree holds the decode side
-    only."""
+    generator seeded with `seed`: the LM, then the whole codec (decode side,
+    then the encoders; ``models.codec.model.init_codec_params``)."""
     from fireredtts2_tpu_torch.models.codec.model import init_codec_params
     from fireredtts2_tpu_torch.models.lm.model import init_lm_params
 

@@ -1,7 +1,8 @@
 """Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py):
 tiny-config parameters from the JAX package's own initialisers, bridged
 into the port, the JAX sampling draws of a frame as the port's noise
-tensor, and the one-thread fixture every such module imports."""
+tensor, a prompt-like test waveform, and the one-thread fixture every such
+module imports."""
 
 from functools import lru_cache
 
@@ -65,3 +66,16 @@ def wave_close(got, want, what=""):
     assert peak > 0
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * peak,
                                err_msg=what)
+
+
+def voiced(n: int, seed: int, sr: int = 16_000) -> np.ndarray:
+    """A voiced-like test signal: a few harmonics of a gliding pitch, an
+    amplitude envelope and a little noise, float32 in [-1, 1]."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / sr
+    f0 = 120 + 40 * np.sin(2 * np.pi * 0.7 * t) + rng.uniform(0, 60)
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    x = sum(np.sin(k * phase) / k for k in range(1, 6))
+    x *= 0.5 + 0.5 * np.sin(2 * np.pi * 2.5 * t) ** 2
+    x += 0.02 * rng.standard_normal(n)
+    return (0.3 * x / np.abs(x).max()).astype(np.float32)

@@ -555,3 +555,207 @@ def test_kernel_b_ablation_builds_launch_and_finish(cuda, monkeypatch, name):
     out = ad.run_variant(ad.BITS[name], bundle, cfg, inputs, plan)
     torch.cuda.synchronize()
     assert out.shape == (2, 16) and out.dtype == torch.int32
+
+
+# ---------------------------------------------------------------------------
+# Voice cloning and dialogue: the fp32 precision policy (no TF32 in an fp32
+# encode, whatever PyTorch's process-wide flags say) and the dialogue's
+# stream == batch on the card. Codes must equal the CPU's; a frame may
+# differ only where the CPU's best-vs-second distance gap is below 1e-5
+# relative (models/codec/rvq.py: code_mismatches).
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def tf32_on():
+    """PyTorch's process-wide TF32 flags on for the test, restored after."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_precision_policy_keeps_fp32_products_exact(cuda, tf32_on):
+    """Inside fp32_exact the conv and matmul of fp32 operands agree with the
+    CPU to fp32 rounding; the caller's flags are back after it."""
+    import torch.nn.functional as F
+    from fireredtts2_tpu_torch.ops.precision import fp32_exact, pconv1d, peinsum
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 1, 4000), generator=gen)
+    w = torch.randn((402, 1, 400), generator=gen)
+    a, b = torch.randn((300, 256), generator=gen), torch.randn((256, 2048),
+                                                               generator=gen)
+    ref_c = F.conv1d(x, w, stride=160)
+    ref_m = a @ b
+    got_c = pconv1d(x.to(cuda), w.to(cuda), stride=160).cpu()
+    got_m = peinsum("ij,jk->ik", a.to(cuda), b.to(cuda)).cpu()
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    for got, ref in ((got_c, ref_c), (got_m, ref_m)):
+        assert float((got - ref).abs().max() / ref.abs().max()) < 1e-5
+    with fp32_exact():
+        assert not torch.backends.cudnn.allow_tf32
+
+
+def _encode_codec(name):
+    from fireredtts2_tpu_torch.config import CodecConfig, tiny_engine_config
+    if name == "tiny":
+        return tiny_engine_config().codec
+    base = CodecConfig()
+    one = dict(num_layers=1)
+    return dataclasses.replace(
+        base, dtype="float32",
+        ssl=dataclasses.replace(base.ssl, **one),
+        ssl_adaptor=dataclasses.replace(base.ssl_adaptor, **one),
+        acoustic_encoder=dataclasses.replace(base.acoustic_encoder, **one),
+        acoustic_decoder=dataclasses.replace(base.acoustic_decoder, **one))
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) for k, v in tree.items()} \
+        if isinstance(tree, dict) else tree.to(dev)
+
+
+def _encode_audio(cfg):
+    """10 s of voiced audio at 16 kHz, and it cut into two 6 s windows
+    (the second zero-padded) with their lengths."""
+    rng = np.random.default_rng(0)
+    n = 160_000
+    t = np.arange(n) / 16_000
+    audio = (0.3 * np.sin(2 * np.pi * 180 * t) * np.sin(2 * np.pi * 2 * t)
+             + 0.02 * rng.standard_normal(n)).astype(np.float32)
+    win = cfg.encode_chunk_seconds * cfg.input_sample_rate
+    batch = np.zeros((2, win), np.float32)
+    batch[0], batch[1, :n - win] = audio[:win], audio[win:]
+    return audio, batch, torch.full((2,), win, dtype=torch.int32)
+
+
+def _cpu_codes(cpu, cfg, batch, lengths):
+    """The CPU's codes of the windows and their best-vs-second gaps."""
+    from fireredtts2_tpu_torch.models.codec.model import encode_features
+    from fireredtts2_tpu_torch.models.codec.rvq import code_gaps, rvq_encode
+
+    with torch.inference_mode():
+        feats = encode_features(cpu, cfg, torch.from_numpy(batch), lengths)
+        want = rvq_encode(cpu["rvq"], cfg.rvq, feats)
+        return want.numpy(), code_gaps(cpu["rvq"], cfg.rvq, feats, want).numpy()
+
+
+@pytest.mark.parametrize("name", ["tiny", "flagship_widths"])
+def test_fp32_encode_on_card_matches_cpu(cuda, tf32_on, name):
+    """An fp32 codec (the tiny one, and one layer of each encoder at the
+    flagship widths with the full RVQ) encodes two windows on the card and
+    on the CPU, TF32 allowed process-wide: equal codes up to counted
+    near-ties, and codec_encode's tokens likewise."""
+    from fireredtts2_tpu_torch.models.codec.model import (
+        codec_encode, encode_window, init_codec_params,
+    )
+    from fireredtts2_tpu_torch.models.codec.rvq import code_mismatches
+
+    cfg = _encode_codec(name)
+    cpu = init_codec_params(torch.Generator().manual_seed(3), cfg)
+    card = _to(cpu, cuda)
+    audio, batch, lengths = _encode_audio(cfg)
+    want, gaps = _cpu_codes(cpu, cfg, batch, lengths)
+    with torch.inference_mode():
+        got = encode_window(card, cfg, torch.from_numpy(batch).to(cuda),
+                            lengths.to(cuda)).cpu()
+        diff, bad = code_mismatches(want, got.numpy(), gaps)
+        assert bad == 0, (diff, bad)
+        codes, tlen = codec_encode(card, cfg, audio[None])
+    assert list(tlen) == [125]
+    flat = np.concatenate([got[:, 0].numpy(), got[:, 1].numpy()], axis=-1)
+    np.testing.assert_array_equal(codes[0], flat[:, :125])
+
+
+def test_encode_beside_a_stream_keeps_cpu_codes_and_flags(cuda, tf32_on):
+    """One thread streams on a small bf16 engine (its vocoder's fp32 iSTFT
+    products enter and leave the precision scope every block) while
+    another encodes on the fp32 flagship-width codec, TF32 allowed
+    process-wide by the caller: every encode gives the CPU's codes up to
+    counted near-ties, and the caller's flags are unchanged after."""
+    import threading
+
+    from fireredtts2_tpu_torch.engine import FireRedTTS2Engine
+    from fireredtts2_tpu_torch.models.codec.model import (
+        encode_window, init_codec_params,
+    )
+    from fireredtts2_tpu_torch.models.codec.rvq import code_mismatches
+
+    cfg = _encode_codec("flagship_widths")
+    cpu = init_codec_params(torch.Generator().manual_seed(3), cfg)
+    card = _to(cpu, cuda)
+    _, batch, lengths = _encode_audio(cfg)
+    want, gaps = _cpu_codes(cpu, cfg, batch, lengths)
+    eng = FireRedTTS2Engine(_small_gpu_config(), seed=0, device=cuda)
+    stop, errors, blocks = threading.Event(), [], []
+
+    def stream():
+        try:
+            while not stop.is_set():
+                for chunk in eng.generate_stream(
+                        "Hello there, how are you today?", "[S1]",
+                        max_audio_length_ms=1600, utt_seed=1):
+                    blocks.append(len(chunk))
+        except Exception as e:                 # reported by the main thread
+            errors.append(e)
+
+    th = threading.Thread(target=stream)
+    th.start()
+    try:
+        for _ in range(4):
+            with torch.inference_mode():
+                got = encode_window(card, cfg, torch.from_numpy(batch).to(cuda),
+                                    lengths.to(cuda)).cpu().numpy()
+            diff, bad = code_mismatches(want, got, gaps)
+            assert bad == 0, (diff, bad)
+    finally:
+        stop.set()
+        th.join(300)
+    assert not th.is_alive() and not errors, errors
+    assert blocks
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+
+
+def test_dialogue_stream_equals_batch_on_card(cuda):
+    """A 2-turn dialogue with a prompt on a small engine in bf16, through
+    kernels A and C, with finite audio: turn 0's streamed frames equal
+    generate_dialogue's on the same seeds, and what re-entered after it
+    was its streamed audio (its encode is then cached). In bf16 the
+    streamed and offline decodes round differently, so turn 1 may
+    differ from the batch's."""
+    import tempfile
+
+    from scipy.io import wavfile
+    from fireredtts2_tpu_torch.engine import FireRedTTS2Engine
+    from fireredtts2_tpu_torch.utils.audio_io import resample
+
+    eng = FireRedTTS2Engine(_small_gpu_config(), seed=0, device=cuda)
+    rng = np.random.default_rng(1)
+    t = np.arange(8000) / 16_000
+    prompt = (0.3 * np.sin(2 * np.pi * 150 * t)
+              + 0.02 * rng.standard_normal(8000)).astype(np.float32)
+    texts = ["[S1]Hello there.", "[S2]Hi, nice to meet you."]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/p.wav"
+        wavfile.write(path, 16_000, (prompt * 32767).astype(np.int16))
+        kw = dict(prompt_wav_list=[path], prompt_text_list=["[S1]My voice."],
+                  max_utterance_ms=640, utt_seed=5)
+        fd.reset_launch_counts()
+        audio = eng.generate_dialogue(list(texts), **kw)
+        counts = fd.launch_counts()
+        batch = list(eng.last_turn_tokens)
+        pieces = list(eng.generate_dialogue_stream(list(texts), **kw))
+    assert counts["flash_decode_gqa1"] > 0
+    assert counts["flash_decode_update_bounded"] > 0
+    assert len(batch) == len(eng.last_turn_tokens) == 2
+    np.testing.assert_array_equal(batch[0], eng.last_turn_tokens[0])
+    calls = eng.encode_calls
+    heard = np.concatenate([c for i, c in pieces if i == 0])
+    eng.encode_prompt_tokens(resample(heard, eng.output_sample_rate,
+                                      eng.sample_rate))
+    assert eng.encode_calls == calls
+    assert np.isfinite(audio).all() and len(audio) > 0
+    assert np.isfinite(np.concatenate([c for _, c in pieces])).all()

@@ -118,3 +118,50 @@ def test_lm_generate_loop_matches_jax(rng, sampled):
     np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
     np.testing.assert_array_equal(tbuf.numpy(), np.asarray(jbuf))
     assert int(tn.min()) > 0
+
+
+def test_append_prefill_and_rewind_match_jax(rng):
+    """Incremental dialogue's LM steps, sampled with JAX's draws injected:
+    a left-padded prompt and a few frames, a rewind to the prompt's end,
+    then a RIGHT-padded append window (real_len 9 and 17 of a 32 bucket)
+    and its frames. Frames, positions, the slot-validity map (contiguous
+    valid slots) and the written KV rows equal JAX's."""
+    jcfg, tcfg, jlm, _, tlm, _ = tiny_params()
+    B, bucket = 2, 32
+    ncb, V = tcfg.llm.audio_num_codebooks, tcfg.llm.audio_vocab_size
+    samp = dict(temperature=0.9, topk=20, depth_topk=10, depth_temperature=0.75)
+    tokens, mask, valid = _prompt(jcfg, B, bucket, rng, [20, 32])
+    real = np.array([9, 17], np.int32)
+    win = _prompt(jcfg, B, bucket, rng, real)
+    win = tuple(np.ascontiguousarray(np.stack([np.roll(a[b], -(bucket - L), 0)
+                                               for b, L in enumerate(real)]))
+                for a in win)                  # content left-aligned
+    jstate = jmodel.init_lm_state(jcfg.llm, B, jnp.float32)
+    tstate = tmodel.init_lm_state(tcfg.llm, B)
+    for i, (tk, mk, vl, rl) in enumerate([(tokens, mask, valid, None),
+                                          (*win, real)]):
+        key = jax.random.PRNGKey(20 + i)
+        jstate, jbuf, jn = jmodel.lm_generate_loop(
+            jlm, jcfg.llm, jstate, jnp.asarray(tk), jnp.asarray(mk),
+            jnp.asarray(vl), key, 6, jnp.int32(6),
+            real_len=None if rl is None else jnp.asarray(rl), **samp)
+        tstate, tbuf, tn = tmodel.lm_generate_loop(
+            tlm, tcfg.llm, tstate, to_t(tk), to_t(mk), to_t(vl),
+            lambda t: jax_frame_noise(key, t, B, ncb, V), 6, 6,
+            real_len=None if rl is None else to_t(rl), **samp)
+        np.testing.assert_array_equal(tbuf.numpy(), np.asarray(jbuf))
+        np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+        np.testing.assert_array_equal(tstate.pos.numpy(), np.asarray(jstate.pos))
+        if i == 0:                             # rewind over the decode-era KV
+            pos = np.full((B,), bucket, np.int32)
+            jstate = jmodel.rewind_lm_state(jstate, jnp.asarray(pos))
+            tstate = tmodel.rewind_lm_state(tstate, to_t(pos))
+    sv = tstate.slot_valid.numpy()
+    np.testing.assert_array_equal(sv, np.asarray(jstate.slot_valid))
+    for b in range(B):                         # [first valid, pos) all valid
+        first, end = int(np.argmax(sv[b])), int(tstate.pos[b])
+        assert sv[b, first:end].all() and not sv[b, end:].any()
+    end = int(tstate.pos.max())
+    np.testing.assert_allclose(tstate.cache_k.numpy()[:, :, :end],
+                               np.asarray(jstate.cache_k)[:, :, :end],
+                               rtol=0, atol=1e-5)
