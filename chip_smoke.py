@@ -9,20 +9,23 @@ Phases (any failure exits non-zero and prints no result line):
 2. build every CUDA kernel of the port from csrc/ (one nvcc per source, in
    parallel) and report the build time;
 3. kernel A (flash_decode_gqa1) against its plain PyTorch version at the
-   flagship LM slab (28, B, 3584, 256) bf16, B in {1, 8}, ragged windows
-   with live lengths near 200 and near 3000, and at B=1 near 16 and 1000
-   too: the live sweep's intercept (the fixed cost) and slope; each case's
-   split size (the library's plan) and its CUDA launches per call
+   flagship LM slab (28, B, 3584, 256) bf16, B in {1, 8, 16}, ragged
+   windows with live lengths near 200 and near 3000, at B=1 near 16 and
+   1000 too, and at B=16 windows whose ends pass the slab's end (idle pool
+   slots): the live sweep's intercept (the fixed cost) and slope; each
+   case's split size (the library's plan) and its CUDA launches per call
    (profiler);
 4. kernel C (flash_decode_update_bounded) against its plain version at the
    flagship vocoder slab (12, B, 3008, 1024) bf16, B in {1, 8}, S in {8, 32,
    128} (stream blocks of 1, 4 and 16 frames) and 64 (generate's vocoder
-   passes), live ~200 and ~2900, plus writes that overshoot the slab; the
+   passes), B=16 at S in {8, 32} (the 16-slot pool's grouped passes), live
+   ~200 and ~2900, plus writes that overshoot the slab; the
    written rows must be identical and the attention close; each case's
    split size and its CUDA launches per call (profiler); kernel C's
    read-only mode (D) once with lower bounds;
 5. kernel B (fused_depth_decode) against its plain version at the
-   flagship depth decoder (qwen-200m, 16 codebooks of 2051), B in {1, 8},
+   flagship depth decoder (qwen-200m, 16 codebooks of 2051), B in {1, 8}
+   (and 16 for the preset: two launches of 8 streams),
    plans gate=r8,up=s8,down=s8 (the serving preset), gate=r4,... and
    gate=r8a8,up=s8a8,...: logits with the same tokens forced into both,
    then free sampling (equal up to a counted near-tie); each case's grid
@@ -82,7 +85,28 @@ Phases (any failure exits non-zero and prints no result line):
    and C launched in each; LM ms/frame, prefill ms and kernel A's live
    window per turn); kernel A is
    held against its plain version over the last turn's live window of the
-   dialogue's KV slab.
+   dialogue's KV slab;
+11. serving pools (runtime.batcher.ContinuousBatcher) over phase 10's
+   engine: for pools of 16 and 8 streams the warm-up ladder's seconds, a
+   burst of one ~60-character request per slot (50 frames; half of them
+   identical greedy requests on one utterance seed, which must give
+   identical frames; the rest sampled at mixed temperature and top-k):
+   each stream's first packet (median, max), the aggregate RTF (audio
+   seconds over wall seconds), the block sizes the policy chose,
+   host_stats per frame, kernels A, B and C's launches (each > 0) and
+   the greedy stream's common prefix with generate_stream at B=1 (printed,
+   not bounded: near-tie flips between bf16 routes of different B);
+   staggered arrivals (half the pool admitted while the other half
+   decodes); a traced burst for CUDA kernels per pool step and the busy
+   share; the LM's ms per batched frame. Through the 8-slot pool a batched
+   clone and a 2-turn dialogue over phase 10's prompts, then a hot reload
+   of a second seed's trees (saved with save_params under a temporary
+   DIR/torch/ inside the checkout) while two streams are live: prepare,
+   drain and apply seconds, the live streams whole, the engine's leaves
+   equal to the saved ones, a request after the swap finite. A bounded
+   pool (seq_capacity=1024, max_frames_cap=128) with an idle slot stepping
+   past its slab's end beside a 50-frame neighbour; an engine loaded at
+   full width from DIR (JSON configs of the flagship) and its load time.
 
 Bounds are the larger of the bytes a call must move (each input read once,
 each output written once) over 3.35 TB/s and its operations over the bf16
@@ -357,8 +381,10 @@ def check_kernel_a(dev, L, T, Hkv, G, Dh, reps, cases=None, timed=True):
     # the main path's shapes, then B=1 at ~16 and ~1000 live: with ~200 and
     # ~3000 a live sweep whose intercept is the fixed cost (launch, merge)
     # and whose slope the stream rate
+    # the serving pool's B=16, and at B=16 windows whose ends pass the
+    # slab's end (idle pool slots stepping on): the kernel reads [lo, T)
     cases = cases or [(1, 200), (1, 3000), (8, 200), (8, 3000), (1, 16),
-                      (1, 1000)]
+                      (1, 1000), (16, 200), (16, 3000), (16, T + 64)]
     results = []
     for B, live in cases:
         gen = torch.Generator(device=dev).manual_seed(B * 7919 + live)
@@ -369,8 +395,10 @@ def check_kernel_a(dev, L, T, Hkv, G, Dh, reps, cases=None, timed=True):
         # window is long
         pad = min(40, max(live // 4, 1))
         q_start = rng.integers(0, pad, B)
-        q_end = np.minimum(live + rng.integers(-min(20, pad), min(20, pad), B), T)
-        if live > 1000:
+        q_end = live + rng.integers(-min(20, pad), min(20, pad), B)
+        if live <= T:
+            q_end = np.minimum(q_end, T)
+        if 1000 < live <= T:
             q_end[0] = min(T, (live // 512) * 512)
         qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
         qe = torch.tensor(q_end, dtype=torch.int32, device=dev)
@@ -380,7 +408,7 @@ def check_kernel_a(dev, L, T, Hkv, G, Dh, reps, cases=None, timed=True):
         out = fd.flash_decode_gqa1(q, k4, v4, layer, qs, qe, lo, hi)
         ref = fd.flash_decode_gqa1_plain(q, k4, v4, layer, qs, qe, lo, hi)
         err, ok = _compare(out, ref)
-        live_slots = int((q_end - q_start).sum())
+        live_slots = int((np.minimum(q_end, T) - q_start).sum())
         bnd, by = bound_ms(4 * B * Hkv * G * Dh + live_slots * Hkv * Dh * 4,
                            4 * Hkv * G * Dh * live_slots)
         launches = None
@@ -395,7 +423,7 @@ def check_kernel_a(dev, L, T, Hkv, G, Dh, reps, cases=None, timed=True):
                                              lo, hi),
                 lambda: fd.flash_decode_gqa1_plain(q, k4, v4, next(step) % L,
                                                    qs, qe, lo, hi), reps)
-            w0, w1 = int(q_start.min()), int(q_end.max())
+            w0, w1 = int(q_start.min()), min(int(q_end.max()), T)
             kv = [t[layer, :, w0:w1].view(B, w1 - w0, Hkv, Dh).transpose(1, 2)
                   for t in (k4, v4)]
             slot = torch.arange(w0, w1, device=dev)
@@ -406,7 +434,8 @@ def check_kernel_a(dev, L, T, Hkv, G, Dh, reps, cases=None, timed=True):
         if torch.device(dev).type == "cuda":
             split = fd.gqa1_plan(B, Hkv, G, T, Dh,
                                  torch.device(dev).index or 0)[0]
-        results.append(dict(B=B, live=live, max_abs_err=err, ok=ok,
+        results.append(dict(B=B, live=live, past_end=live > T,
+                            max_abs_err=err, ok=ok,
                             bound_ms=bnd, bound_by=by, split=split,
                             cuda_launches_per_call=launches, **times))
         del q, k4, v4
@@ -431,8 +460,11 @@ def check_kernel_c(dev, L, T, H, Dh, reps, cases=None, timed=True):
     from fireredtts2_tpu_torch.ops import flash_decode as fd
 
     D = H * Dh
-    cases = cases or [(B, S, live) for B in (1, 8) for S in (8, 32, 64, 128)
-                      for live in (200, 2900)]
+    # B=16: the 16-slot pool's grouped passes, G = min(K, 64 // 16) <= 4
+    # tokens, so S = 8 (K=1) or 32
+    cases = cases or ([(B, S, live) for B in (1, 8) for S in (8, 32, 64, 128)
+                       for live in (200, 2900)]
+                      + [(16, S, live) for S in (8, 32) for live in (200, 2900)])
     cases = list(cases) + [("overshoot", 64, T)]
     results = []
     for B, S, live in cases:
@@ -572,7 +604,8 @@ def race_gap(logits, noise, topk: int, temp: float):
 
 def check_kernel_b(dev, plans=(PRESET, "gate=r4,up=s8,down=s8",
                                "gate=r8a8,up=s8a8,down=s8"),
-                   batches=(1, 8), reps=20, timed=True, bundle_fn=None):
+                   batches=(1, 8), reps=20, timed=True, bundle_fn=None,
+                   wide=(16,)):
     """Kernel B vs its plain version. With the plain version's samples
     forced into both, the fp32 logits of every micro-step agree to B_TOL of
     the plain peak, and a sample may differ only at a near-tie: where the
@@ -581,7 +614,9 @@ def check_kernel_b(dev, plans=(PRESET, "gate=r4,up=s8,down=s8",
     version up to its first such tie. The ties are counted. On the card the
     free launch's grid barriers (word 3 of the barrier words) must be
     barriers_per_frame's count; each case also reports the ring's stages
-    that launch used."""
+    that launch used. `wide`: batches run for the first plan (the serving
+    preset) only, e.g. the 16-slot pool's B=16, which the wrapper splits
+    into launches of at most 8 streams (one barrier count per launch)."""
     import torch
     from fireredtts2_tpu_torch.ops import depth_chain as dc
 
@@ -589,7 +624,7 @@ def check_kernel_b(dev, plans=(PRESET, "gate=r4,up=s8,down=s8",
     for plan in plans:
         cfg, bundle, gen = (bundle_fn or depth_bundle)(dev, plan)
         ncb, V = cfg.audio_num_codebooks, cfg.audio_vocab_size
-        for B in batches:
+        for B in tuple(batches) + (tuple(wide) if plan == plans[0] else ()):
             last_h = _rnd(gen, B, cfg.backbone.embed_dim)
             c0 = torch.randint(0, V, (B,), generator=gen, device=dev,
                                dtype=torch.int32)
@@ -642,7 +677,8 @@ def check_kernel_b(dev, plans=(PRESET, "gate=r4,up=s8,down=s8",
             ties = len(flips)
             ok = (bool(torch.isfinite(logits).all()) and err <= B_TOL * peak
                   and tokens_ok and bool(torch.equal(free[:, 0], c0))
-                  and barriers in (None, dc.barriers_per_frame(cfg)))
+                  and barriers in (None, dc.barriers_per_frame(cfg)
+                                   * -(-B // 8)))
             nbytes, ops, kind = depth_bytes_ops(bundle, cfg, B, plan)
             bnd, by = bound_ms(nbytes, ops, kind)
             times = {}
@@ -1442,7 +1478,7 @@ def encode_stages(eng, audio16k: np.ndarray) -> dict:
 
 
 def run_clone_dialogue(dev, card: str, config=None, max_ms: float = 2000.0,
-                       seed: int = 2024) -> dict:
+                       seed: int = 2024, keep: dict | None = None) -> dict:
     """Voice cloning and dialogue through the engine's entry points, on
     the serving preset at flagship width by default: two prompt wavs
     (3.2 s and 7.4 s, the second over two 6 s windows) written from the
@@ -1454,7 +1490,9 @@ def run_clone_dialogue(dev, card: str, config=None, max_ms: float = 2000.0,
     [S1] [S2] [S1] over both prompts, batch then streamed on the same
     seeds, the wait between streamed turns timed. Every run is counted with the launch counts set to 0 just
     before and read just after; kernel A is then held against its plain
-    version over the last turn's live window of the dialogue's KV slab."""
+    version over the last turn's live window of the dialogue's KV slab.
+    keep: receives the engine ("engine") and the prompt segments
+    ("segments") for the serving phase."""
     import dataclasses
     import tempfile
 
@@ -1680,9 +1718,447 @@ def run_clone_dialogue(dev, card: str, config=None, max_ms: float = 2000.0,
     checks["dialogue_kernel_a_matches_plain"] = ok
     res.update(phase_s=time.perf_counter() - t_phase, checks=checks,
                launches=runs, ok=all(checks.values()))
+    if keep is not None:
+        keep.update(engine=eng, segments=segs)
     del eng, state
     if cuda:
         torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Serving pools at flagship width (the continuous batcher)
+# ---------------------------------------------------------------------------
+
+SERVE_TEXTS = [
+    "Good morning, and welcome to the first episode of our show.",
+    "The weather today is mild, with a light breeze from the west.",
+    "Please remember to bring your ticket to the front desk early.",
+    "Our next guest has spent ten years building small sailboats.",
+    "Turn left at the second light and the station is on your right.",
+    "She opened the letter slowly and read it twice before smiling.",
+    "The library will close an hour early on the last day of May.",
+    "We tested the new recipe with fresh basil and a little lemon.",
+    "Thank you for calling, your request has been placed in queue.",
+    "Every evening the old clock in the hall chimes exactly seven.",
+    "The train to the coast leaves at noon from platform number four.",
+    "Water the plants twice a week and keep them out of direct sun.",
+    "He said the meeting was moved to Thursday after the long lunch.",
+    "Kids love the museum because they can touch almost everything.",
+    "The forecast calls for snow in the hills by the end of the week.",
+    "Let me read the summary once more before we make a final call.",
+]
+POOLS = (16, 8)
+GREEDY_SEED = 5
+SERVE_SAMPLING = ((0.7, 5), (0.8, 10), (0.9, 20), (1.0, 40))
+
+
+def _sync() -> None:
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _consume(handles) -> list:
+    """Drain each handle (its error raised) -> list of audio arrays."""
+    return [np.concatenate(list(h)) for h in handles]
+
+
+def common_prefix(a: np.ndarray, b: np.ndarray) -> int:
+    """Frames two token streams share from their start."""
+    n = min(len(a), len(b))
+    d = np.nonzero((a[:n] != b[:n]).any(axis=1))[0]
+    return int(d[0]) if len(d) else n
+
+
+def lm_step_ms(eng, B: int, dev, reps: int = 10) -> float:
+    """CUDA-event ms of one batched LM frame (backbone S=1 with kernel A,
+    kernel B) at B streams, per-row sampling tensors as the pool passes
+    them, on a fresh state after a 128-slot prefill."""
+    import torch
+    from fireredtts2_tpu_torch.models.lm.model import (
+        build_step_frame, lm_generate_frame,
+    )
+    cfg = eng.config.llm
+    ncb, V = cfg.audio_num_codebooks, cfg.audio_vocab_size
+    noise = torch.ones((B, ncb, V), device=dev)
+    temp = torch.full((B, 1), 0.9, device=dev)
+    topk = torch.full((B,), 20, dtype=torch.int32, device=dev)
+    state = eng._new_lm_state(B)
+    tokens = torch.zeros((B, 128, cfg.num_columns), dtype=torch.int32, device=dev)
+    mask = torch.zeros_like(tokens, dtype=torch.bool)
+    mask[..., -1] = True
+    with torch.inference_mode():
+        state, frame = lm_generate_frame(eng.lm_params, cfg, state, tokens, mask,
+                                         torch.ones((B, 128), dtype=torch.bool,
+                                                    device=dev), noise, temp, topk)
+        valid = torch.ones((B, 1), dtype=torch.bool, device=dev)
+
+        def step():
+            nonlocal state, frame
+            t, m = build_step_frame(cfg, frame)
+            state, frame = lm_generate_frame(eng.lm_params, cfg, state, t, m,
+                                             valid, noise, temp, topk)
+        return event_ms(step, reps)
+
+
+def profile_pool(b, dev, texts, max_ms: float) -> tuple:
+    """A burst of len(texts) requests traced by the profiler: CUDA kernels
+    per pool step (one batched frame) and per stream frame, and the
+    device's busy share over the burst. The burst is the pool's own work
+    and fails the phase like any other; only the profiler is optional
+    (without it the trace's numbers are left out). -> (result, checks)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n0 = len([e for e in b.timeline if e["ev"] == "block"])
+    prof = None
+    try:
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as e:  # noqa: BLE001 -- the profiler is optional here
+        log(f"profiler unavailable: {e!r}")
+        prof = None
+    try:
+        t0 = time.perf_counter()
+        with b.burst():
+            hs = [b.submit(t, "[S1]", max_audio_length_ms=max_ms)
+                  for t in texts]
+        audios = _consume(hs)               # raises a handle's error
+        _sync()
+        wall = time.perf_counter() - t0
+    finally:
+        kernels = None
+        if prof is not None:
+            try:
+                prof.stop()
+                kernels = [e for e in prof.events()
+                           if e.device_type == DeviceType.CUDA]
+            except Exception as e:  # noqa: BLE001
+                log(f"profiler trace unreadable: {e!r}")
+    checks = {"traced_ok": all(h.error is None for h in hs) and all(
+        len(a) == len(h.tokens) * 1920 > 0 and np.isfinite(a).all()
+        for a, h in zip(audios, hs))}
+    res = dict(wall_s=wall)
+    if kernels is not None:
+        blocks = [e for e in b.timeline if e["ev"] == "block"][n0:]
+        steps = sum(e["K"] for e in blocks)
+        stream_frames = sum(e["K"] * e["n"] for e in blocks)
+        busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+        res.update(cuda_kernels=len(kernels), pool_steps=steps,
+                   cuda_kernels_per_step=len(kernels) / max(steps, 1),
+                   cuda_kernels_per_stream_frame=(len(kernels)
+                                                  / max(stream_frames, 1)),
+                   device_s=busy, busy_share=busy / wall)
+    return res, checks
+
+
+def serve_burst(b, eng, pool: int, max_ms: float, ref_tokens) -> tuple:
+    """One request per slot, submitted together: pool // 2 identical
+    greedy requests (top-k 1 for codebook 0; one utterance seed, as the
+    depth chain samples at the engine's depth top-k) of SERVE_TEXTS[0] and
+    the rest sampled with mixed temperature and top-k. Launch counts set to 0 just before and
+    read just after. -> (result, checks)."""
+    import collections
+    import torch
+
+    n_greedy = pool // 2
+    reqs = [(SERVE_TEXTS[0], 1.0, 1, GREEDY_SEED)] * n_greedy + [
+        (SERVE_TEXTS[1 + i], *SERVE_SAMPLING[i % len(SERVE_SAMPLING)], None)
+        for i in range(pool - n_greedy)]
+    b.reset_host_stats()
+    b.timeline.clear()
+    _sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    with b.burst():                       # one admission for the burst
+        hs = [b.submit(t, "[S1]", temperature=tp, topk=k,
+                       max_audio_length_ms=max_ms, utt_seed=seed)
+              for t, tp, k, seed in reqs]
+    audios = _consume(hs)
+    _sync()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    sr = eng.output_sample_rate
+    audio_s = sum(len(a) for a in audios) / sr
+    fpl = sorted(h.first_packet_s * 1e3 for h in hs)
+    ks = collections.Counter(e["K"] for e in b.timeline if e["ev"] == "block")
+    blocks = [e for e in b.timeline if e["ev"] == "block"]
+    greedy = [h.tokens for h in hs[:n_greedy]]
+    checks = {
+        "finite": all(np.isfinite(a).all() for a in audios),
+        "len": all(len(a) == len(h.tokens) * 1920 > 0 for a, h in zip(audios, hs)),
+        "greedy_identical": all(np.array_equal(g, greedy[0]) for g in greedy),
+    }
+    for k in ("flash_decode_gqa1", "fused_depth_decode",
+              "flash_decode_update_bounded"):
+        checks[f"{k}_launched"] = counts[k] > 0
+    res = dict(
+        wall_s=wall, audio_s=audio_s, aggregate_rtf=audio_s / wall,
+        first_packet_ms=dict(median=float(np.median(fpl)), max=fpl[-1],
+                             all=fpl),
+        frames=[len(h.tokens) for h in hs], policy_k=dict(ks),
+        block_wall_ms_per_step=(sum(e["wall_ms"] for e in blocks)
+                                / max(sum(e["K"] for e in blocks), 1)),
+        host_stats=b.host_stats(), launches=counts,
+        greedy_common_prefix_with_b1=common_prefix(greedy[0], ref_tokens),
+        greedy_frames=len(greedy[0]), b1_frames=len(ref_tokens))
+    return res, checks
+
+
+def serve_staggered(b, pool: int, max_ms: float) -> tuple:
+    """Half the pool admitted while the other half decodes: pool // 2
+    requests, their first packets awaited, then pool // 2 more."""
+    import torch
+    half = pool // 2
+    _sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    with b.burst():
+        first = [b.submit(SERVE_TEXTS[-1 - i], "[S1]", max_audio_length_ms=max_ms)
+                 for i in range(half)]
+    heads = [h.chunks.get(timeout=600) for h in first]
+    with b.burst():
+        later = [b.submit(SERVE_TEXTS[i + 1], "[S1]", topk=10,
+                          max_audio_length_ms=max_ms) for i in range(half)]
+    audios = [np.concatenate([c] + list(h)) for c, h in zip(heads, first)]
+    audios += _consume(later)
+    _sync()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    live = [h for h in first if h.finished_s and h.finished_s > max(
+        x.first_packet_s for x in later)]
+    checks = {"staggered_finite": all(np.isfinite(a).all() and len(a) > 0
+                                      for a in audios),
+              "staggered_admitted_while_decoding": len(live) > 0}
+    for k in ("flash_decode_gqa1", "fused_depth_decode",
+              "flash_decode_update_bounded"):
+        checks[f"staggered_{k}_launched"] = counts[k] > 0
+    return dict(wall_s=wall, later_first_packet_ms=sorted(
+        h.first_packet_s * 1e3 for h in later), launches=counts), checks
+
+
+def write_serving_dir(d: str, config) -> None:
+    """config_llm.json / config_codec.json of `config`'s LM and codec (the
+    flagship's: the codec JSON's empty sections mean its defaults)."""
+    llm = config.llm
+    with open(os.path.join(d, "config_llm.json"), "w") as f:
+        json.dump({"llm_models": dict(
+            backbone_flavor=llm.backbone_flavor,
+            decoder_flavor=llm.decoder_flavor,
+            text_vocab_size=llm.text_vocab_size,
+            audio_vocab_size=llm.audio_vocab_size,
+            audio_num_codebooks=llm.audio_num_codebooks,
+            decoder_loss_weight=llm.decoder_loss_weight)}, f)
+    with open(os.path.join(d, "config_codec.json"), "w") as f:
+        json.dump({"codec": {}}, f)
+
+
+def run_serving(dev, card: str, keep: dict, max_ms: float = 4000.0,
+                load_overrides: dict | None = None) -> dict:
+    """Phase 11: the continuous batcher over the serving preset's engine at
+    flagship width. For pools of 16 and 8: the warm-up ladder, a burst of
+    one request per slot (serve_burst), staggered arrivals, a traced
+    burst (CUDA kernels per step, busy share) and the LM's ms per batched
+    frame. Through the 8-slot pool also a batched clone and a 2-turn
+    dialogue over phase 10's prompts, and a hot reload of a second seed's
+    trees (saved with save_params under DIR/torch/) while two streams are
+    live; then a bounded pool (seq_capacity=1024, max_frames_cap=128) with
+    an idle slot stepping past its slab's end, and an engine loaded at
+    full width from DIR (JSON configs of the flagship). keep: phase 10's
+    engine and prompt segments, taken out of it so that the engine is freed
+    before the load. load_overrides: the loaded engine's llm_overrides
+    (default: the serving preset's). On the CPU (a rehearsal at a small
+    config) the LM timing and the trace are skipped and the launch checks
+    fail, by design."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+    from fireredtts2_tpu_torch.config import CodecConfig
+    from fireredtts2_tpu_torch.engine import FireRedTTS2Engine
+    from fireredtts2_tpu_torch.runtime import checkpoint as ckpt
+    from fireredtts2_tpu_torch.runtime.batcher import ContinuousBatcher
+    from fireredtts2_tpu_torch.weights import init_random
+
+    eng, segs = keep.pop("engine"), keep.pop("segments")
+    t_phase = time.perf_counter()
+    checks: dict = {}
+    launches: dict = {}
+    res: dict = dict(card=card, pools={})
+    list(eng.generate_stream(SERVE_TEXTS[0], "[S1]", max_audio_length_ms=max_ms,
+                             temperature=1.0, topk=1, utt_seed=GREEDY_SEED))
+    ref_tokens = eng.last_tokens           # the greedy request at B=1
+
+    b8 = None
+    for pool in POOLS:
+        b = ContinuousBatcher(eng, max_streams=pool)
+        b.start()
+        checks[f"pool{pool}_ready"] = b.wait_ready(timeout=900)
+        r: dict = dict(warmup_s=b.warmup_s)
+        r["burst"], c = serve_burst(b, eng, pool, max_ms, ref_tokens)
+        checks.update({f"pool{pool}_{k}": v for k, v in c.items()})
+        launches[f"pool{pool}_burst"] = r["burst"]["launches"]
+        r["staggered"], c = serve_staggered(b, pool, max_ms)
+        checks.update({f"pool{pool}_{k}": v for k, v in c.items()})
+        launches[f"pool{pool}_staggered"] = r["staggered"]["launches"]
+        cuda = torch.device(dev).type == "cuda"
+        r["profile"], c = profile_pool(b, dev, SERVE_TEXTS[:pool], 1200.0)
+        checks.update({f"pool{pool}_{k}": v for k, v in c.items()})
+        r["lm_ms_per_step"] = lm_step_ms(eng, pool, dev) if cuda else None
+        r["lm_ms_per_step_b1"] = (lm_step_ms(eng, 1, dev)
+                                  if cuda and pool == POOLS[0] else None)
+        res["pools"][pool] = r
+        if pool == POOLS[-1]:           # the 8-slot pool serves on below
+            b8 = b
+        else:
+            b.stop()
+        del b
+
+    # batched clone and a 2-turn dialogue through the 8-slot pool
+    reset_counts()
+    t0 = time.perf_counter()
+    clone = b8.generate_monologue_clone(
+        CLONE_TEXT, prompt_text=PROMPTS[0][0][4:], prompt_audio=segs[0].audio,
+        max_frames=50)
+    _sync()
+    res["clone"] = dict(wall_s=time.perf_counter() - t0,
+                        audio_s=len(clone) / eng.output_sample_rate,
+                        launches=read_counts())
+    launches["pool8_clone"] = res["clone"]["launches"]
+    checks["clone_finite"] = len(clone) > 0 and bool(np.isfinite(clone).all())
+    reset_counts()
+    t0 = time.perf_counter()
+    turns: dict = {}
+    for i, c in b8.run_dialogue(DIALOGUE[:2], prompt_segments=segs,
+                                max_utterance_ms=2000):
+        turns.setdefault(i, []).append(c)
+    _sync()
+    res["dialogue"] = dict(wall_s=time.perf_counter() - t0,
+                           turn_samples=[sum(len(c) for c in turns[i])
+                                         for i in sorted(turns)],
+                           launches=read_counts())
+    launches["pool8_dialogue"] = res["dialogue"]["launches"]
+    checks["dialogue_two_turns"] = sorted(turns) == [0, 1] and all(
+        np.isfinite(np.concatenate(turns[i])).all() for i in turns)
+    for run in ("clone", "dialogue"):
+        for k in ("flash_decode_gqa1", "fused_depth_decode",
+                  "flash_decode_update_bounded"):
+            checks[f"{run}_{k}_launched"] = res[run]["launches"][k] > 0
+
+    # hot reload of a second seed's trees while two streams are live
+    root = os.path.dirname(os.path.abspath(__file__))
+    d = tempfile.mkdtemp(prefix=".serving_ckpt_", dir=root)
+    try:
+        t0 = time.perf_counter()
+        lm2, codec2 = init_random(eng.config, seed=1, device=dev)
+        ckpt.save_params(ckpt.converted_path(d, "llm_posttrain"), lm2)
+        ckpt.save_params(ckpt.converted_path(d, "codec"), codec2)
+        write_serving_dir(d, eng.config)
+        res["save_s"] = time.perf_counter() - t0
+        res["ckpt_gb"] = sum(os.path.getsize(os.path.join(d, "torch", f))
+                             for f in os.listdir(os.path.join(d, "torch"))) / 1e9
+        live = [b8.submit(SERVE_TEXTS[3 + i], "[S1]", max_audio_length_ms=max_ms)
+                for i in range(2)]
+        heads = [h.chunks.get(timeout=600) for h in live]
+        err: list = []
+
+        def reload():
+            try:
+                b8.reload(d, timeout_s=600.0)
+            except Exception as e:  # noqa: BLE001
+                err.append(e)
+        th = threading.Thread(target=reload)
+        th.start()
+        audios = [np.concatenate([c] + list(h)) for c, h in zip(heads, live)]
+        th.join(timeout=900)
+        res["reload"] = dict(b8.last_reload or {}, error=repr(err) if err else None,
+                             live_frames=[len(h.tokens) for h in live])
+        checks["reload_ok"] = not err and not th.is_alive()
+        checks["reload_live_streams_whole"] = all(
+            h.error is None and len(a) == len(h.tokens) * 1920 > 0
+            and np.isfinite(a).all() for a, h in zip(audios, live))
+        checks["reload_leaves_equal_saved"] = all(
+            torch.equal(eng.lm_params[k], lm2[k].to(eng.lm_params[k].dtype))
+            for k in ("text_embeddings", "audio_embeddings", "codebook0_head")
+        ) and torch.equal(eng.codec_params["upsample"]["up_conv_w"],
+                          codec2["upsample"]["up_conv_w"])
+        after = np.concatenate(list(b8.submit(SERVE_TEXTS[5], "[S1]",
+                                              max_audio_length_ms=800)))
+        checks["reload_serves_after"] = len(after) > 0 and bool(
+            np.isfinite(after).all())
+        b8.stop()
+        del b8, lm2, codec2
+        torch.cuda.empty_cache()
+
+        # a bounded pool: an idle slot (slot 0, placed at T - 8) steps past
+        # its slab's end while a neighbour streams 50 frames; slot 1, placed
+        # at T, writes no row at all, nor does slot 0 below T - 8
+        bb = ContinuousBatcher(eng, max_streams=8, seq_capacity=1024,
+                               max_frames_cap=128)
+        bb.start()
+        checks["bounded_ready"] = bb.wait_ready(timeout=900)
+        T = bb.lm_state.cache_k.shape[2]
+        pos = bb.lm_state.pos.clone()
+        pos[0], pos[1] = T - 8, T
+        bb.lm_state = dataclasses.replace(bb.lm_state, pos=pos)
+        st = bb.lm_state
+        before = [c[:, 0, :T - 8].clone() for c in (st.cache_k, st.cache_v)] + [
+            c[:, 1].clone() for c in (st.cache_k, st.cache_v)]
+        reset_counts()
+        h = bb.submit(SERVE_TEXTS[0], "[S1]", temperature=1.0, topk=1,
+                      max_audio_length_ms=max_ms, utt_seed=GREEDY_SEED)
+        a = np.concatenate(list(h))
+        _sync()
+        res["bounded"] = dict(slab=T, idle_pos_after=int(bb.lm_state.pos[0]),
+                              frames=len(h.tokens), launches=read_counts())
+        launches["bounded"] = res["bounded"]["launches"]
+        checks["bounded_idle_slot_past_slab"] = int(bb.lm_state.pos[0]) > T
+        st = bb.lm_state
+        after = [c[:, 0, :T - 8] for c in (st.cache_k, st.cache_v)] + [
+            c[:, 1] for c in (st.cache_k, st.cache_v)]
+        checks["bounded_idle_rows_unchanged"] = all(
+            torch.equal(x, y) for x, y in zip(before, after))
+        checks["bounded_finite"] = len(a) == len(h.tokens) * 1920 > 0 and bool(
+            np.isfinite(a).all())
+        bb.stop()
+        del bb
+
+        # an engine loaded at full width from DIR (DIR/torch/ trees)
+        eng_config = eng.config
+        del eng
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        codec_cfg = eng_config.codec     # the JSON holds the flagship's
+        eng2 = FireRedTTS2Engine(
+            pretrained_dir=d, device=dev,
+            llm_overrides=(dict(quantize_backbone=True, fused_depth_plan=PRESET)
+                           if load_overrides is None else load_overrides),
+            codec_overrides=None if codec_cfg == CodecConfig() else {
+                f.name: getattr(codec_cfg, f.name)
+                for f in dataclasses.fields(codec_cfg)})
+        _sync()
+        res["load_s"] = time.perf_counter() - t0
+        # a server's start: load, warm up (a prefill per bucket and a short
+        # stream through kernels A, B and C), serve
+        reset_counts()
+        res["engine_warmup_s"] = eng2.warmup()
+        res["engine_warmup_launches"] = read_counts()
+        launches["engine_warmup"] = res["engine_warmup_launches"]
+        for k in ("flash_decode_gqa1", "fused_depth_decode",
+                  "flash_decode_update_bounded"):
+            checks[f"engine_warmup_{k}_launched"] = \
+                res["engine_warmup_launches"][k] > 0
+        a = eng2.generate(TEXT, "[S1]", max_audio_length_ms=800, utt_seed=3)
+        checks["loaded_engine_serves"] = len(a) > 0 and bool(np.isfinite(a).all())
+        del eng2
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    res.update(launches=launches, checks=checks, ok=all(checks.values()),
+               phase_s=time.perf_counter() - t_phase)
     return res
 
 
@@ -1707,6 +2183,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = "cuda"
     report: dict = {}
+    t_start = time.perf_counter()
+    phase_s: dict = {}
+
+    def mark(phase: str) -> None:
+        """Seconds since the start at the end of each phase (the script's
+        time limit is the sum)."""
+        phase_s[phase] = time.perf_counter() - t_start
+        log(f"-- phase {phase} done at {phase_s[phase]:.1f} s")
 
     # 1. the card
     card = card_line()
@@ -1738,6 +2222,7 @@ def main() -> int:
 
     ok = True
     log(f"kernel vs plain tolerance: |kernel - plain| <= {ATOL} + {RTOL} * |plain|")
+    mark("2")
     # 3. kernel A
     lm = FLAGSHIP["lm"]
     res_a = check_kernel_a(dev, lm["L"], lm["T"], lm["Hkv"], lm["G"], lm["Dh"],
@@ -1756,6 +2241,7 @@ def main() -> int:
     report["kernel_a"] = res_a
     report["kernel_a_live_sweep"] = sweep_a
 
+    mark("3")
     # 4. kernel C (and D)
     voc = FLAGSHIP["voc"]
     res_c = check_kernel_c(dev, voc["L"], voc["T"], voc["H"], voc["Dh"],
@@ -1774,6 +2260,7 @@ def main() -> int:
     ok &= res_d["ok"]
     report["kernel_d"] = res_d
 
+    mark("4")
     # 5. kernel B (fused depth chain), flagship qwen-200m depth decoder
     log(f"kernel B tolerance: logits with the same tokens forced, max |kernel - "
         f"plain| <= {B_TOL} * max |plain|; a sample may differ only where the "
@@ -1791,6 +2278,7 @@ def main() -> int:
     report["kernel_b"] = res_b
     torch.cuda.empty_cache()
 
+    mark("5")
     # 6. kernel E (int4 matmul) at the depth decoder's matrices
     res_e = check_kernel_e(dev)
     for r in res_e:
@@ -1802,6 +2290,7 @@ def main() -> int:
         ok &= r["ok"]
     report["kernel_e"] = res_e
 
+    mark("6")
     # 7. kernel F (decode attention over unmerged slabs, kernel A's code)
     res_f, f_launches = check_kernel_f(dev)
     for r in res_f:
@@ -1810,6 +2299,7 @@ def main() -> int:
         ok &= r["ok"]
     report["kernel_f"] = res_f
 
+    mark("7")
     # 7b. kernel P against its plain version, then the probes P1-P4
     t0 = time.perf_counter()
     res_p = check_kernel_p(dev)
@@ -1828,6 +2318,7 @@ def main() -> int:
     report["probes"] = probes
     torch.cuda.empty_cache()
 
+    mark("7b")
     # 8. small model vs CPU fp32
     small = check_small_model(dev)
     log(f"small model on the card vs CPU fp32 (of peak, limit {REF_TOL}): "
@@ -1838,6 +2329,7 @@ def main() -> int:
     report["small_model"] = small
     torch.cuda.empty_cache()
 
+    mark("8")
     # 9. the main paths at flagship width: the serving preset, the bf16
     # path of slice 1, the int4 depth decoder
     import dataclasses
@@ -1887,6 +2379,7 @@ def main() -> int:
         report[f"engine_{label}"] = eng
         torch.cuda.empty_cache()
 
+    mark("9")
     # 10. voice cloning and dialogue on the serving preset at flagship width
     fp32 = check_fp32_encode(dev)
     log(f"fp32 encode on the card (process-wide TF32 flags on) vs the CPU, "
@@ -1899,7 +2392,8 @@ def main() -> int:
         f"{fp32['stft_rel_err_policy']:.3e}; ok={fp32['ok']}  [{card}]")
     ok &= fp32["ok"]
     report["fp32_encode"] = fp32
-    cd = run_clone_dialogue(dev, card)
+    keep: dict = {}
+    cd = run_clone_dialogue(dev, card, keep=keep)
     for i, e in enumerate(cd["encode"]):
         log(f"[clone] prompt {i}: {e['samples'] / 16_000:.1f} s, {e['tokens']} "
             f"tokens; encode_prompt_tokens cold: wall {e['cold']['wall_ms']:.1f} "
@@ -1946,6 +2440,60 @@ def main() -> int:
     ok &= cd["ok"]
     report["clone_dialogue"] = cd
 
+    mark("10")
+    # 11. serving pools through the continuous batcher on phase 10's engine
+    sv = run_serving(dev, card, keep)
+    for pool, r in sv["pools"].items():
+        bu, st, pr = r["burst"], r["staggered"], r["profile"]
+        log(f"[serve B={pool}] warm-up ladder {r['warmup_s']:.2f} s; burst of "
+            f"{pool} ({pool // 2} greedy): first packet median "
+            f"{bu['first_packet_ms']['median']:.1f} ms, max "
+            f"{bu['first_packet_ms']['max']:.1f} ms; aggregate RTF "
+            f"{bu['aggregate_rtf']:.3f} ({bu['audio_s']:.2f} s audio in "
+            f"{bu['wall_s']:.2f} s); policy K {bu['policy_k']}; block wall "
+            f"{bu['block_wall_ms_per_step']:.2f} ms per pool step  [{card}]")
+        log(f"[serve B={pool}] host_stats per frame: " + ", ".join(
+            f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in bu["host_stats"].items()) + f"  [{card}]")
+        log(f"[serve B={pool}] launches in the burst: {bu['launches']}; LM "
+            f"{r['lm_ms_per_step'] or float('nan'):.2f} ms per batched frame"
+            + (f" (B=1 {r['lm_ms_per_step_b1']:.2f})"
+               if r["lm_ms_per_step_b1"] else "") + f"  [{card}]")
+        if "cuda_kernels" in pr:
+            log(f"[serve B={pool}] traced burst: {pr['cuda_kernels_per_step']:.0f} "
+                f"CUDA kernels per pool step, "
+                f"{pr['cuda_kernels_per_stream_frame']:.0f} per stream frame, "
+                f"busy share {pr['busy_share']:.3f}  [{card}]")
+        log(f"[serve B={pool}] greedy stream vs generate_stream at B=1: common "
+            f"prefix {bu['greedy_common_prefix_with_b1']} of "
+            f"{bu['greedy_frames']} / {bu['b1_frames']} frames; staggered: later "
+            f"half's first packets {[round(x, 1) for x in st['later_first_packet_ms']]} "
+            f"ms  [{card}]")
+    log(f"[serve B=8] batched clone {sv['clone']['audio_s']:.2f} s audio in "
+        f"{sv['clone']['wall_s']:.2f} s; 2-turn dialogue {sv['dialogue']['wall_s']:.2f}"
+        f" s, samples per turn {sv['dialogue']['turn_samples']}  [{card}]")
+    rl = sv["reload"]
+    log(f"[serve B=8] reload with two live streams: prepare "
+        f"{rl.get('prepare_s', float('nan')):.2f} s, drain "
+        f"{rl.get('drain_s', float('nan')):.2f} s, apply "
+        f"{rl.get('apply_s', float('nan')):.4f} s; live streams' frames "
+        f"{rl['live_frames']}; checkpoint {sv['ckpt_gb']:.2f} GB saved in "
+        f"{sv['save_s']:.1f} s; full-width engine from DIR in "
+        f"{sv['load_s']:.1f} s, its warmup() {sv['engine_warmup_s']:.2f} s  "
+        f"[{card}]")
+    log(f"[serve bounded] slab {sv['bounded']['slab']}, idle slot at pos "
+        f"{sv['bounded']['idle_pos_after']} after a {sv['bounded']['frames']}"
+        f"-frame neighbour  [{card}]")
+    log(f"[serve] launches per run: {sv['launches']}")
+    log(f"[serve] checks: {sv['checks']}; phase {sv['phase_s']:.1f} s")
+    for counts in sv["launches"].values():
+        for k, n in counts.items():
+            main_launches[k] = main_launches.get(k, 0) + n
+    ok &= sv["ok"]
+    report["serving"] = sv
+
+    mark("11")
+    report["phase_s"] = phase_s
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)
@@ -1974,6 +2522,12 @@ def main() -> int:
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=main.get("library_ms"), **extra)
 
+    def at(row):
+        """A case's numbers beside an entry's (the 16-slot pool's shapes)."""
+        keys = ("ms", "queued_ms", "plain_ms", "plain_queued_ms", "bound_ms",
+                "bound_by", "library_ms", "max_abs_err", "ok")
+        return {k: row.get(k) for k in keys}
+
     csrc = "fireredtts2_tpu_torch/csrc/"
     kernels = [
         entry("flash_decode_gqa1", csrc + "flash_decode_gqa1.cu",
@@ -1982,19 +2536,23 @@ def main() -> int:
               pick(res_a, B=1, live=3000),
               cuda_launches_per_call=pick(res_a, B=1, live=3000)[
                   "cuda_launches_per_call"],
-              live_sweep=sweep_a["ms"] or sweep_a["queued_ms"]),
+              live_sweep=sweep_a["ms"] or sweep_a["queued_ms"],
+              b16=at(pick(res_a, B=16, live=3000)),
+              b16_past_end=at(pick(res_a, B=16, past_end=True))),
         entry("fused_depth_decode", csrc + "fused_depth_decode.cu",
               "fireredtts2_tpu/ops/pallas_depth.py:749",
               main_launches["fused_depth_decode"], res_b,
               pick(res_b, plan=PRESET, B=1),
               barriers_per_frame=pick(res_b, plan=PRESET, B=1)["barriers_per_frame"],
-              ring_stages=pick(res_b, plan=PRESET, B=1)["ring_stages"]),
+              ring_stages=pick(res_b, plan=PRESET, B=1)["ring_stages"],
+              b16=at(pick(res_b, plan=PRESET, B=16))),
         entry("flash_decode_update_bounded", csrc + "flash_decode_update.cu",
               "fireredtts2_tpu/ops/pallas_flash.py:352",
               main_launches["flash_decode_update_bounded"], res_c,
               pick(res_c, B=1, S=64, live=2900),
               cuda_launches_per_call=pick(res_c, B=1, S=64, live=2900)[
-                  "cuda_launches_per_call"]),
+                  "cuda_launches_per_call"],
+              b16=at(pick(res_c, B=16, S=32, live=2900))),
         entry("flash_decode_bounded", csrc + "flash_decode_update.cu",
               "fireredtts2_tpu/ops/pallas_flash.py:323",
               res_d["launches"], [res_d], res_d, launched_in="check",

@@ -31,8 +31,11 @@ JAX package's fold_in(key, t) -- and so do ``generate_dialogue`` and
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import itertools
+import logging
+import os
 import threading
 import time
 from collections import OrderedDict
@@ -42,7 +45,9 @@ from typing import Callable, Iterator, List, Optional
 import numpy as np
 import torch
 
-from fireredtts2_tpu_torch.config import EngineConfig
+from fireredtts2_tpu_torch.config import (
+    EngineConfig, codec_config_from_json, llm_config_from_json,
+)
 from fireredtts2_tpu_torch.models.codec.model import (
     assemble_chunks, codec_decode_chunks, codec_encode, stream_decode_init,
 )
@@ -64,7 +69,10 @@ from fireredtts2_tpu_torch.utils.text import (
     SPEAKER_TAGS, clean_text, process_text_list, split_text,
 )
 from fireredtts2_tpu_torch.utils.tokenizer import load_tokenizer
-from fireredtts2_tpu_torch.weights import dtype_of, init_random, resolve_device
+from fireredtts2_tpu_torch.runtime import checkpoint as ckpt
+from fireredtts2_tpu_torch.weights import (
+    dtype_of, init_random, resolve_device, tree_shapes,
+)
 
 AUDIO_TOKEN_CACHE = 64          # prompt-audio token entries (LRU)
 
@@ -91,7 +99,11 @@ class FireRedTTS2Engine:
 
     def __init__(self, config: Optional[EngineConfig] = None, seed: int = 0,
                  device=None, lm_params: Optional[dict] = None,
-                 codec_params: Optional[dict] = None):
+                 codec_params: Optional[dict] = None,
+                 pretrained_dir: Optional[str] = None,
+                 gen_type: str = "dialogue",
+                 llm_overrides: Optional[dict] = None,
+                 codec_overrides: Optional[dict] = None):
         """config: the model and engine configuration (default: the
         flagship EngineConfig()). device: where weights, state and kernels
         live: "cuda" by default; "cpu" runs the plain versions and must be
@@ -99,8 +111,40 @@ class FireRedTTS2Engine:
         lm_params / codec_params: unquantised parameter trees in the JAX
         layout (e.g. ``weights.from_jax`` of the JAX package's
         initialisers); when absent the engine draws random weights from
-        `seed`. The config's serving transforms are applied to them."""
-        config = config or EngineConfig()
+        `seed`. The config's serving transforms are applied to them.
+
+        pretrained_dir: a serving dir instead: the config from its
+        ``config_llm.json`` / ``config_codec.json`` (max_seq_len from the
+        LM's, prefill buckets trimmed to leave 28 decode slots), the
+        weights from ``DIR/torch/`` converted trees when both are there,
+        else from the reference pickles (``llm_posttrain.pt`` or, for
+        gen_type "monologue", ``llm_pretrain.pt``, and ``codec.pt``); the
+        Qwen2.5-1.5B tokenizer from ``DIR/Qwen2.5-1.5B`` (a byte fallback,
+        with a warning, when that dir is absent). llm_overrides /
+        codec_overrides: config fields set on top of the JSONs or of
+        `config`, e.g. the serving preset's {"quantize_backbone": True,
+        "fused_depth_plan": "gate=r8,up=s8,down=s8"}."""
+        if gen_type not in ("monologue", "dialogue"):
+            raise ValueError(f"gen_type {gen_type!r}: 'monologue' or 'dialogue'")
+        self.gen_type = gen_type
+        tok_dir = None
+        if pretrained_dir is not None:
+            config = _config_from_dir(pretrained_dir, gen_type, llm_overrides,
+                                      codec_overrides)
+            tok_dir = os.path.join(pretrained_dir, "Qwen2.5-1.5B")
+            if not os.path.isdir(tok_dir):
+                logging.getLogger(__name__).warning(
+                    "no Qwen2.5-1.5B tokenizer dir under %s; using the byte "
+                    "fallback tokenizer", pretrained_dir)
+                tok_dir = None
+        else:
+            config = config or EngineConfig()
+            if llm_overrides or codec_overrides:
+                config = dataclasses.replace(
+                    config,
+                    llm=dataclasses.replace(config.llm, **(llm_overrides or {})),
+                    codec=dataclasses.replace(config.codec,
+                                              **(codec_overrides or {})))
         llm = config.llm
         if ((llm.speculative_depth and not llm.fused_depth_plan)
                 or not config.codec.acoustic_decoder.causal):
@@ -109,13 +153,18 @@ class FireRedTTS2Engine:
                 "(speculative depth, or the non-causal vocoder)")
         self.config = config
         self.device = resolve_device(device)
-        if lm_params is None or codec_params is None:
+        if pretrained_dir is not None:
+            lm_params, codec_params = self._load_checkpoint_trees(
+                pretrained_dir, config.llm, config.codec)
+        elif lm_params is None or codec_params is None:
             rand_lm, rand_codec = init_random(config, seed, self.device)
             lm_params = lm_params or rand_lm
             codec_params = codec_params or rand_codec
+        # the raw trees' leaf shapes: what a reloaded checkpoint must match
+        self._ref_shapes = (tree_shapes(lm_params), tree_shapes(codec_params))
         self.lm_params, self.codec_params = self._apply_serving_transforms(
             lm_params, codec_params)
-        self.tokenizer = load_tokenizer(None)
+        self.tokenizer = load_tokenizer(tok_dir)
 
         acfg = config.codec.acoustic_decoder
         self.max_seq_len = config.max_seq_len
@@ -147,6 +196,115 @@ class FireRedTTS2Engine:
         self.last_turn_tokens: list[np.ndarray] = []
         self.last_turn_stats: list[dict] = []
         self.last_lm_state: Optional[LMState] = None
+
+    # ------------------------------------------------------------------
+    # Checkpoints and hot reload
+    # ------------------------------------------------------------------
+
+    def _load_checkpoint_trees(self, pretrained_dir: str, llm_cfg, codec_cfg
+                               ) -> tuple[dict, dict]:
+        """Raw (lm_params, codec_params) of a serving dir on the engine's
+        device: the ``DIR/torch/`` converted trees when both are there,
+        else the reference pickles (the SSL encoder from a local HF whisper
+        checkout when ``codec.pt`` has none)."""
+        lm_name = ("llm_pretrain" if self.gen_type == "monologue"
+                   else "llm_posttrain")
+        lm_path = ckpt.converted_path(pretrained_dir, lm_name)
+        codec_path = ckpt.converted_path(pretrained_dir, "codec")
+        lm_dtype, codec_dtype = dtype_of(llm_cfg.dtype), dtype_of(codec_cfg.dtype)
+        if os.path.exists(lm_path) and os.path.exists(codec_path):
+            return (ckpt.load_converted_lm(lm_path, lm_dtype, self.device),
+                    ckpt.load_converted_codec(codec_path, codec_dtype,
+                                              self.device))
+        lm = ckpt.load_lm_checkpoint(
+            os.path.join(pretrained_dir, lm_name + ".pt"), llm_cfg, lm_dtype,
+            device=self.device)
+        codec = ckpt.load_codec_checkpoint(
+            os.path.join(pretrained_dir, "codec.pt"), codec_cfg, codec_dtype,
+            hf_whisper_dir=ckpt.find_hf_whisper_dir(pretrained_dir),
+            device=self.device)
+        return lm, codec
+
+    @staticmethod
+    def _shape_guard(name: str, loaded: dict, reference: dict,
+                     path: str = "") -> dict:
+        """The loaded tree restricted to the reference's structure (the
+        shapes recorded when the engine built its trees). A leaf that is
+        missing or of another shape raises ValueError naming it; subtrees
+        the running model does not have (a checkpoint's semantic decoder,
+        which no serving path runs) are left out."""
+        out = {}
+        for k, ref in reference.items():
+            where = f"{path}/{k}" if path else k
+            if k not in loaded:
+                raise ValueError(f"reload {name}: leaf {where} is missing")
+            got = loaded[k]
+            if isinstance(ref, dict):
+                if not isinstance(got, dict):
+                    raise ValueError(f"reload {name}: {where} is a leaf, the "
+                                     f"running model has a subtree there")
+                out[k] = FireRedTTS2Engine._shape_guard(name, got, ref, where)
+            elif not torch.is_tensor(got) or tuple(got.shape) != ref:
+                raise ValueError(
+                    f"reload {name} leaf {where} has shape "
+                    f"{tuple(getattr(got, 'shape', ()))}, running model "
+                    f"expects {ref}")
+            else:
+                out[k] = got
+        return out
+
+    def prepare_checkpoint(self, pretrained_dir: str) -> tuple[dict, dict]:
+        """Load and transform new weights without touching what serves (the
+        slow half of a hot reload; it runs while generation goes on). The
+        dir must hold the running model's shapes, leaf by leaf. Returns the
+        handle for :meth:`apply_checkpoint`."""
+        lm, codec = self._load_checkpoint_trees(
+            pretrained_dir, self.config.llm, self.config.codec)
+        lm = self._shape_guard("LM", lm, self._ref_shapes[0])
+        codec = self._shape_guard("codec", codec, self._ref_shapes[1])
+        with torch.inference_mode():
+            return self._apply_serving_transforms(lm, codec)
+
+    def apply_checkpoint(self, prepared: tuple[dict, dict]) -> None:
+        """Swap in weights from :meth:`prepare_checkpoint`. Callers drain
+        in-flight generation first (``ContinuousBatcher.reload`` does): KV
+        caches hold activations of the weights that made them. The
+        prompt-token and voice-state caches are cleared under the lock."""
+        lm_params, codec_params = prepared
+        with self._lock:
+            self.lm_params = lm_params
+            self.codec_params = codec_params
+            self._audio_token_cache.clear()
+            self._voice_state_cache.clear()
+            self._voice_ctx_seen.clear()
+
+    def reload_checkpoint(self, pretrained_dir: str) -> None:
+        """prepare + apply in one call, for an idle engine (serving reloads
+        through ``ContinuousBatcher.reload``, which drains in between)."""
+        self.apply_checkpoint(self.prepare_checkpoint(pretrained_dir))
+
+    def warmup(self) -> float:
+        """One prefill per bucket and one short stream, so every kernel
+        library is built and loaded and kernel C's merge counts are sized
+        before the first request (nothing is compiled per shape here, as
+        in the JAX package). A batcher pool warms its own shapes
+        (``ContinuousBatcher.wait_ready``). Returns the seconds it took."""
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            for bucket in self.config.prefill_buckets:
+                tokens = np.zeros((1, bucket, self._ncols), np.int32)
+                mask = np.zeros((1, bucket, self._ncols), bool)
+                mask[:, :, -1] = True
+                lm_generate_frame(
+                    self.lm_params, self.config.llm, self._new_lm_state(1),
+                    self._dev(tokens), self._dev(mask),
+                    self._dev(np.ones((1, bucket), bool)),
+                    self.noise_fn(0, 1)(0), **self._sampling(0.9, 20))
+        list(self.generate_stream("warm up", "[S1]", None,
+                                  max_audio_length_ms=30 * 80, utt_seed=0))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter() - t0
 
     def _apply_serving_transforms(self, lm_params: dict, codec_params: dict
                                   ) -> tuple[dict, dict]:
@@ -306,14 +464,18 @@ class FireRedTTS2Engine:
     def _dev(self, a) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
 
-    def _new_lm_state(self, B: int):
+    def _new_lm_state(self, B: int, capacity: Optional[int] = None):
+        """A fresh B-stream LM state; capacity: a smaller position cap (a
+        batcher pool's capacity class)."""
         return init_lm_state(self.config.llm, B, dtype_of(self.config.llm.dtype),
-                             device=self.device)
+                             device=self.device, capacity=capacity)
 
-    def _new_vstate(self, B: int):
+    def _new_vstate(self, B: int, latents: Optional[int] = None):
+        """A fresh B-stream vocoder state; latents: a smaller KV capacity
+        (8 per frame, 16-aligned)."""
         return stream_decode_init(self.config.codec, B,
                                   dtype_of(self.config.codec.dtype),
-                                  device=self.device)
+                                  device=self.device, latents=latents)
 
     @torch.inference_mode()
     def _context_state(self, context: Optional[List[Segment]]):
@@ -829,6 +991,24 @@ class FireRedTTS2Engine:
                     break
             pieces.append(self._decode_tokens([gen[2:]])[0])
         return np.concatenate(pieces) if pieces else np.zeros(0, np.float32)
+
+
+def _config_from_dir(pretrained_dir: str, gen_type: str,
+                     llm_overrides: Optional[dict],
+                     codec_overrides: Optional[dict]) -> EngineConfig:
+    """A serving dir's EngineConfig: its JSONs plus the overrides,
+    max_seq_len from the LM's, prefill buckets that leave at least 28
+    decode slots (3100 - 3072, the reference's own headroom)."""
+    llm_cfg = llm_config_from_json(
+        os.path.join(pretrained_dir, "config_llm.json"), **(llm_overrides or {}))
+    codec_cfg = codec_config_from_json(
+        os.path.join(pretrained_dir, "config_codec.json"),
+        **(codec_overrides or {}))
+    buckets = tuple(b for b in EngineConfig.prefill_buckets
+                    if b <= llm_cfg.max_seq_len - 28) \
+        or (max(32, llm_cfg.max_seq_len // 2),)
+    return EngineConfig(llm=llm_cfg, codec=codec_cfg, gen_type=gen_type,
+                        max_seq_len=llm_cfg.max_seq_len, prefill_buckets=buckets)
 
 
 def _speaker_of(text: str) -> str:

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from fireredtts2_tpu_torch.config import AcousticDecoderConfig
+from fireredtts2_tpu_torch.weights import host_to_device
 from fireredtts2_tpu_torch.ops.stft import (
     hann_tensor, irfft_frames, overlap_add, window_envelope,
 )
@@ -184,9 +185,13 @@ class VocoderStreamState:
 
 
 def stream_state_init(cfg: AcousticDecoderConfig, batch: int,
-                      dtype=torch.float32, device=None) -> VocoderStreamState:
+                      dtype=torch.float32, device=None,
+                      latents: int | None = None) -> VocoderStreamState:
+    """latents: the KV capacity in 100 Hz latents, 8 per 12.5 Hz token
+    (default cfg.max_stream_latents; a pool capped at F frames needs 8F).
+    It must be a multiple of 16."""
     d = cfg.embed_dim
-    cap = cfg.max_stream_latents
+    cap = latents or cfg.max_stream_latents
     if cap % 16:
         raise ValueError(f"vocoder latent capacity {cap} not 16-aligned")
     slab = init_kv_slab(cfg.num_layers, batch, cap, cfg.num_heads,
@@ -202,6 +207,32 @@ def stream_state_init(cfg: AcousticDecoderConfig, batch: int,
         istft_cache=zeros(batch, cfg.n_fft, 3),
         pos=torch.zeros((batch,), dtype=torch.int32, device=device),
     )
+
+
+def reset_vocoder_slots(state: VocoderStreamState, bs) -> VocoderStreamState:
+    """Zero a vector of slots' caches (new streams claim them): the conv
+    and iSTFT caches as new tensors, the addressed rows of the KV slabs in
+    place, their positions 0. Ids equal to B are padding and dropped."""
+    B = state.pos.shape[0]
+    bs = torch.as_tensor(bs).to(torch.int64).reshape(-1)
+    ids = host_to_device(bs[(bs >= 0) & (bs < B)], state.pos.device)
+
+    def zero_rows(t: torch.Tensor, dim: int) -> torch.Tensor:
+        return t.index_fill(dim, ids, 0)
+
+    state.kv_k.index_fill_(1, ids, 0)
+    state.kv_v.index_fill_(1, ids, 0)
+    return replace(state, up1_cache=zero_rows(state.up1_cache, 0),
+                   up2_cache=zero_rows(state.up2_cache, 0),
+                   in_proj_cache=zero_rows(state.in_proj_cache, 0),
+                   rb_caches=zero_rows(state.rb_caches, 2),
+                   istft_cache=zero_rows(state.istft_cache, 0),
+                   pos=zero_rows(state.pos, 0))
+
+
+def reset_vocoder_slot(state: VocoderStreamState, b: int) -> VocoderStreamState:
+    """Zero one slot's caches (:func:`reset_vocoder_slots` of [b])."""
+    return reset_vocoder_slots(state, [b])
 
 
 def _upsample_chunk(params: Params, x: torch.Tensor, up1_cache, up2_cache):

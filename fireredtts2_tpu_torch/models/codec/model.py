@@ -188,5 +188,7 @@ def assemble_chunks(middles: np.ndarray, tails: np.ndarray, T: int,
 
 
 def stream_decode_init(cfg: CodecConfig, batch: int, dtype=torch.float32,
-                       device=None) -> VocoderStreamState:
-    return stream_state_init(cfg.acoustic_decoder, batch, dtype, device=device)
+                       device=None, latents: int | None = None
+                       ) -> VocoderStreamState:
+    return stream_state_init(cfg.acoustic_decoder, batch, dtype, device=device,
+                             latents=latents)

@@ -2,8 +2,8 @@
 generation path.
 
 Counterpart of ``fireredtts2_tpu/models/lm/model.py`` (generation subset,
-append-prefill and rewind included: no training loss, speculative depth or
-slot admission yet). With a fused-depth plan and a ``depth_chain`` bundle
+append-prefill, rewind and the continuous batcher's slot admission
+included: no training loss or speculative depth). With a fused-depth plan and a ``depth_chain`` bundle
 in the tree the depth decode is one launch of kernel B per frame
 (``ops.depth_chain``).
 Frames interleave audio_num_codebooks audio columns and one text column;
@@ -41,6 +41,7 @@ from fireredtts2_tpu_torch.config import LLMConfig
 from fireredtts2_tpu_torch.ops import masks as mask_ops
 from fireredtts2_tpu_torch.ops.depth_chain import fused_depth_decode
 from fireredtts2_tpu_torch.ops.sampling import sample_topk
+from fireredtts2_tpu_torch.weights import host_to_device
 from fireredtts2_tpu_torch.models.lm.transformer import (
     _normal, init_kv_cache, init_transformer_params, transformer_forward,
 )
@@ -97,8 +98,11 @@ def kv_capacity(max_seq_len: int) -> int:
 
 
 def init_lm_state(cfg: LLMConfig, batch_size: int, dtype=torch.float32,
-                  device=None) -> LMState:
-    cap = kv_capacity(cfg.max_seq_len)
+                  device=None, capacity: int | None = None) -> LMState:
+    """capacity: a logical position cap below cfg.max_seq_len, for a
+    serving pool whose utterances are bounded (a capacity class of
+    ``runtime.batcher``): a smaller slab, and a cheaper attention read."""
+    cap = kv_capacity(capacity or cfg.max_seq_len)
     cache = init_kv_cache(cfg.backbone, batch_size, cap, dtype, device)
     return LMState(
         cache_k=cache["k"], cache_v=cache["v"],
@@ -181,13 +185,18 @@ def _depth_decode(params: Params, cfg: LLMConfig, last_h: torch.Tensor,
 def lm_generate_frame(params: Params, cfg: LLMConfig, state: LMState,
                       tokens: torch.Tensor, tokens_mask: torch.Tensor,
                       valid: torch.Tensor, noise: torch.Tensor,
-                      temperature: float = 0.9, topk: int = 20,
+                      temperature=0.9, topk=20,
                       depth_topk: int = 10, depth_temperature: float = 0.75,
                       real_len: torch.Tensor | None = None,
                       ) -> tuple[LMState, torch.Tensor]:
     """One AR step: consume a token window (B, S, C+1) -- a left-padded
     prompt bucket (prefill) or one frame (S = 1) -- and sample the next
     frame (B, ncb) int32. noise: (B, ncb, V_audio) Exp(1) draws.
+
+    temperature / topk of codebook 0: a float and an int, or per row a
+    (B, 1) float tensor and a (B,) int tensor (the continuous batcher's
+    per-request sampling). The depth decoder keeps its scalar depth_topk
+    and depth_temperature, as the JAX package's does.
 
     real_len: (B,) int, append-prefill. The window is RIGHT-padded instead
     (content left-aligned, real_len real slots): the frame samples from
@@ -253,6 +262,126 @@ def clone_lm_state(state: LMState) -> LMState:
     return LMState(cache_k=state.cache_k.clone(),
                    cache_v=state.cache_v.clone(),
                    slot_valid=state.slot_valid.clone(), pos=state.pos.clone())
+
+
+def _slot_ids(bs, B: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(slot ids, their places in `bs`) of the entries of `bs` that name a
+    slot of a B-slot state. Ids outside [0, B) -- the padding id B -- are
+    dropped, as the JAX package's ``mode="drop"`` scatters drop them. Ids
+    given on the host (a list, numpy, a CPU tensor) are filtered there;
+    ids on the device cost one read back."""
+    bs = torch.as_tensor(bs).to(torch.int64).reshape(-1)
+    keep = ((bs >= 0) & (bs < B)).nonzero()[:, 0]
+    return host_to_device(bs[keep], device), host_to_device(keep, device)
+
+
+def reset_lm_slots(state: LMState, bs) -> LMState:
+    """Free a vector of stream slots: their slot-validity rows cleared (in
+    place) and their positions 0; the K/V stays (masking hides it). Ids
+    equal to B are padding and dropped."""
+    ids, _ = _slot_ids(bs, state.pos.shape[0], state.pos.device)
+    state.slot_valid.index_fill_(0, ids, False)
+    return LMState(cache_k=state.cache_k, cache_v=state.cache_v,
+                   slot_valid=state.slot_valid,
+                   pos=state.pos.index_fill(0, ids, 0))
+
+
+def reset_lm_slot(state: LMState, b: int) -> LMState:
+    """Free one stream slot (:func:`reset_lm_slots` of [b])."""
+    return reset_lm_slots(state, [b])
+
+
+def _scatter_rows(state: LMState, small: LMState, bs) -> LMState:
+    """Copy the rows of `small` into slots `bs` of `state` (in place; ids
+    equal to B dropped with their rows)."""
+    ids, keep = _slot_ids(bs, state.pos.shape[0], state.pos.device)
+    state.cache_k[:, ids] = small.cache_k[:, keep]
+    state.cache_v[:, ids] = small.cache_v[:, keep]
+    state.slot_valid[ids] = small.slot_valid[keep]
+    pos = state.pos.clone()
+    pos[ids] = small.pos[keep]
+    return LMState(cache_k=state.cache_k, cache_v=state.cache_v,
+                   slot_valid=state.slot_valid, pos=pos)
+
+
+def prefill_into_slots(params: Params, cfg: LLMConfig, state: LMState, bs,
+                       tokens: torch.Tensor, tokens_mask: torch.Tensor,
+                       valid: torch.Tensor, noise: torch.Tensor,
+                       temperature=0.9, topk=20, depth_topk: int = 10,
+                       depth_temperature: float = 0.75,
+                       ) -> tuple[LMState, torch.Tensor]:
+    """Prefill N prompts into slots `bs` of a batched decode state in one
+    pass (burst admission while other slots keep decoding).
+
+    bs: (N,) slot ids, distinct; an id equal to B pads the burst to a
+    fixed row count and is dropped with its row. tokens / tokens_mask
+    (N, S, C+1) and valid (N, S): left-padded buckets; noise (N, ncb, V);
+    temperature / topk: scalars or per row (N, 1) / (N,). The prompts run
+    in a fresh N-stream state of the target's slab length, whose rows are
+    then copied into the slots. Returns (state, first frames (N, ncb))."""
+    small = init_lm_state(cfg, tokens.shape[0], state.cache_k.dtype,
+                          device=state.cache_k.device,
+                          capacity=state.cache_k.shape[2])
+    small, frames = lm_generate_frame(params, cfg, small, tokens, tokens_mask,
+                                      valid, noise, temperature, topk,
+                                      depth_topk, depth_temperature)
+    return _scatter_rows(state, small, bs), frames
+
+
+def prefill_into_slot(params: Params, cfg: LLMConfig, state: LMState, b: int,
+                      tokens: torch.Tensor, tokens_mask: torch.Tensor,
+                      valid: torch.Tensor, noise: torch.Tensor,
+                      temperature=0.9, topk=20, depth_topk: int = 10,
+                      depth_temperature: float = 0.75,
+                      ) -> tuple[LMState, torch.Tensor]:
+    """Prefill one prompt (a (1, S, C+1) bucket) into slot b
+    (:func:`prefill_into_slots` of [b]); the frame is (1, ncb)."""
+    return prefill_into_slots(params, cfg, state, [b], tokens, tokens_mask,
+                              valid, noise, temperature, topk, depth_topk,
+                              depth_temperature)
+
+
+def prefill_into_slot_prefix(params: Params, cfg: LLMConfig, state: LMState,
+                             b: int, pk: torch.Tensor, pv: torch.Tensor,
+                             plen: torch.Tensor, tokens: torch.Tensor,
+                             tokens_mask: torch.Tensor, valid: torch.Tensor,
+                             real_len: torch.Tensor, noise: torch.Tensor,
+                             temperature=0.9, topk=20, depth_topk: int = 10,
+                             depth_temperature: float = 0.75,
+                             ) -> tuple[LMState, torch.Tensor]:
+    """Admit one stream into slot b from a cached KV prefix: the slot
+    starts with the context rows in place and only the new window is
+    append-prefilled.
+
+    pk / pv: (Lyr, 1, P, W) prefix rows (P a 128-aligned crop); plen (1,)
+    their true length (rows [plen, P) are marked invalid). tokens /
+    tokens_mask / valid: a RIGHT-padded (1, S, C+1) window with real_len
+    (1,) real slots, which lands at positions [plen, plen + real_len).
+    Returns (state, first frame (1, ncb))."""
+    dev = state.cache_k.device
+    cap = state.cache_k.shape[2]
+    P = pk.shape[2]
+    small = init_lm_state(cfg, 1, state.cache_k.dtype, device=dev,
+                          capacity=cap)
+    small.cache_k[:, :, :P] = pk.to(small.cache_k.dtype)
+    small.cache_v[:, :, :P] = pv.to(small.cache_v.dtype)
+    plen = plen.to(device=dev, dtype=torch.int32)
+    rows = torch.arange(cap, device=dev)[None, :]
+    small = LMState(cache_k=small.cache_k, cache_v=small.cache_v,
+                    slot_valid=rows < plen[:, None], pos=plen)
+    small, frame = lm_generate_frame(params, cfg, small, tokens, tokens_mask,
+                                     valid, noise, temperature, topk,
+                                     depth_topk, depth_temperature,
+                                     real_len=real_len)
+    return _scatter_rows(state, small, [b]), frame
+
+
+def slot_kv_prefix(state: LMState, b: int, P: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Copies of slot b's first P K/V rows, (Lyr, 1, P, W) each: the
+    :func:`prefill_into_slot_prefix` input of the next dialogue turn."""
+    return (state.cache_k[:, b:b + 1, :P].clone(),
+            state.cache_v[:, b:b + 1, :P].clone())
 
 
 def build_step_frame(cfg: LLMConfig, frame: torch.Tensor

@@ -97,13 +97,33 @@ def quantize_transformer_int4(params: Params, group: int = 128) -> Params:
     return quantize_tree(params, _MATMUL_KEYS, bits=4, group=group)
 
 
+def slab_write_rows(cache_pos: torch.Tensor, S: int, T: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Where each stream's rows [cache_pos, cache_pos + S) go in a slab of
+    T rows -> (rows (B, S) int64, keep (B, S) bool).
+
+    Rows at or past T are dropped, as the JAX package's scatter drops them
+    (``.at[...].set``): they are sent to distinct rows below T that this
+    window does not write, [T - S, cache_pos), and rewrite what those rows
+    hold (``keep`` False), so a stream stepping past its slab's end (an
+    idle batcher slot) changes no row. No value is read back to the host."""
+    ar = torch.arange(S, device=cache_pos.device)
+    pos = cache_pos.to(torch.int64)[:, None]
+    rows = pos + ar[None]
+    keep = rows < T
+    n_keep = (T - pos).clamp(0, S)
+    return torch.where(keep, rows, (T - S) + ar[None] - n_keep), keep
+
+
 def _layer(h: torch.Tensor, lp: Params, cfg: TransformerConfig,
            cos: torch.Tensor, sin: torch.Tensor, mask: Optional[torch.Tensor],
            k4: torch.Tensor, v4: torch.Tensor, layer: int, cache_pos,
-           bounded) -> torch.Tensor:
+           bounded, write=None) -> torch.Tensor:
     """One layer. This call's K/V rows are written into slab[layer] in
     place at cache_pos (an int = the same slot for every stream; a (B,)
-    tensor = per-stream slots), then attention reads the slab."""
+    tensor = per-stream slots, placed by `write`: rows, keep and the
+    slabs' current values at those rows, from :func:`slab_write_rows`),
+    then attention reads the slab."""
     B, S, _ = h.shape
     Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
@@ -116,11 +136,10 @@ def _layer(h: torch.Tensor, lp: Params, cfg: TransformerConfig,
 
     kw = k.reshape(B, S, Hkv * Dh).to(k4.dtype)
     vw = v.reshape(B, S, Hkv * Dh).to(v4.dtype)
-    if torch.is_tensor(cache_pos):
-        rows = cache_pos[:, None] + torch.arange(S, device=h.device)[None]
-        bidx = torch.arange(B, device=h.device)[:, None]
-        k4[layer, bidx, rows] = kw
-        v4[layer, bidx, rows] = vw
+    if write is not None:
+        bidx, rows, keep, old_k, old_v = write
+        k4[layer, bidx, rows] = torch.where(keep[..., None], kw, old_k[layer])
+        v4[layer, bidx, rows] = torch.where(keep[..., None], vw, old_v[layer])
     else:
         k4[layer, :, cache_pos:cache_pos + S] = kw
         v4[layer, :, cache_pos:cache_pos + S] = vw
@@ -155,7 +174,8 @@ def transformer_forward(params: Params, cfg: TransformerConfig,
         mask: bool (B, S, T_max) slab rows, True = attend. Unused (None) for
             S = 1 with a live window.
         cache: KV slabs from :func:`init_kv_cache`, updated in place.
-        cache_pos: int or (B,) tensor, the slot of this call's first token.
+        cache_pos: int or (B,) tensor, the slot of this call's first token;
+            with a tensor, rows at or past the slab's end are dropped.
         live_window: ((B,) start, (B,) end) live region of each stream's
             slab; with S = 1 attention runs in kernel A over it.
     Returns:
@@ -168,9 +188,15 @@ def transformer_forward(params: Params, cfg: TransformerConfig,
         bounded = (start, positions[:, 0].to(torch.int32) + 1,
                    start.min(), end.max())
     k4, v4 = cache["k"], cache["v"]
+    write = None
+    if torch.is_tensor(cache_pos):
+        B, S = h.shape[:2]
+        rows, keep = slab_write_rows(cache_pos, S, k4.shape[2])
+        bidx = torch.arange(B, device=h.device)[:, None]
+        write = (bidx, rows, keep, k4[:, bidx, rows], v4[:, bidx, rows])
     for layer in range(cfg.num_layers):
         lp = {name: t[layer] for name, t in params.items()
               if name != "final_norm"}
         h = _layer(h, lp, cfg, cos, sin, mask, k4, v4, layer, cache_pos,
-                   bounded)
+                   bounded, write)
     return rms_norm(h, params["final_norm"], cfg.norm_eps), cache

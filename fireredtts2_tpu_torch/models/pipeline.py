@@ -28,7 +28,7 @@ def stream_block(lm_params: Params, codec_params: Params, llm_cfg: LLMConfig,
                  codec_cfg: CodecConfig, state: LMState,
                  vstate: VocoderStreamState, frame: torch.Tensor,
                  emitted: torch.Tensor, noise: torch.Tensor, block: int,
-                 temperature: float = 0.9, topk: int = 20,
+                 temperature=0.9, topk=20,
                  depth_topk: int = 10, depth_temperature: float = 0.75):
     """Decode `block` frames with the LM, then vocode them in grouped
     backbone passes.
@@ -38,6 +38,9 @@ def stream_block(lm_params: Params, codec_params: Params, llm_cfg: LLMConfig,
         emitted: (B,) int32 chunks emitted so far.
         noise: (block, B, ncb, V_audio) sampling noise, noise[t] for the
             frame sampled at step t (global index t_base + t).
+        temperature / topk: codebook 0's, a float and an int, or per row a
+            (B, 1) float tensor and a (B,) int tensor (the continuous
+            batcher's per-request sampling).
     Returns:
         (state, vstate, next_frame, emitted, packed), packed (B, block*chunk
         + block*tail + block + block*ncb) float32 per stream:

@@ -34,6 +34,25 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def host_to_device(a, device) -> torch.Tensor:
+    """A host array or tensor on `device`. To a CUDA device the copy goes
+    through pinned memory without blocking the host, so a loop that keeps
+    the card's queue ahead (the continuous batcher) does not wait for the
+    work already queued."""
+    t = torch.as_tensor(a)
+    device = torch.device(device)
+    if device.type != "cuda" or t.device.type != "cpu":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def tree_shapes(tree: Any) -> Any:
+    """The tree's structure with each leaf replaced by its shape."""
+    if isinstance(tree, dict):
+        return {k: tree_shapes(v) for k, v in tree.items()}
+    return tuple(tree.shape)
+
+
 def from_jax(tree: Any, device=None) -> Any:
     """Copy a parameter tree (nested dicts) whose leaves are JAX or numpy
     arrays into torch tensors of the same layout and dtype (int8 leaves of

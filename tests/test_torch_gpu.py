@@ -327,6 +327,39 @@ def test_kernel_b_flagship_preset(cuda, B):
     assert used["stages"] == {1: 16, 8: 8}[B]
 
 
+def test_kernel_b_flagship_preset_at_b16(cuda):
+    """The 16-slot pool's B=16 at the flagship depth decoder: the wrapper
+    splits the batch into two launches of 8 streams, each a full chain
+    (two barrier counts); logits with the plain version's tokens forced
+    within B_TOL of its peak, and two free calls sample the same tokens."""
+    from fireredtts2_tpu_torch.ops import depth_chain as dc
+    from fireredtts2_tpu_torch.tools import ablate_depth as ad
+
+    plan = "gate=r8,up=s8,down=s8"
+    B = 16
+    cfg, bundle, gen = ad.random_depth_bundle(cuda, plan)
+    last_h, c0, noise = ad.frame_inputs(cfg, B, gen)
+    ref, ref_logits = dc.fused_depth_decode_plain(bundle, cfg, last_h, c0,
+                                                  noise, plan=plan)
+    _, logits = dc.fused_depth_decode(bundle, cfg, last_h, c0, noise,
+                                      plan=plan, forced=ref, return_logits=True)
+    bar = dc._barrier(cuda)
+    torch.cuda.synchronize()
+    passed = int(bar[3])
+    before = dc.fused_depth_decode.launches
+    first = dc.fused_depth_decode(bundle, cfg, last_h, c0, noise, plan=plan)
+    torch.cuda.synchronize()
+    assert dc.fused_depth_decode.launches == before + 2
+    assert (int(bar[3]) - passed) % 2 ** 32 == 2 * dc.barriers_per_frame(cfg)
+    second = dc.fused_depth_decode(bundle, cfg, last_h, c0, noise, plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.isfinite(logits).all()
+    peak = float(ref_logits.abs().max())
+    assert float((logits - ref_logits).abs().max()) <= B_TOL * peak
+    assert torch.equal(first[:, 0], c0.to(torch.int32))
+
+
 @pytest.mark.parametrize("plan", ["gate=r8,up=s8,down=s8",
                                   "gate=r4,up=s8,down=r4",
                                   "gate=r8a8,up=s8a8,down=s8a8"])
@@ -435,6 +468,47 @@ def test_preset_engine_launches_kernel_b_once_per_frame(cuda):
                              utt_seed=4))
     np.testing.assert_array_equal(eng.last_tokens, loop_tokens)
     assert np.isfinite(a).all()
+
+
+def test_pool_of_8_on_card_identical_greedy_requests(cuda):
+    """An 8-slot continuous batcher over the serving preset on a small
+    engine: four identical requests (top-1 codebook 0, one utterance seed)
+    admitted in one burst (``burst()``) beside four sampled ones give
+    identical frames
+    and audio, every stream finite with one 1920-sample chunk per frame,
+    kernels A, B and C launched."""
+    from fireredtts2_tpu_torch.engine import FireRedTTS2Engine
+    from fireredtts2_tpu_torch.ops import depth_chain as dc
+    from fireredtts2_tpu_torch.runtime.batcher import ContinuousBatcher
+
+    cfg = _small_gpu_config()
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, decoder_flavor="qwen-200m", quantize_backbone=True,
+        fused_depth_plan="gate=r8,up=s8,down=s8"))
+    eng = FireRedTTS2Engine(cfg, seed=0, device=cuda)
+    b = ContinuousBatcher(eng, max_streams=8)
+    b.start()
+    try:
+        assert b.wait_ready(timeout=600)
+        fd.reset_launch_counts()
+        dc.fused_depth_decode.launches = 0
+        with b.burst():
+            hs = [b.submit("Serve these twins.", "[S1]", temperature=1.0,
+                           topk=1, max_audio_length_ms=960, utt_seed=9)
+                  for _ in range(4)]
+            hs += [b.submit(f"Sampled neighbour {i}.", "[S1]", topk=10,
+                            max_audio_length_ms=960) for i in range(4)]
+        audios = [np.concatenate(list(h)) for h in hs]
+    finally:
+        b.stop()
+    for h, a in zip(hs, audios):
+        assert len(a) == len(h.tokens) * 1920 > 0 and np.isfinite(a).all()
+    for h, a in zip(hs[1:4], audios[1:4]):
+        np.testing.assert_array_equal(h.tokens, hs[0].tokens)
+        np.testing.assert_array_equal(a, audios[0])
+    assert fd.flash_decode_gqa1.launches > 0
+    assert fd.flash_decode_update_bounded.launches > 0
+    assert dc.fused_depth_decode.launches > 0
 
 
 # ---------------------------------------------------------------------------
