@@ -106,7 +106,32 @@ Phases (any failure exits non-zero and prints no result line):
    equal to the saved ones, a request after the swap finite. A bounded
    pool (seq_capacity=1024, max_frames_cap=128) with an idle slot stepping
    past its slab's end beside a 50-frame neighbour; an engine loaded at
-   full width from DIR (JSON configs of the flagship) and its load time.
+   full width from DIR (JSON configs of the flagship) and its load time;
+12. the serving front end over sockets on that engine: (a) the port's
+   server in this process (WebSocketTTSServer with max_streams=8 and
+   HealthHTTPServer on free localhost ports) driven by the port's client,
+   launch counts set to 0 before its requests and read after (kernels A,
+   B and C each launched): /health; /stats with the card's memory and the
+   batcher's telemetry; the server's first request (block policy cold);
+   a burst of 8 identical greedy chunked streams admitted as one (identical
+   bytes; each one's first PCM byte, the aggregate RTF against phase 11's
+   pool of 8); a greedy /api/v1/tts/generate within 1 LSB of the same
+   request through ContinuousBatcher.submit alone (both on the fitted
+   policy: the streamed audio depends on the block sizes the policy picks);
+   the burst again under the profiler (CUDA kernels per pool step);
+   /v1/audio/speech (RIFF wav); a voice made from phase 10's prompt and a
+   clone in it (finite, RMS > 0); a conversation turn; an admin reload to
+   the same DIR with two live streams (both whole, the greedy request after
+   it within 1 LSB of the one before); the WebSocket stream within 1 LSB of
+   REST (where websockets imports; otherwise a line says it is absent); a
+   server with require_auth (401 without a token); the service worker on
+   the card's default stream; the LM's ms per batched frame with the
+   server up; the block policy's fitted frame cost. (b) `python -m
+   fireredtts2_tpu_torch --pretrained-dir DIR --quantize-backbone
+   --fused-depth-plan gate=r8,up=s8,down=s8 serve --max-streams 8` as a
+   subprocess (log: chiprun_out/phase12_serve.log): /health within 300 s,
+   /stats naming the card, its first (cold) and third (fitted) greedy
+   request within 1 LSB of (a)'s cold and fitted ones; then terminated.
 
 Bounds are the larger of the bytes a call must move (each input read once,
 each output written once) over 3.35 TB/s and its operations over the bf16
@@ -154,6 +179,7 @@ import subprocess
 import sys
 import time
 import traceback
+import urllib.error
 
 import numpy as np
 
@@ -1967,7 +1993,9 @@ def run_serving(dev, card: str, keep: dict, max_ms: float = 4000.0,
     an idle slot stepping past its slab's end, and an engine loaded at
     full width from DIR (JSON configs of the flagship). keep: phase 10's
     engine and prompt segments, taken out of it so that the engine is freed
-    before the load. load_overrides: the loaded engine's llm_overrides
+    before the load; on return it holds the loaded "engine", "dir" and the
+    first prompt's audio ("prompt_audio") for phase 12, which removes DIR
+    (here it is removed only when this phase raises). load_overrides: the loaded engine's llm_overrides
     (default: the serving preset's). On the CPU (a rehearsal at a small
     config) the LM timing and the trace are skipped and the launch checks
     fail, by design."""
@@ -2153,13 +2181,476 @@ def run_serving(dev, card: str, keep: dict, max_ms: float = 4000.0,
                 res["engine_warmup_launches"][k] > 0
         a = eng2.generate(TEXT, "[S1]", max_audio_length_ms=800, utt_seed=3)
         checks["loaded_engine_serves"] = len(a) > 0 and bool(np.isfinite(a).all())
-        del eng2
-    finally:
+    except BaseException:
         shutil.rmtree(d, ignore_errors=True)
+        raise
+    # the server phase serves this engine and this DIR (it removes DIR)
+    keep.update(engine=eng2, dir=d, prompt_audio=segs[0].audio)
     torch.cuda.empty_cache()
     res.update(launches=launches, checks=checks, ok=all(checks.values()),
                phase_s=time.perf_counter() - t_phase)
     return res
+
+
+# ---------------------------------------------------------------------------
+# The server over sockets at flagship width
+# ---------------------------------------------------------------------------
+
+SERVER_MAX_STREAMS = 8          # the JAX server's default (serve/server.py:130)
+SERVER_TIMEOUT_S = 600
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class LiveServer:
+    """The port's WebSocketTTSServer + HealthHTTPServer on free localhost
+    ports, the WebSocket server (when `websockets` imports) on an event
+    loop of its own thread."""
+
+    def __init__(self, eng, max_streams: int, voice_dir=None, security=None,
+                 reload_root=None):
+        import asyncio
+        import threading
+        from fireredtts2_tpu_torch.serve import server as srv
+
+        self.ws = srv.WebSocketTTSServer(eng, host="127.0.0.1",
+                                         port=free_port(),
+                                         max_streams=max_streams,
+                                         security=security)
+        batcher = getattr(self.ws.service, "batcher", None)
+        self.ready = batcher.wait_ready(900) if batcher is not None else True
+        self.http = srv.HealthHTTPServer(self.ws, host="127.0.0.1",
+                                         port=free_port(), voice_dir=voice_dir,
+                                         reload_root=reload_root)
+        self.http.start()
+        self.port = self.http.httpd.server_port
+        self.base = f"http://127.0.0.1:{self.port}"
+        self.ws_url = f"ws://127.0.0.1:{self.ws.port}"
+        try:
+            import websockets  # noqa: F401
+            self.has_ws = True
+        except ImportError:
+            self.has_ws = False
+        self.loop = None
+        if self.has_ws:
+            self.loop = asyncio.new_event_loop()
+            self._t = threading.Thread(target=self.loop.run_forever,
+                                       daemon=True)
+            self._t.start()
+            asyncio.run_coroutine_threadsafe(self.ws.start(),
+                                             self.loop).result(60)
+
+    def close(self) -> None:
+        import asyncio
+        self.http.stop()
+        if self.loop is not None:
+            asyncio.run_coroutine_threadsafe(self.ws.stop(),
+                                             self.loop).result(60)
+            self.loop.call_soon_threadsafe(self.loop.stop)
+            self._t.join(timeout=10)
+        else:
+            self.ws.service.shutdown()
+
+
+def pcm_of(audio: np.ndarray) -> np.ndarray:
+    """The client's float32 (int16 / 32768) back to int16 values."""
+    return np.round(np.asarray(audio, np.float64) * 32768).astype(np.int32)
+
+
+def lsb_gap(a: np.ndarray, b: np.ndarray):
+    """Max |a - b| in LSB of two PCM16 arrays, None when their lengths
+    differ (or both are empty)."""
+    if len(a) != len(b) or len(a) == 0:
+        return None
+    return int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
+
+
+def chunked_request(port: int, body: dict, out: dict, gate=None) -> None:
+    """POST one chunked-stream request: out gets the seconds to its first
+    PCM byte and to its end, and the bytes. With `gate` (a Barrier) it is
+    sent when the gate opens."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=SERVER_TIMEOUT_S)
+    if gate is not None:
+        gate.wait()
+    t0 = time.perf_counter()
+    conn.request("POST", "/api/v1/tts/generate-streaming",
+                 body=json.dumps(body),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    first = resp.read(2)                  # blocks until the first chunk
+    out["first_byte_s"] = time.perf_counter() - t0
+    rest = resp.read()                    # raises on a cut chunked body
+    out["end_s"] = time.perf_counter() - t0
+    out["data"] = first + rest
+    out["status"] = resp.status
+    conn.close()
+
+
+def stream_burst(live, body: dict, n: int, hold=None) -> tuple:
+    """n chunked streams sent together (threads released by one barrier).
+    hold: a batcher whose burst() is held until all n are queued, so the
+    pool admits them as one. -> (per-request dicts, wall seconds)."""
+    import threading
+    outs = [dict() for _ in range(n)]
+    gate = threading.Barrier(n + 1)
+    ths = [threading.Thread(target=chunked_request,
+                            args=(live.port, body, outs[i], gate))
+           for i in range(n)]
+    for t in ths:
+        t.start()
+    ctx = hold.burst() if hold is not None else None
+    if ctx is not None:
+        ctx.__enter__()
+    try:
+        gate.wait()
+        t0 = time.perf_counter()
+        if hold is not None:
+            deadline = time.monotonic() + 60
+            while hold.pending.qsize() < n and time.monotonic() < deadline:
+                time.sleep(0.001)
+    finally:
+        if ctx is not None:
+            ctx.__exit__(None, None, None)
+    for t in ths:
+        t.join(timeout=SERVER_TIMEOUT_S)
+    return outs, time.perf_counter() - t0
+
+
+def timed(fn, *a, **kw):
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    return out, time.perf_counter() - t0
+
+
+def run_server(dev, card: str, keep: dict, direct_rtf=None,
+               direct_lm_ms=None, max_ms: float = 4000.0) -> dict:
+    """Phase 12: the serving front end at flagship width on the engine that
+    phase 11 loaded from DIR (the serving preset). (a) In process: the
+    port's server (WebSocketTTSServer, max_streams=8, and
+    HealthHTTPServer) on free localhost ports, driven over its sockets by
+    the port's client, every kernel launch count set to 0 just before its
+    requests and read just after: /health, /stats (the card's memory, the
+    batcher's telemetry), a greedy /api/v1/tts/generate against the same
+    request through ContinuousBatcher.submit alone (within 1 LSB), a burst
+    of 8 identical greedy chunked streams (identical bytes; their first
+    bytes and the aggregate RTF), a traced burst (CUDA kernels per pool
+    step), /v1/audio/speech, a voice made from phase 10's prompt and a
+    clone in it, a conversation turn, an admin reload to the same DIR
+    with two live streams (none dropped, the greedy request after equal to
+    the one before), a server with require_auth (401 without a token), the
+    WebSocket stream against REST (where websockets imports), the
+    service thread's CUDA stream. (b) `python -m fireredtts2_tpu_torch
+    --pretrained-dir DIR ... serve` as a subprocess (its log in
+    chiprun_out/): /health within a bound, /stats naming the card, the
+    same greedy request within 1 LSB of (a)'s. keep: phase 11's "engine",
+    "dir" (removed at the end) and "prompt_audio"."""
+    import shutil
+    import tempfile
+    import torch
+    from fireredtts2_tpu_torch.client import FireRedTTSClient
+    from fireredtts2_tpu_torch.serve.monitor import reset_performance_monitor
+    from fireredtts2_tpu_torch.serve.security import create_security_system
+    from fireredtts2_tpu_torch.utils.audio_io import f32_to_pcm16
+
+    eng, d, prompt = keep.pop("engine"), keep.pop("dir"), keep.pop("prompt_audio")
+    t_phase = time.perf_counter()
+    checks: dict = {}
+    walls: dict = {}
+    res: dict = dict(card=card)
+    greedy = dict(temperature=1.0, top_k=1, max_audio_length_ms=max_ms,
+                  seed=GREEDY_SEED)
+    live = None
+    try:
+        reset_performance_monitor()
+        live = LiveServer(eng, SERVER_MAX_STREAMS,
+                          voice_dir=tempfile.mkdtemp(dir=d), reload_root=d)
+        b = live.ws.service.batcher
+        checks["server_ready"] = live.ready
+        res["websockets"] = live.has_ws
+        c = FireRedTTSClient(live.base, ws_url=live.ws_url,
+                             timeout=SERVER_TIMEOUT_S)
+        _sync()
+        reset_counts()
+        h, walls["health"] = timed(c.health)
+        checks["health"] = h.get("status") == "healthy"
+        st, walls["stats"] = timed(c.stats)
+        devst = st.get("device", {})
+        checks["stats_card_memory"] = (
+            devst.get("kind") == torch.cuda.get_device_name(0)
+            and devst.get("bytes_limit", 0) > 0
+            and devst.get("bytes_in_use", 0) > 0)
+        checks["stats_batcher_telemetry"] = all(
+            k in st for k in ("active_streams", "queue_depth", "chunk_drops",
+                              "block_policy", "host"))
+        checks["worker_on_default_stream"] = (
+            b.cuda_stream is not None and b.cuda_stream.cuda_stream
+            == torch.cuda.default_stream(eng.device).cuda_stream)
+
+        # the server's first request (the block policy cold), then a burst
+        # of 8 identical greedy chunked streams admitted as one (the policy
+        # is fitted by then: at B=8 it picks the largest K, as every later
+        # request sees it)
+        (a, sr), walls["generate_cold"] = timed(c.synthesize, SERVE_TEXTS[0],
+                                                **greedy)
+        cold_pcm = pcm_of(a)
+        b.reset_host_stats()
+        b.timeline.clear()
+        body = dict(greedy, text=SERVE_TEXTS[0])
+        outs, wall = stream_burst(live, body, SERVER_MAX_STREAMS, hold=b)
+        walls["stream_burst"] = wall
+        datas = [o.get("data", b"") for o in outs]
+        checks["burst_identical"] = (
+            all(o.get("status") == 200 for o in outs)
+            and len(datas[0]) > 0 and all(x == datas[0] for x in datas))
+        audio_s = sum(len(x) // 2 for x in datas) / sr
+        blocks = [e for e in b.timeline if e["ev"] == "block"]
+        res["burst"] = dict(
+            first_byte_ms=sorted(o["first_byte_s"] * 1e3 for o in outs),
+            end_ms=sorted(o["end_s"] * 1e3 for o in outs), wall_s=wall,
+            audio_s=audio_s, aggregate_rtf=audio_s / wall,
+            direct_pool8_rtf=direct_rtf,
+            block_wall_ms_per_step=(sum(e["wall_ms"] for e in blocks)
+                                    / max(sum(e["K"] for e in blocks), 1)),
+            host_stats=b.host_stats(), blocks=blocks)
+
+        # a greedy request: REST against ContinuousBatcher.submit alone,
+        # both on the fitted policy
+        (a, _), walls["generate"] = timed(c.synthesize, SERVE_TEXTS[0], **greedy)
+        rest_pcm = pcm_of(a)
+        h = b.submit(SERVE_TEXTS[0], "[S1]", temperature=1.0, topk=1,
+                     max_audio_length_ms=max_ms, utt_seed=GREEDY_SEED)
+        direct = np.concatenate(list(h))
+        direct_pcm = np.frombuffer(f32_to_pcm16(direct), "<i2")
+        res["generate_vs_submit_lsb"] = lsb_gap(rest_pcm, direct_pcm)
+        checks["generate_equals_submit"] = (
+            res["generate_vs_submit_lsb"] is not None
+            and res["generate_vs_submit_lsb"] <= 1)
+        res["greedy_frames"] = len(h.tokens)
+        # readings, not checks: the cold request ran other block sizes (the
+        # vocoder's bf16 passes of other shapes), the burst's prefill 8 rows
+        # where a lone request's has 1 (a token may flip)
+        res["cold_vs_warm_lsb"] = lsb_gap(cold_pcm, rest_pcm)
+        res["burst_vs_generate_lsb"] = lsb_gap(
+            np.frombuffer(datas[0], "<i2"), rest_pcm)
+
+        # the same burst traced: CUDA kernels per pool step
+        res["traced"] = server_trace(live, b, dict(body, max_audio_length_ms=1200))
+        checks["server_traced_ok"] = res["traced"]["ok"]
+
+        # the OpenAI route, a voice and a clone, a conversation turn
+        wav, walls["speech"] = timed(c.speech, SERVE_TEXTS[1], seed=11,
+                                     max_audio_length_ms=2000)
+        checks["speech_riff"] = (wav[:4] == b"RIFF" and wav[8:12] == b"WAVE"
+                                 and len(wav) > 44)
+        pid, walls["voice_create"] = timed(c.create_voice, "phase10",
+                                           PROMPTS[0][0][4:], prompt)
+        (cl, _), walls["clone"] = timed(c.clone_speech, CLONE_TEXT, pid,
+                                        seed=12, max_audio_length_ms=4000)
+        checks["clone_audio"] = (len(cl) > 0 and bool(np.isfinite(cl).all())
+                                 and float(np.sqrt(np.mean(cl ** 2))) > 0)
+        sid = c.start_conversation()
+        turn, walls["conversation_turn"] = timed(
+            c.conversation_turn, sid, "Hello, how are you?",
+            max_audio_length_ms=2000, seed=13)
+        checks["conversation_audio"] = (bool(turn.get("response_text"))
+                                        and len(turn.get("data", "")) > 0)
+
+        # reload to the same DIR with two live streams
+        reload_check(live, c, d, greedy, rest_pcm, checks, res, walls)
+
+        # the WebSocket stream against REST
+        if live.has_ws:
+            w, walls["ws_stream"] = timed(lambda: np.concatenate(list(
+                c.stream_ws(SERVE_TEXTS[0], **greedy))))
+            res["ws_vs_rest_lsb"] = lsb_gap(pcm_of(w), rest_pcm)
+            checks["ws_equals_rest"] = res["ws_vs_rest_lsb"] in (0, 1)
+        _sync()
+        res["launches"] = read_counts()
+        for k in ("flash_decode_gqa1", "fused_depth_decode",
+                  "flash_decode_update_bounded"):
+            checks[f"{k}_launched"] = res["launches"][k] > 0
+
+        # a server with require_auth: 401 without a token
+        sec = LiveServer(eng, 1, security=create_security_system(
+            require_auth=True))
+        try:
+            FireRedTTSClient(sec.base).synthesize("no token", **greedy)
+            checks["auth_401"] = False
+        except urllib.error.HTTPError as e:
+            checks["auth_401"] = e.code == 401
+        finally:
+            sec.close()
+
+        # the LM's ms per batched frame with the server up (idle)
+        res["lm_ms_per_step"] = lm_step_ms(eng, SERVER_MAX_STREAMS, dev)
+        res["direct_lm_ms_per_step"] = direct_lm_ms
+        st = c.stats()
+        res["block_policy"] = st.get("block_policy")
+        res["block_frame_cost_ms"] = (st.get("block_policy") or {}).get(
+            "frame_cost_ms")
+        res["recommendations"] = [r["code"] for r in st.get("recommendations", [])]
+        res["stats_device"] = st.get("device")
+        live.close()
+        live = None
+
+        # (b) the normal entry point, a process of its own
+        res["cli"] = run_cli_server(d, dict(cold=cold_pcm, warm=rest_pcm),
+                                    greedy, checks)
+    finally:
+        if live is not None:
+            live.close()
+        shutil.rmtree(d, ignore_errors=True)
+        del eng
+        torch.cuda.empty_cache()
+    res.update(walls_s=walls, checks=checks, ok=all(checks.values()),
+               phase_s=time.perf_counter() - t_phase)
+    return res
+
+
+def server_trace(live, b, body: dict) -> dict:
+    """The 8-stream burst once more under torch.profiler: CUDA kernels per
+    pool step and per stream frame, and the busy share (left out when the
+    profiler is unavailable)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n0 = len([e for e in b.timeline if e["ev"] == "block"])
+    prof = None
+    try:
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as e:  # noqa: BLE001 -- the profiler is optional here
+        log(f"profiler unavailable: {e!r}")
+        prof = None
+    try:
+        outs, wall = stream_burst(live, body, SERVER_MAX_STREAMS, hold=b)
+        _sync()
+    finally:
+        kernels = None
+        if prof is not None:
+            try:
+                prof.stop()
+                kernels = [e for e in prof.events()
+                           if e.device_type == DeviceType.CUDA]
+            except Exception as e:  # noqa: BLE001
+                log(f"profiler trace unreadable: {e!r}")
+    out = dict(wall_s=wall, ok=all(o.get("status") == 200 and "end_s" in o
+                                   and len(o.get("data", b"")) > 0
+                                   for o in outs),
+               first_byte_ms=sorted(o["first_byte_s"] * 1e3 for o in outs))
+    if kernels:
+        blocks = [e for e in b.timeline if e["ev"] == "block"][n0:]
+        steps = sum(e["K"] for e in blocks)
+        busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+        out.update(cuda_kernels=len(kernels), pool_steps=steps,
+                   cuda_kernels_per_step=len(kernels) / max(steps, 1),
+                   cuda_kernels_per_stream_frame=len(kernels) / max(
+                       sum(e["K"] * e["n"] for e in blocks), 1),
+                   busy_share=busy / wall)
+    return out
+
+
+def reload_check(live, c, d: str, greedy: dict, before, checks: dict,
+                 res: dict, walls: dict) -> None:
+    """POST /api/v1/admin/reload to the same DIR while two chunked streams
+    are live: both end whole (no cut chunked body), and the greedy request
+    after the swap equals the one before within 1 LSB."""
+    import threading
+    outs = [dict(), dict()]
+    ths = [threading.Thread(target=chunked_request, args=(
+        live.port, dict(greedy, text=SERVE_TEXTS[3 + i], seed=20 + i),
+        outs[i])) for i in range(2)]
+    for t in ths:
+        t.start()
+    deadline = time.monotonic() + 300
+    while (not all("first_byte_s" in o for o in outs)
+           and time.monotonic() < deadline):
+        time.sleep(0.01)
+    out, walls["admin_reload"] = timed(c.admin_reload, d, 600.0)
+    for t in ths:
+        t.join(timeout=SERVER_TIMEOUT_S)
+    res["reload"] = dict(out, streams_bytes=[len(o.get("data", b""))
+                                             for o in outs],
+                         batcher=live.ws.service.batcher.last_reload)
+    checks["reload_ok"] = out.get("reloaded") == d
+    checks["reload_streams_whole"] = all(
+        o.get("status") == 200 and len(o.get("data", b"")) > 0
+        and "end_s" in o for o in outs)
+    (a, _), walls["generate_after_reload"] = timed(
+        c.synthesize, SERVE_TEXTS[0], **greedy)
+    res["after_reload_lsb"] = lsb_gap(pcm_of(a), before)
+    checks["reload_same_greedy"] = res["after_reload_lsb"] in (0, 1)
+
+
+def run_cli_server(d: str, want_pcm: dict, greedy: dict, checks: dict
+                   ) -> dict:
+    """`python -m fireredtts2_tpu_torch --pretrained-dir DIR
+    --quantize-backbone --fused-depth-plan PRESET serve --max-streams 8`
+    as a subprocess (log: chiprun_out/phase12_serve.log): /health within
+    300 s, /stats naming the card, the greedy request within 1 LSB of the
+    in-process server's, as its first request (block policy cold) and
+    once the policy's fit exists (its third): want_pcm {"cold", "warm"}.
+    The process is terminated at the end."""
+    import torch
+    from fireredtts2_tpu_torch.client import FireRedTTSClient
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    log_path = os.path.join(OUT_DIR, "phase12_serve.log")
+    http_port, ws_port = free_port(), free_port()
+    cmd = [sys.executable, "-m", "fireredtts2_tpu_torch", "--pretrained-dir", d,
+           "--quantize-backbone", "--fused-depth-plan", PRESET, "serve",
+           "--max-streams", str(SERVER_MAX_STREAMS), "--http-port",
+           str(http_port), "--ws-port", str(ws_port)]
+    out: dict = dict(cmd=" ".join(cmd[1:]))
+    t0 = time.perf_counter()
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                                stdout=logf, stderr=subprocess.STDOUT)
+        try:
+            c = FireRedTTSClient(f"http://127.0.0.1:{http_port}",
+                                 ws_url=f"ws://127.0.0.1:{ws_port}",
+                                 timeout=SERVER_TIMEOUT_S)
+            healthy = False
+            while time.perf_counter() - t0 < 300 and proc.poll() is None:
+                try:
+                    healthy = c.health().get("status") == "healthy"
+                    break
+                except OSError:
+                    time.sleep(0.25)
+            out["ready_s"] = time.perf_counter() - t0
+            checks["cli_health"] = healthy
+            if healthy:
+                st = c.stats()
+                out["stats_device"] = st.get("device")
+                checks["cli_stats_card"] = (st.get("device", {}).get("kind")
+                                            == torch.cuda.get_device_name(0))
+                # its first request (policy cold); a second, after which
+                # the policy's fit exists at the first block; the same
+                # request on the fitted policy: the first and the third
+                # against (a)'s
+                for label in ("cold", "fit", "warm"):
+                    (a, _), out[f"generate_{label}_s"] = timed(
+                        c.synthesize, SERVE_TEXTS[0], **greedy)
+                    if label in want_pcm:
+                        gap = lsb_gap(pcm_of(a), want_pcm[label])
+                        out[f"{label}_vs_in_process_lsb"] = gap
+                        checks[f"cli_{label}_equals_in_process"] = gap in (0, 1)
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=60)
+    out["exit_code"] = proc.returncode
+    out["log_tail"] = open(log_path).read()[-2000:]
+    return out
 
 
 def main() -> int:
@@ -2493,6 +2984,55 @@ def main() -> int:
     report["serving"] = sv
 
     mark("11")
+    # 12. the serving front end over sockets on phase 11's loaded engine
+    pool8 = sv["pools"].get(SERVER_MAX_STREAMS, {})
+    srv = run_server(dev, card, keep,
+                     direct_rtf=pool8.get("burst", {}).get("aggregate_rtf"),
+                     direct_lm_ms=pool8.get("lm_ms_per_step"))
+    ws_note = ("present" if srv["websockets"]
+               else "absent: the WebSocket check is skipped")
+    log(f"[server] websockets {ws_note}")
+    log("[server] route wall ms: " + ", ".join(
+        f"{k} {v * 1e3:.1f}" for k, v in srv["walls_s"].items()) + f"  [{card}]")
+    bu = srv["burst"]
+    log(f"[server] burst of {SERVER_MAX_STREAMS} greedy chunked streams: first "
+        f"PCM byte ms {[round(x, 1) for x in bu['first_byte_ms']]}; aggregate "
+        f"RTF {bu['aggregate_rtf']:.3f} ({bu['audio_s']:.2f} s audio in "
+        f"{bu['wall_s']:.2f} s) against phase 11's direct pool of 8 "
+        f"{bu['direct_pool8_rtf']}; block wall {bu['block_wall_ms_per_step']:.2f} "
+        f"ms per pool step; host_stats dispatch "
+        f"{bu['host_stats']['dispatch_ms_per_frame']:.3f} / fanout "
+        f"{bu['host_stats']['fanout_ms_per_frame']:.3f} ms per stream frame  [{card}]")
+    tr = srv["traced"]
+    if "cuda_kernels_per_step" in tr:
+        log(f"[server] traced burst: {tr['cuda_kernels_per_step']:.0f} CUDA "
+            f"kernels per pool step, {tr['cuda_kernels_per_stream_frame']:.0f} "
+            f"per stream frame, busy share {tr['busy_share']:.3f}  [{card}]")
+    log(f"[server] LM {srv['lm_ms_per_step']:.2f} ms per batched frame at B="
+        f"{SERVER_MAX_STREAMS} with the server up (phase 11, no server: "
+        f"{srv['direct_lm_ms_per_step']}); block policy frame cost "
+        f"block_frame_cost_ms {srv['block_frame_cost_ms']} (rtt "
+        f"{(srv['block_policy'] or {}).get('rtt_ms')}); recommendations "
+        f"{srv['recommendations']}  [{card}]")
+    log(f"[server] greedy REST vs ContinuousBatcher.submit: "
+        f"{srv['generate_vs_submit_lsb']} LSB ({srv['greedy_frames']} frames); "
+        f"the cold first request vs a fitted one {srv['cold_vs_warm_lsb']} LSB; "
+        f"burst vs lone request {srv['burst_vs_generate_lsb']} LSB; WS vs REST "
+        f"{srv.get('ws_vs_rest_lsb')} LSB; after reload "
+        f"{srv['after_reload_lsb']} LSB (reload {srv['reload']})  [{card}]")
+    cl = srv["cli"]
+    log(f"[server] CLI server ({cl['cmd']}): ready in {cl.get('ready_s', 0):.1f} s, "
+        f"exit {cl['exit_code']}, device {cl.get('stats_device')}, greedy vs "
+        f"in-process: cold {cl.get('cold_vs_in_process_lsb')} LSB, warm "
+        f"{cl.get('warm_vs_in_process_lsb')} LSB  [{card}]")
+    log(f"[server] launches in (a): {srv['launches']}")
+    log(f"[server] checks: {srv['checks']}; phase {srv['phase_s']:.1f} s")
+    for k, n in srv["launches"].items():
+        main_launches[k] = main_launches.get(k, 0) + n
+    ok &= srv["ok"]
+    report["server"] = srv
+
+    mark("12")
     report["phase_s"] = phase_s
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

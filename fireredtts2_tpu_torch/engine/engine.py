@@ -201,21 +201,35 @@ class FireRedTTS2Engine:
     # Checkpoints and hot reload
     # ------------------------------------------------------------------
 
+    def _lm_name(self) -> str:
+        return ("llm_pretrain" if self.gen_type == "monologue"
+                else "llm_posttrain")
+
+    def _load_converted_trees(self, pretrained_dir: str, llm_cfg, codec_cfg
+                              ) -> Optional[tuple[dict, dict]]:
+        """Raw (lm_params, codec_params) from the ``DIR/torch/`` converted
+        trees (tensors only, ``weights_only`` loads) on the engine's
+        device; None when either is absent."""
+        lm_path = ckpt.converted_path(pretrained_dir, self._lm_name())
+        codec_path = ckpt.converted_path(pretrained_dir, "codec")
+        if not (os.path.exists(lm_path) and os.path.exists(codec_path)):
+            return None
+        return (ckpt.load_converted_lm(lm_path, dtype_of(llm_cfg.dtype),
+                                       self.device),
+                ckpt.load_converted_codec(codec_path, dtype_of(codec_cfg.dtype),
+                                          self.device))
+
     def _load_checkpoint_trees(self, pretrained_dir: str, llm_cfg, codec_cfg
                                ) -> tuple[dict, dict]:
         """Raw (lm_params, codec_params) of a serving dir on the engine's
         device: the ``DIR/torch/`` converted trees when both are there,
         else the reference pickles (the SSL encoder from a local HF whisper
         checkout when ``codec.pt`` has none)."""
-        lm_name = ("llm_pretrain" if self.gen_type == "monologue"
-                   else "llm_posttrain")
-        lm_path = ckpt.converted_path(pretrained_dir, lm_name)
-        codec_path = ckpt.converted_path(pretrained_dir, "codec")
+        trees = self._load_converted_trees(pretrained_dir, llm_cfg, codec_cfg)
+        if trees is not None:
+            return trees
+        lm_name = self._lm_name()
         lm_dtype, codec_dtype = dtype_of(llm_cfg.dtype), dtype_of(codec_cfg.dtype)
-        if os.path.exists(lm_path) and os.path.exists(codec_path):
-            return (ckpt.load_converted_lm(lm_path, lm_dtype, self.device),
-                    ckpt.load_converted_codec(codec_path, codec_dtype,
-                                              self.device))
         lm = ckpt.load_lm_checkpoint(
             os.path.join(pretrained_dir, lm_name + ".pt"), llm_cfg, lm_dtype,
             device=self.device)
@@ -256,10 +270,18 @@ class FireRedTTS2Engine:
     def prepare_checkpoint(self, pretrained_dir: str) -> tuple[dict, dict]:
         """Load and transform new weights without touching what serves (the
         slow half of a hot reload; it runs while generation goes on). The
-        dir must hold the running model's shapes, leaf by leaf. Returns the
-        handle for :meth:`apply_checkpoint`."""
-        lm, codec = self._load_checkpoint_trees(
+        dir must hold the converted ``DIR/torch/`` trees (a hot reload
+        unpickles nothing: the reference pickles load only at start-up) of
+        the running model's shapes, leaf by leaf; FileNotFoundError
+        otherwise. Returns the handle for :meth:`apply_checkpoint`."""
+        trees = self._load_converted_trees(
             pretrained_dir, self.config.llm, self.config.codec)
+        if trees is None:
+            raise FileNotFoundError(
+                f"{pretrained_dir!r} has no converted DIR/torch/ trees "
+                "(runtime/checkpoint.py: save_params); a hot reload reads "
+                "only those")
+        lm, codec = trees
         lm = self._shape_guard("LM", lm, self._ref_shapes[0])
         codec = self._shape_guard("codec", codec, self._ref_shapes[1])
         with torch.inference_mode():
@@ -712,13 +734,14 @@ class FireRedTTS2Engine:
         return audio
 
     def generate_single(self, context: List[Segment], temperature: float = 0.9,
-                        topk: int = 20, utt_seed: Optional[int] = None
-                        ) -> np.ndarray:
+                        topk: int = 20, utt_seed: Optional[int] = None,
+                        max_frames: int = 400) -> np.ndarray:
         """The monologue clone's inner call: the context alone, its last 3
-        frames dropped, at most 400 frames -> raw (T, ncb) frames."""
+        frames dropped, at most max_frames (400) frames -> raw (T, ncb)
+        frames."""
         prompt, mask = self._build_prompt(context, None, None)
-        [gen] = self._run_ar([(prompt[:-3], mask[:-3])], 400, temperature,
-                             topk, utt_seed)
+        [gen] = self._run_ar([(prompt[:-3], mask[:-3])], max_frames,
+                             temperature, topk, utt_seed)
         return gen
 
     def generate_batch(self, texts: List[str], speakers: List[str],
@@ -957,12 +980,14 @@ class FireRedTTS2Engine:
                            prompt_text: Optional[str] = None,
                            temperature: float = 0.75, topk: int = 20,
                            prompt_tokens: Optional[tuple] = None,
-                           utt_seed: Optional[int] = None) -> np.ndarray:
+                           utt_seed: Optional[int] = None,
+                           max_frames: int = 400) -> np.ndarray:
         """Long-form monologue, optionally voice-cloned -> (n,) float32 at
         24 kHz. With a prompt, the text is split into chunks of at most
         400 bytes; each chunk runs as the prompt text merged with it over
-        the prompt audio (generate_single), retried until it gives more
-        than 18 frames, its first 2 frames trimmed. prompt_tokens:
+        the prompt audio (generate_single, at most max_frames frames),
+        retried until it gives more than 18 frames, its first 2 frames
+        trimmed. prompt_tokens:
         pre-encoded (frames, mask) of the prompt (encode_prompt_tokens),
         which skips the wav load and the encode; prompt_wav may then be
         None. utt_seed: the first call's seed, each later call the next."""
@@ -986,7 +1011,8 @@ class FireRedTTS2Engine:
                           audio_tokens_mask=fmask)
             for _ in range(8):
                 gen = self.generate_single([seg], temperature, topk,
-                                           None if seeds is None else next(seeds))
+                                           None if seeds is None else next(seeds),
+                                           max_frames)
                 if gen.shape[0] > 18:
                     break
             pieces.append(self._decode_tokens([gen[2:]])[0])

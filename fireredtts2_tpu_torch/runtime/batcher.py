@@ -223,6 +223,7 @@ class ContinuousBatcher:
                                   if warmup_blocks is None else warmup_blocks)
         self.warmup_s: Optional[float] = None
         self.last_reload: Optional[dict] = None
+        self.cuda_stream: Optional[torch.cuda.Stream] = None
         self._ready = threading.Event()
         self._worker = threading.Thread(target=self._loop, daemon=True)
 
@@ -909,6 +910,8 @@ class ContinuousBatcher:
         try:
             if self._device_index is not None:
                 torch.cuda.set_device(self._device_index)
+                # the stream every kernel of the loop launches on
+                self.cuda_stream = torch.cuda.current_stream()
             with torch.inference_mode():
                 self._loop_inner()
         except Exception as e:  # fail every live and pending stream loudly

@@ -1,8 +1,9 @@
-"""Host-side audio I/O: wav read/write and resampling.
+"""Host-side audio I/O: wav read/write, resampling and PCM16 packing.
 
 Replaces the reference's torchaudio usage (fireredtts2/fireredtts2.py:61-65,
-389-391) with scipy (wav I/O + polyphase resampling). A C++ resampler can
-drop in behind `resample` for serving-path throughput.
+389-391) with scipy (wav I/O + polyphase resampling). The PCM16 packing is
+numpy's, the JAX package's ``utils/native.py`` route without its C++
+library.
 """
 
 from __future__ import annotations
@@ -54,3 +55,15 @@ def load_prompt_audio_16k(path: str) -> np.ndarray:
     """Prompt wavs are consumed at 16 kHz mono (reference fireredtts2.py:60-66)."""
     audio, sr = load_wav_mono(path)
     return resample(audio, sr, 16_000)
+
+
+def f32_to_pcm16(audio: np.ndarray) -> bytes:
+    """float32 in [-1, 1] -> little-endian int16 PCM bytes, clipped and
+    truncated toward zero."""
+    x = np.asarray(audio, np.float32)
+    return (np.clip(x, -1, 1) * 32767.0).astype("<i2").tobytes()
+
+
+def pcm16_to_f32(data: bytes) -> np.ndarray:
+    """Little-endian int16 PCM bytes -> float32 (x / 32768)."""
+    return np.frombuffer(data, dtype="<i2").astype(np.float32) / 32768.0

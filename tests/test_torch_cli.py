@@ -1,0 +1,197 @@
+"""PyTorch port, the client and the CLI on the CPU (tiny config):
+
+- ``fireredtts2_tpu_torch.client.FireRedTTSClient`` against a live port
+  server: every method (REST, chunked stream, WebSocket stream and
+  dialogue, the OpenAI routes, voices, conversations, admin reload);
+- ``python -m fireredtts2_tpu_torch --device cpu`` generate, monologue,
+  qa and serve (a subprocess answering over its sockets);
+- the entry point's defaults: the card unless --device cpu is given, and
+  every flag or subcommand of the JAX CLI without a port exits non-zero
+  naming its ROADMAP item.
+"""
+
+import os
+import subprocess
+import sys
+import time
+import urllib.error
+
+import numpy as np
+import pytest
+from scipy.io import wavfile
+
+from fireredtts2_tpu_torch import __main__ as cli
+from fireredtts2_tpu_torch.client import FireRedTTSClient
+from fireredtts2_tpu_torch.config import tiny_engine_config
+from fireredtts2_tpu_torch.engine import FireRedTTS2Engine
+from fireredtts2_tpu_torch.runtime import checkpoint as ckpt
+
+from _torch_parity import one_torch_thread, voiced  # noqa: F401  (autouse)
+from conftest import free_port
+from test_torch_rest import _Live, _pcm_close
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MS = 640
+
+
+@pytest.fixture(scope="module")
+def live(tmp_path_factory):
+    from fireredtts2_tpu_torch.serve import server
+
+    engine = FireRedTTS2Engine(tiny_engine_config(), device="cpu", seed=0)
+    srv = _Live(server, engine, max_streams=2,
+                voice_dir=str(tmp_path_factory.mktemp("voices")),
+                transcriber=lambda a: f"heard {len(a)}",
+                reload_root=str(tmp_path_factory.getbasetemp()))
+    yield srv, engine
+    srv.close()
+
+
+@pytest.fixture(scope="module")
+def client(live):
+    srv, _ = live
+    return FireRedTTSClient(srv.base, ws_url=srv.ws_url, timeout=300)
+
+
+def test_client_synthesis_routes(client):
+    assert client.health()["status"] == "healthy"
+    assert client.stats()["device"] == {"platform": "cpu"}
+    a, sr = client.synthesize("Client words.", top_k=1, seed=7,
+                              max_audio_length_ms=MS)
+    assert sr == 24_000 and a.dtype == np.float32 and len(a) > 0
+    # the same seed replays the same sampled request, on every route
+    b, _ = client.synthesize("Client words.", top_k=1, seed=7,
+                             max_audio_length_ms=MS)
+    q = lambda x: np.round(x * 32768).astype(np.int32)  # noqa: E731
+    _pcm_close(q(b), q(a), "a replay")
+    s = np.concatenate(list(client.synthesize_streaming(
+        "Client words.", top_k=1, seed=7, max_audio_length_ms=MS)))
+    w = np.concatenate(list(client.stream_ws(
+        "Client words.", top_k=1, seed=7, max_audio_length_ms=MS)))
+    _pcm_close(q(s), q(a), "chunked stream")
+    _pcm_close(q(w), q(a), "ws stream")
+    wav = client.speech("Spoken words.", response_format="wav",
+                        temperature=0.5, seed=3)
+    assert wav[:4] == b"RIFF"
+    pcm = client.speech("Spoken words.", response_format="pcm",
+                        temperature=0.5, seed=3)
+    _pcm_close(np.frombuffer(pcm, "<i2").astype(np.int32),
+               np.frombuffer(wav[44:], "<i2").astype(np.int32), "pcm vs wav")
+    pairs = list(client.stream_dialogue_ws(["[S1]Hi.", "[S2]Yo."],
+                                           max_utterance_ms=MS))
+    assert {i for i, _ in pairs} == {0, 1}
+    assert client.transcribe(voiced(4_000, 1)) == "heard 4000"
+
+
+def test_client_voices_conversations_reload(client, live, tmp_path):
+    _, engine = live
+    pid = client.create_voice("carol", "Me, speaking.", voiced(16_000, 2))
+    assert [v["name"] for v in client.list_voices()] == ["carol"]
+    a, sr = client.clone_speech("In her voice.", pid, seed=5)
+    assert sr == 24_000 and len(a) > 0 and np.isfinite(a).all()
+    sid = client.start_conversation(language="en")
+    turn = client.conversation_turn(sid, "hello", max_audio_length_ms=MS)
+    assert turn["response_text"] and len(bytes.fromhex(turn["data"])) > 0
+    d = str(tmp_path)
+    ckpt.save_params(ckpt.converted_path(d, "llm_posttrain"), engine.lm_params)
+    ckpt.save_params(ckpt.converted_path(d, "codec"), engine.codec_params)
+    out = client.admin_reload(d)
+    assert out["reloaded"] == d
+
+
+# subprocesses on one torch thread, as the in-process tests run
+ENV = dict(os.environ, OMP_NUM_THREADS="1")
+
+
+def _cli(*args, **kw):
+    return subprocess.Popen([sys.executable, "-m", "fireredtts2_tpu_torch",
+                             *args], cwd=REPO, env=ENV, text=True, **kw)
+
+
+def test_cli_generate_monologue_qa(tmp_path):
+    """The three subcommands, run side by side."""
+    d_out, m_out = str(tmp_path / "d.wav"), str(tmp_path / "m.wav")
+    runs = {name: _cli("--device", "cpu", *argv, stdout=subprocess.PIPE,
+                       stderr=subprocess.PIPE)
+            for name, argv in (
+                ("generate", ["generate", "--text", "[S1]Hi there. [S2]Hello.",
+                              "--out", d_out, "--max-utterance-ms", str(MS)]),
+                ("monologue", ["monologue", "--text", "Hi there.", "--out",
+                               m_out]),
+                ("qa", ["qa"]))}
+    res = {k: (p, *p.communicate(timeout=300)) for k, p in runs.items()}
+    for name, (p, out, err) in res.items():
+        assert p.returncode == 0, (name, out, err)
+    sr, data = wavfile.read(d_out)
+    assert sr == 24_000 and data.dtype == np.int16 and len(data) > 0
+    assert f"wrote {d_out}" in res["generate"][1]
+    assert wavfile.read(m_out)[0] == 24_000
+    lines = [ln for ln in res["qa"][1].splitlines() if ln.startswith("[")]
+    assert len(lines) == 5 and all(ln.startswith("[PASS]") for ln in lines)
+
+
+def test_cli_serve_answers_over_sockets(tmp_path):
+    """The serve subcommand: /health once ready, a request, admin reload
+    only under --reload-root, a stop."""
+    http_port, ws_port = free_port(), free_port()
+    log = open(tmp_path / "serve.log", "w")
+    proc = _cli("--device", "cpu", "serve", "--host", "127.0.0.1",
+                "--http-port", str(http_port), "--ws-port", str(ws_port),
+                "--max-streams", "2", "--reload-root", str(tmp_path / "ckpts"),
+                stdout=log, stderr=subprocess.STDOUT)
+    try:
+        c = FireRedTTSClient(f"http://127.0.0.1:{http_port}",
+                             ws_url=f"ws://127.0.0.1:{ws_port}", timeout=120)
+        deadline = time.monotonic() + 120
+        while True:
+            try:
+                assert c.health()["status"] == "healthy"
+                break
+            except OSError:
+                assert proc.poll() is None, open(tmp_path / "serve.log").read()
+                assert time.monotonic() < deadline, "no /health in 120 s"
+                time.sleep(0.2)
+        st = c.stats()
+        assert st["device"] == {"platform": "cpu"} and "active_streams" in st
+        a, _ = c.synthesize("Served.", max_audio_length_ms=MS, seed=1)
+        assert len(a) > 0
+        assert len(np.concatenate(list(c.stream_ws(
+            "Served.", max_audio_length_ms=MS)))) > 0
+        for d, code in ((tmp_path, 403), (tmp_path / "ckpts" / "none", 400)):
+            with pytest.raises(urllib.error.HTTPError) as e:
+                c.admin_reload(str(d))
+            assert e.value.code == code
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+        log.close()
+    assert "serving: http://127.0.0.1:" in open(tmp_path / "serve.log").read()
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--tp", "2", "qa"], "item 13"),
+    (["--dp", "2", "qa"], "item 13"),
+    (["--speculative-depth", "qa"], "item 9"),
+    (["serve", "--asr"], "item 11"),
+    (["serve", "--asr-dir", "/x"], "item 11"),
+    (["serve", "--profiler-port", "9999"], "tracing item"),
+    (["bench"], "item 1 "),
+    (["train", "--model", "lm"], "item 12"),
+    (["export", "--out", "x"], "item 12"),
+    (["convert"], "item 11"),
+])
+def test_cli_unported_flags_exit_nonzero(argv, item):
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--device", "cpu"] + argv)
+    assert e.value.code not in (0, None)
+    assert "no port yet" in str(e.value.code) and item in str(e.value.code)
+
+
+def test_cli_runs_on_the_card_unless_asked():
+    assert cli.build_parser().parse_args(["qa"]).device == "cuda"
+    assert cli.build_parser().parse_args(
+        ["--device", "cpu", "qa"]).device == "cpu"
+    import torch
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["qa"])
