@@ -131,7 +131,25 @@ Phases (any failure exits non-zero and prints no result line):
    --fused-depth-plan gate=r8,up=s8,down=s8 serve --max-streams 8` as a
    subprocess (log: chiprun_out/phase12_serve.log): /health within 300 s,
    /stats naming the card, its first (cold) and third (fitted) greedy
-   request within 1 LSB of (a)'s cold and fitted ones; then terminated.
+   request within 1 LSB of (a)'s cold and fitted ones; then terminated;
+13. training (``fireredtts2_tpu_torch.train``), no kernel of its own: (a)
+   the flagship LM (EngineConfig().llm, ~2.1 B parameters) from random
+   weights on the card, fp32 masters, bf16 compute, B=4 x S=512, remat
+   "dots", synthetic batches of seed 0, warmup 2, peak lr 1e-4: 2 steps,
+   then 8 timed with CUDA events (median and min step ms, positions/s,
+   peak memory, MFU = model FLOPs a step / step time / 989 TFLOP/s with
+   the formula printed: the attention's products counted, remat's
+   recompute not); every loss and gradient norm finite; on one batch from
+   one state an fp32-compute loss within 2% of the bf16 one, and remat
+   "none", "full" and "dots" with bitwise-equal losses and gradient norms
+   within 1e-3 relative; (b) the flagship codec (CodecConfig()) at B=2 x
+   2 s windows, fp32, remat "dots": 1 + 4 timed steps, losses finite, the
+   SSL teacher and mel filters bitwise unchanged; (c) (a)'s state saved
+   with save_checkpoint (~25 GB, a temporary dir in the checkout), exported
+   with phase 11's DIR as the config dir (its codec tree copied), an
+   engine loaded from the export with the serving preset, a 10-frame
+   greedy generate: kernels A, B and C launched, audio finite, the
+   engine's unquantised leaves equal to the exported masters in its dtype.
 
 Bounds are the larger of the bytes a call must move (each input read once,
 each output written once) over 3.35 TB/s and its operations over the bf16
@@ -170,11 +188,13 @@ to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import atexit
 import itertools
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -216,30 +236,54 @@ def card_line() -> str:
         return f"nvidia-smi unavailable: {e}"
 
 
-def device_ms(fn, reps: int):
-    """Mean device time (ms) of the CUDA kernels one call of fn launches,
-    from a torch.profiler trace; None when the trace shows no device time
-    (the reason is logged)."""
+def under_profiler(fn, cpu: bool = False) -> tuple[object, list | None]:
+    """One call of fn under torch.profiler (CUDA activity, and the CPU's
+    with cpu=True); -> (fn's result, the trace's CUDA events, or None when
+    the profiler could not start or be read; the reason is logged). fn's
+    own failure propagates: only the profiler is optional."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    prof = None
     try:
-        # CUDA activity only: recording the CPU ops too costs minutes over
-        # the plain versions' thousands of launches.
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = prof.events()
-        us = sum(e.time_range.elapsed_us() for e in events
-                 if e.device_type == DeviceType.CUDA)
-    except Exception as e:   # the profiler is optional here
+        prof = profile(activities=acts)
+        prof.start()
+    except Exception as e:  # noqa: BLE001 -- the profiler is optional here
         log(f"profiler unavailable: {e!r}")
+        prof = None
+    events = None
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        if prof is not None:
+            try:
+                prof.stop()
+                events = [e for e in prof.events()
+                          if e.device_type == DeviceType.CUDA]
+            except Exception as e:  # noqa: BLE001
+                log(f"profiler trace unreadable: {e!r}")
+    return out, events
+
+
+def device_ms(fn, reps: int):
+    """Mean device time (ms) of the CUDA kernels one call of fn launches,
+    from a torch.profiler trace; None when the trace shows no device time
+    (the reason is logged)."""
+    def repeated():
+        for _ in range(reps):
+            fn()
+
+    # CUDA activity only: recording the CPU ops too costs minutes over the
+    # plain versions' thousands of launches.
+    _, events = under_profiler(repeated)
+    if events is None:
         return None
+    us = sum(e.time_range.elapsed_us() for e in events)
     if us <= 0:
-        names = sorted({e.name for e in events})[:12]
-        log(f"profiler: no device time in {len(events)} events {names}")
+        log(f"profiler: no device time in {len(events)} CUDA events")
         return None
     return us / reps / 1e3
 
@@ -248,21 +292,14 @@ def cuda_launches(fn):
     """CUDA kernels one call of fn launches, counted in a torch.profiler
     trace (None when the trace holds no device activity)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
-                and "memcpy" not in e.name.lower()
-                and "memset" not in e.name.lower())
-    except Exception as e:   # the profiler is optional here
-        log(f"profiler unavailable: {e!r}")
+    _, events = under_profiler(fn)
+    if events is None:
         return None
+    n = sum(1 for e in events if "memcpy" not in e.name.lower()
+            and "memset" not in e.name.lower())
     return n or None
 
 
@@ -1131,43 +1168,51 @@ def check_small_model(dev):
 # ---------------------------------------------------------------------------
 
 
-def trace_generate(eng, dev, max_ms: float = 800.0) -> dict:
-    """Trace one short generate call: wall time, summed device kernel time
-    (busy share = device / wall), the largest kernels by device time (with
-    their launch counts) and kernel A's time and launches."""
+def trace_call(fn, dev, top_n: int = 10) -> tuple[object, dict]:
+    """One call of fn under the profiler (``under_profiler``); -> (fn's
+    result, the trace: wall time, summed device kernel time (busy share =
+    device / wall), the largest kernels by device time (with their launch
+    counts); "by_name" holds every kernel's (us, launches)). The trace is
+    {} on the CPU or without a profiler."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     if torch.device(dev).type != "cuda":
+        return fn(), {}
+
+    def timed():
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    (out, wall), events = under_profiler(timed, cpu=True)
+    if events is None:
+        return out, {}
+    by_name: dict = {}
+    for e in events:
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    busy = sum(us for us, _ in by_name.values()) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
+    return out, dict(wall_s=wall, device_s=busy, busy_share=busy / wall,
+                     kernel_launches=sum(n for _, n in by_name.values()),
+                     top=[(name[:90], us / 1e3, n) for name, (us, n) in top],
+                     by_name=by_name)
+
+
+def trace_generate(eng, dev, max_ms: float = 800.0) -> dict:
+    """Trace one short generate call (``trace_call``), with kernel A's
+    time and launches."""
+    _, tr = trace_call(lambda: eng.generate("Profile this.", "[S1]",
+                                            max_audio_length_ms=max_ms,
+                                            utt_seed=3), dev)
+    if not tr:
         return {}
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eng.generate("Profile this.", "[S1]", max_audio_length_ms=max_ms,
-                         utt_seed=3)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        by_name: dict = {}
-        count: dict = {}
-        n = 0
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-                count[e.name] = count.get(e.name, 0) + 1
-                n += 1
-    except Exception as e:   # the profiler is optional here
-        log(f"profiler unavailable: {e!r}")
-        return {}
-    busy = sum(by_name.values()) / 1e6
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    by_name = tr.pop("by_name")
     gqa1 = [name for name in by_name if "gqa1" in name]     # kernel A
-    return dict(wall_s=wall, device_s=busy, busy_share=busy / wall,
-                kernel_launches=n, frames=eng.last_stats.get("frames"),
-                kernel_a_ms=sum(by_name[k] for k in gqa1) / 1e3,
-                kernel_a_launches=sum(count[k] for k in gqa1),
-                top=[(name[:90], us / 1e3, count[name]) for name, us in top])
+    return dict(tr, frames=eng.last_stats.get("frames"),
+                kernel_a_ms=sum(by_name[k][0] for k in gqa1) / 1e3,
+                kernel_a_launches=sum(by_name[k][1] for k in gqa1))
 
 
 def reset_counts() -> None:
@@ -1834,34 +1879,18 @@ def profile_pool(b, dev, texts, max_ms: float) -> tuple:
     device's busy share over the burst. The burst is the pool's own work
     and fails the phase like any other; only the profiler is optional
     (without it the trace's numbers are left out). -> (result, checks)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     n0 = len([e for e in b.timeline if e["ev"] == "block"])
-    prof = None
-    try:
-        prof = profile(activities=[ProfilerActivity.CUDA])
-        prof.start()
-    except Exception as e:  # noqa: BLE001 -- the profiler is optional here
-        log(f"profiler unavailable: {e!r}")
-        prof = None
-    try:
+
+    def burst():
         t0 = time.perf_counter()
         with b.burst():
             hs = [b.submit(t, "[S1]", max_audio_length_ms=max_ms)
                   for t in texts]
         audios = _consume(hs)               # raises a handle's error
         _sync()
-        wall = time.perf_counter() - t0
-    finally:
-        kernels = None
-        if prof is not None:
-            try:
-                prof.stop()
-                kernels = [e for e in prof.events()
-                           if e.device_type == DeviceType.CUDA]
-            except Exception as e:  # noqa: BLE001
-                log(f"profiler trace unreadable: {e!r}")
+        return hs, audios, time.perf_counter() - t0
+
+    (hs, audios, wall), kernels = under_profiler(burst)
     checks = {"traced_ok": all(h.error is None for h in hs) and all(
         len(a) == len(h.tokens) * 1920 > 0 and np.isfinite(a).all()
         for a, h in zip(audios, hs))}
@@ -2079,6 +2108,8 @@ def run_serving(dev, card: str, keep: dict, max_ms: float = 4000.0,
     # hot reload of a second seed's trees while two streams are live
     root = os.path.dirname(os.path.abspath(__file__))
     d = tempfile.mkdtemp(prefix=".serving_ckpt_", dir=root)
+    # removed by phase 13, or at exit whatever phase fails before it
+    atexit.register(shutil.rmtree, d, ignore_errors=True)
     try:
         t0 = time.perf_counter()
         lm2, codec2 = init_random(eng.config, seed=1, device=dev)
@@ -2184,7 +2215,8 @@ def run_serving(dev, card: str, keep: dict, max_ms: float = 4000.0,
     except BaseException:
         shutil.rmtree(d, ignore_errors=True)
         raise
-    # the server phase serves this engine and this DIR (it removes DIR)
+    # the server phase serves this engine and this DIR, phase 13 exports
+    # with its configs and codec tree (and removes it)
     keep.update(engine=eng2, dir=d, prompt_audio=segs[0].audio)
     torch.cuda.empty_cache()
     res.update(launches=launches, checks=checks, ok=all(checks.values()),
@@ -2349,7 +2381,7 @@ def run_server(dev, card: str, keep: dict, direct_rtf=None,
     --pretrained-dir DIR ... serve` as a subprocess (its log in
     chiprun_out/): /health within a bound, /stats naming the card, the
     same greedy request within 1 LSB of (a)'s. keep: phase 11's "engine",
-    "dir" (removed at the end) and "prompt_audio"."""
+    "dir" (left for phase 13, which removes it) and "prompt_audio"."""
     import shutil
     import tempfile
     import torch
@@ -2358,7 +2390,8 @@ def run_server(dev, card: str, keep: dict, direct_rtf=None,
     from fireredtts2_tpu_torch.serve.security import create_security_system
     from fireredtts2_tpu_torch.utils.audio_io import f32_to_pcm16
 
-    eng, d, prompt = keep.pop("engine"), keep.pop("dir"), keep.pop("prompt_audio")
+    eng, prompt = keep.pop("engine"), keep.pop("prompt_audio")
+    d = keep["dir"]
     t_phase = time.perf_counter()
     checks: dict = {}
     walls: dict = {}
@@ -2505,7 +2538,6 @@ def run_server(dev, card: str, keep: dict, direct_rtf=None,
     finally:
         if live is not None:
             live.close()
-        shutil.rmtree(d, ignore_errors=True)
         del eng
         torch.cuda.empty_cache()
     res.update(walls_s=walls, checks=checks, ok=all(checks.values()),
@@ -2517,29 +2549,9 @@ def server_trace(live, b, body: dict) -> dict:
     """The 8-stream burst once more under torch.profiler: CUDA kernels per
     pool step and per stream frame, and the busy share (left out when the
     profiler is unavailable)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     n0 = len([e for e in b.timeline if e["ev"] == "block"])
-    prof = None
-    try:
-        prof = profile(activities=[ProfilerActivity.CUDA])
-        prof.start()
-    except Exception as e:  # noqa: BLE001 -- the profiler is optional here
-        log(f"profiler unavailable: {e!r}")
-        prof = None
-    try:
-        outs, wall = stream_burst(live, body, SERVER_MAX_STREAMS, hold=b)
-        _sync()
-    finally:
-        kernels = None
-        if prof is not None:
-            try:
-                prof.stop()
-                kernels = [e for e in prof.events()
-                           if e.device_type == DeviceType.CUDA]
-            except Exception as e:  # noqa: BLE001
-                log(f"profiler trace unreadable: {e!r}")
+    (outs, wall), kernels = under_profiler(lambda: stream_burst(
+        live, body, SERVER_MAX_STREAMS, hold=b))
     out = dict(wall_s=wall, ok=all(o.get("status") == 200 and "end_s" in o
                                    and len(o.get("data", b"")) > 0
                                    for o in outs),
@@ -2651,6 +2663,295 @@ def run_cli_server(d: str, want_pcm: dict, greedy: dict, checks: dict
     out["exit_code"] = proc.returncode
     out["log_tail"] = open(log_path).read()[-2000:]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Training at flagship width, then train -> export -> serve
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S = 4, 512            # the LM's batch: 2048 positions
+TRAIN_WARMUP, TRAIN_TIMED = 2, 8
+CODEC_B, CODEC_WINDOW = 2, 32_000    # 2 s at 16 kHz
+CODEC_WARMUP, CODEC_TIMED = 1, 4
+LOSS_FP32_TOL = 0.02                 # fp32 vs bf16 compute, relative
+GNORM_REMAT_TOL = 1e-3               # remat modes' gradient norms, relative
+PEAK_BF16 = PEAK_OPS_PER_S["bf16"]
+
+
+def lm_train_flops(cfg, B: int, S: int) -> tuple[float, str]:
+    """Model FLOPs of one LM training step (forward + backward = 3 x the
+    forward's 2 FLOPs per multiply-add), the attention's dense S x S
+    products included, remat's recompute excluded. Returns (FLOPs, the
+    formula)."""
+    from fireredtts2_tpu_torch.runtime.perf import transformer_matmul_params
+
+    bb, dec = cfg.backbone, cfg.decoder
+    N = B * S                               # backbone positions
+    n_sub = max(N // 8, 1)                  # depth decoder sequences
+    ncb, Va, Vt = cfg.audio_num_codebooks, cfg.audio_vocab_size, cfg.text_vocab_size
+    Nd = n_sub * ncb                        # depth decoder positions
+    f = (6 * N * (transformer_matmul_params(bb) + bb.embed_dim * (Va + Vt))
+         + 12 * bb.num_layers * bb.num_heads * bb.head_dim * S * N
+         + 6 * Nd * (transformer_matmul_params(dec) + bb.embed_dim * dec.embed_dim)
+         + 12 * dec.num_layers * dec.num_heads * dec.head_dim * ncb * Nd
+         + 6 * n_sub * (ncb - 1) * dec.embed_dim * Va)
+    formula = ("6*N*(P_backbone + D*(V_audio + V_text)) + 12*L*H*Dh*S*N "
+               "+ 6*Nd*(P_decoder + D*D_dec) + 12*L_dec*H_dec*Dh_dec*ncb*Nd "
+               "+ 6*n_sub*(ncb-1)*D_dec*V_audio; N = B*S, n_sub = N/8, "
+               "Nd = 16*n_sub; P = matmul parameters (perf."
+               "transformer_matmul_params)")
+    return float(f), formula
+
+
+def loss_and_gnorm(params, cfg, tokens, mask, seed: int, compute_dtype):
+    """One step's loss and gradient norm without the update."""
+    import torch
+    from fireredtts2_tpu_torch.models.lm.model import lm_loss
+    from fireredtts2_tpu_torch.train import step as ts
+
+    gen = ts.depth_generator(seed, 0, tokens.device)
+    out = lm_loss(ts.cast_compute(params, compute_dtype), cfg, tokens, mask, gen)
+    grads = torch.autograd.grad(out["loss"], ts.tree_leaves(params))
+    loss, gnorm = float(out["loss"].detach()), float(ts.global_norm(grads))
+    del out, grads
+    return loss, gnorm
+
+
+def step_times(step, n_warmup: int, n_timed: int, dev) -> tuple[list, list]:
+    """Run step() n_warmup times, then n_timed times each between CUDA
+    events (the host clock in a CPU rehearsal); -> (per-step ms, the
+    metrics of every step)."""
+    import torch
+
+    metrics = [step() for _ in range(n_warmup)]
+    ms = []
+    for _ in range(n_timed):
+        if torch.device(dev).type == "cuda":
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            metrics.append(step())
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        else:
+            t0 = time.perf_counter()
+            metrics.append(step())
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, metrics
+
+
+def reset_peak(dev) -> None:
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_gb(dev) -> float:
+    import torch
+    if torch.device(dev).type != "cuda":
+        return float("nan")
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def train_lm_flagship(dev, card: str, checks: dict, llm_cfg
+                      ) -> tuple[dict, object]:
+    """(a): the LM's train_step on the card; -> (results, the train
+    state)."""
+    import dataclasses
+    import torch
+    from fireredtts2_tpu_torch.models.lm.model import init_lm_params
+    from fireredtts2_tpu_torch.train import loop as tl
+    from fireredtts2_tpu_torch.train import step as ts
+
+    cfg = dataclasses.replace(llm_cfg, train_remat="dots")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    opt = ts.make_optimizer(peak_lr=1e-4, warmup_steps=2, total_steps=1000)
+    state = ts.init_train_state(init_lm_params(gen, cfg, torch.float32, dev), opt)
+    n_params = sum(p.numel() for p in ts.tree_leaves(state.params))
+    data = tl.synthetic_batches(cfg, tl.TrainConfig(batch_size=TRAIN_B,
+                                                    seq_len=TRAIN_S), seed=0)
+    batches = [tuple(torch.from_numpy(a).to(dev) for a in next(data))
+               for _ in range(TRAIN_WARMUP + TRAIN_TIMED)]
+    it = iter(batches)
+
+    def step():
+        tok, msk = next(it)
+        _, m = ts.train_step(state, tok, msk, cfg=cfg, optimizer=opt,
+                             compute_dtype=torch.bfloat16)
+        return {k: float(v) for k, v in m.items()}
+
+    reset_peak(dev)
+    ms, metrics = step_times(step, TRAIN_WARMUP, TRAIN_TIMED, dev)
+    peak = peak_gb(dev)
+    it = iter(batches[-1:])
+    traced_metrics, traced = trace_call(step, dev, top_n=12)
+    metrics.append(traced_metrics)
+    traced.pop("by_name", None)
+    checks["lm_losses_finite"] = all(math.isfinite(m["loss"]) for m in metrics)
+    checks["lm_grad_norms_finite"] = all(math.isfinite(m["grad_norm"])
+                                         for m in metrics)
+    flops, formula = lm_train_flops(cfg, TRAIN_B, TRAIN_S)
+    med = float(np.median(ms))
+
+    # one batch from one state: fp32 vs bf16 compute, and the remat modes
+    tok, msk = batches[-1]
+    bf16 = {}
+    for mode in ("", "full", "dots"):
+        bf16[mode or "none"] = loss_and_gnorm(
+            state.params, dataclasses.replace(cfg, train_remat=mode), tok, msk,
+            7, torch.bfloat16)
+    fp32 = loss_and_gnorm(state.params, cfg, tok, msk, 7, None)
+    base = bf16["none"]
+    checks["lm_remat_losses_bitwise_equal"] = all(
+        v[0] == base[0] for v in bf16.values())
+    checks["lm_remat_grad_norms_close"] = all(
+        abs(v[1] - base[1]) <= GNORM_REMAT_TOL * abs(base[1])
+        for v in bf16.values())
+    checks["lm_fp32_vs_bf16_loss"] = (
+        abs(fp32[0] - bf16["dots"][0]) <= LOSS_FP32_TOL * abs(fp32[0]))
+    res = dict(params=n_params, B=TRAIN_B, S=TRAIN_S, remat="dots",
+               compute="bf16, fp32 masters", step_ms=ms, step_ms_median=med,
+               step_ms_min=min(ms), tokens_per_s=TRAIN_B * TRAIN_S / (med / 1e3),
+               peak_gb=peak, model_flops=flops, flops_formula=formula,
+               mfu=flops / (med / 1e3) / PEAK_BF16,
+               losses=[m["loss"] for m in metrics],
+               grad_norms=[m["grad_norm"] for m in metrics],
+               bf16_by_remat=bf16, fp32=fp32, traced_step=traced, card=card)
+    return res, state
+
+
+def train_codec_flagship(dev, card: str, checks: dict, cfg) -> dict:
+    """(b): the codec's codec_train_step on the card, fp32."""
+    import torch
+    from fireredtts2_tpu_torch.models.codec.model import init_codec_params
+    from fireredtts2_tpu_torch.train import codec_loop as cl
+    from fireredtts2_tpu_torch.train import codec_step as cs
+    from fireredtts2_tpu_torch.train.step import tree_leaves, tree_map
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    opt = cs.make_codec_optimizer(peak_lr=2e-4, warmup_steps=2, total_steps=1000)
+    state = cs.init_codec_train_state(init_codec_params(
+        gen, cfg, torch.float32, dev, semantic_head=True), opt)
+    frozen0 = tree_map(torch.clone, state.frozen)
+    n_params = sum(p.numel() for p in tree_leaves(state.params))
+    data = cl.synthetic_audio_batches(cl.CodecTrainConfig(
+        batch_size=CODEC_B, window_samples=CODEC_WINDOW), seed=0)
+
+    def step():
+        audio, lengths, target = (torch.from_numpy(a).to(dev) for a in next(data))
+        _, m = cs.codec_train_step(state, audio, lengths, target, cfg=cfg,
+                                   optimizer=opt, remat="dots")
+        return {k: float(v) for k, v in m.items()}
+
+    reset_peak(dev)
+    ms, metrics = step_times(step, CODEC_WARMUP, CODEC_TIMED, dev)
+    checks["codec_losses_finite"] = all(
+        math.isfinite(v) for m in metrics for v in m.values())
+    checks["codec_frozen_bitwise_unchanged"] = all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(state.frozen),
+                                          tree_leaves(frozen0)))
+    return dict(trainable_params=n_params, B=CODEC_B, window=CODEC_WINDOW,
+                remat="dots", compute="fp32", step_ms=ms,
+                step_ms_median=float(np.median(ms)), step_ms_min=min(ms),
+                peak_gb=peak_gb(dev), losses=[m["loss"] for m in metrics],
+                card=card)
+
+
+def run_training(dev, card: str, config_dir: str, config=None,
+                 load_overrides=None) -> dict:
+    """Phase 13. (a) The flagship LM trained on the card: random init,
+    fp32 masters, bf16 compute, B=4, S=512, remat "dots", synthetic
+    batches of seed 0, warmup 2, peak lr 1e-4; 2 steps, then 8 timed with
+    CUDA events; on one batch from one state an fp32-compute step's loss
+    within 2% of bf16's, and remat "none" / "full" / "dots" with equal
+    losses and gradient norms within 1e-3. (b) The flagship codec:
+    B=2 2 s windows, fp32, remat "dots", 1 + 4 timed steps, the SSL teacher
+    and mel filters bitwise unchanged. (c) (a)'s state saved with
+    save_checkpoint, exported with `config_dir` (phase 11's DIR: its
+    configs, its codec tree copied) and served by an engine loaded from
+    the export with the serving preset: a 10-frame greedy generate through
+    kernels A, B and C, finite audio, the engine's unquantised leaves equal
+    to the exported masters cast to its dtype. The checkpoint and the
+    export are temporary dirs in the checkout, removed at the end.
+    config: an EngineConfig (default the flagship's) and load_overrides
+    the engine's (llm_overrides, codec_overrides) (default the serving
+    preset), for a rehearsal on the CPU at small widths."""
+    import tempfile
+    import torch
+    from fireredtts2_tpu_torch.engine import FireRedTTS2Engine
+    from fireredtts2_tpu_torch.runtime import checkpoint as ckpt
+    from fireredtts2_tpu_torch.runtime.convert import run_export
+    from fireredtts2_tpu_torch.train import loop as tl
+
+    from fireredtts2_tpu_torch.config import EngineConfig
+
+    config = config or EngineConfig()
+    llm_over, codec_over = load_overrides or (
+        dict(quantize_backbone=True, fused_depth_plan=PRESET), None)
+    t_phase = time.perf_counter()
+    checks: dict = {}
+    res: dict = dict(card=card)
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix=".train_ckpt_", dir=root)
+    try:
+        lm, state = train_lm_flagship(dev, card, checks, config.llm)
+        res["lm"] = lm
+        t0 = time.perf_counter()
+        path = tl.save_checkpoint(os.path.join(work, "lm"), state)
+        res["save_s"] = time.perf_counter() - t0
+        res["ckpt_gb"] = sum(os.path.getsize(os.path.join(path, f))
+                             for f in os.listdir(path)) / 1e9
+        del state
+        torch.cuda.empty_cache()
+        res["lm_phase_s"] = time.perf_counter() - t_phase
+
+        res["codec"] = train_codec_flagship(dev, card, checks, config.codec)
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        out = os.path.join(work, "served")
+        res["export"] = run_export(out, config_dir, lm_ckpt=path)
+        res["export_s"] = time.perf_counter() - t0
+        shutil.rmtree(path)
+        t0 = time.perf_counter()
+        eng = FireRedTTS2Engine(pretrained_dir=out, device=dev,
+                                llm_overrides=llm_over,
+                                codec_overrides=codec_over)
+        _sync()
+        res["load_s"] = time.perf_counter() - t0
+        masters = ckpt.load_params(ckpt.converted_path(out, "llm_posttrain"))
+        names = [k for k, v in eng.lm_params.items()
+                 if torch.is_tensor(v) and k in masters]
+        checks["served_leaves_equal_exported"] = bool(names) and all(
+            torch.equal(eng.lm_params[k], masters[k].to(
+                device=eng.lm_params[k].device, dtype=eng.lm_params[k].dtype))
+            for k in names)
+        res["leaves_compared"] = names
+        del masters
+        reset_counts()
+        t0 = time.perf_counter()
+        audio = eng.generate(TEXT, "[S1]", temperature=1.0, topk=1,
+                             max_audio_length_ms=800, utt_seed=GREEDY_SEED)
+        _sync()
+        res["generate_s"] = time.perf_counter() - t0
+        res["launches"] = read_counts()
+        for k in ("flash_decode_gqa1", "fused_depth_decode",
+                  "flash_decode_update_bounded"):
+            checks[f"served_{k}_launched"] = res["launches"][k] > 0
+        checks["served_audio_finite"] = len(audio) > 0 and bool(
+            np.isfinite(audio).all())
+        res["frames"] = len(audio) // 1920
+        del eng
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res.update(checks=checks, ok=all(checks.values()),
+               phase_s=time.perf_counter() - t_phase)
+    return res
 
 
 def main() -> int:
@@ -3033,6 +3334,48 @@ def main() -> int:
     report["server"] = srv
 
     mark("12")
+    # 13. training at flagship width, then train -> export -> serve
+    try:
+        tr = run_training(dev, card, keep["dir"])
+    finally:
+        shutil.rmtree(keep.pop("dir"), ignore_errors=True)
+    lm, cd = tr["lm"], tr["codec"]
+    log(f"[train lm] {lm['params'] / 1e9:.3f} B parameters, B={lm['B']} "
+        f"S={lm['S']}, {lm['compute']}, remat {lm['remat']}: step ms median "
+        f"{lm['step_ms_median']:.2f}, min {lm['step_ms_min']:.2f} "
+        f"({TRAIN_TIMED} timed after {TRAIN_WARMUP}); {lm['tokens_per_s']:.0f} "
+        f"positions/s; peak memory {lm['peak_gb']:.2f} GB; MFU "
+        f"{lm['mfu']:.4f} ({lm['model_flops']:.4e} model FLOPs a step / "
+        f"median step / {PEAK_BF16:.4g} FLOP/s; FLOPs = {lm['flops_formula']})"
+        f"  [{card}]")
+    ts_ = lm["traced_step"]
+    if ts_:
+        log(f"[train lm] traced step: wall {ts_['wall_s'] * 1e3:.1f} ms, device "
+            f"{ts_['device_s'] * 1e3:.1f} ms, busy share {ts_['busy_share']:.3f}, "
+            f"{ts_['kernel_launches']} CUDA kernel launches  [{card}]")
+        for name, k_ms, n in ts_["top"]:
+            log(f"  {k_ms:9.3f} ms {n:6d} x  {name}")
+    log(f"[train lm] losses {[round(x, 4) for x in lm['losses']]}; grad norms "
+        f"{[round(x, 3) for x in lm['grad_norms']]}; one batch, bf16 (loss, "
+        f"gnorm) by remat {lm['bf16_by_remat']}, fp32 {lm['fp32']}")
+    log(f"[train codec] {cd['trainable_params'] / 1e9:.3f} B trainable, B="
+        f"{cd['B']} x {cd['window']} samples, {cd['compute']}, remat "
+        f"{cd['remat']}: step ms median {cd['step_ms_median']:.2f}, min "
+        f"{cd['step_ms_min']:.2f}; peak memory {cd['peak_gb']:.2f} GB; losses "
+        f"{[round(x, 3) for x in cd['losses']]}  [{card}]")
+    log(f"[train->serve] checkpoint {tr['ckpt_gb']:.2f} GB saved in "
+        f"{tr['save_s']:.1f} s; export {tr['export_s']:.1f} s "
+        f"({tr['export']['exported']}); engine from the export in "
+        f"{tr['load_s']:.1f} s; greedy generate of {tr['frames']} frames in "
+        f"{tr['generate_s']:.2f} s, launches {tr['launches']}; leaves equal "
+        f"to the masters: {tr['leaves_compared']}  [{card}]")
+    log(f"[train] checks: {tr['checks']}; phase {tr['phase_s']:.1f} s")
+    for k, n in tr["launches"].items():
+        main_launches[k] = main_launches.get(k, 0) + n
+    ok &= tr["ok"]
+    report["training"] = tr
+
+    mark("13")
     report["phase_s"] = phase_s
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -7,9 +7,12 @@ Counterpart of ``fireredtts2_tpu/__main__.py``:
                                             --prompt-text "..." --out out.wav
   python -m fireredtts2_tpu_torch serve     --ws-port 8765 --http-port 8080
   python -m fireredtts2_tpu_torch qa        # run the QA scenario suite
+  python -m fireredtts2_tpu_torch train     --model lm --steps 100 --ckpt-dir ckpts
+  python -m fireredtts2_tpu_torch export    --out DIR --config-dir CFG \\
+                                            --lm-ckpt ckpts/step_00000100
 
-The engine runs on the card (``--device cuda``, the default); a CPU run
-asks for it with ``--device cpu``. Without --pretrained-dir a tiny
+The engine and training run on the card (``--device cuda``, the default);
+a CPU run asks for it with ``--device cpu``. Without --pretrained-dir a tiny
 random-weight config is used (dev mode). The serving preset on the card is
 ``--quantize-backbone --fused-depth-plan gate=r8,up=s8,down=s8``.
 
@@ -28,13 +31,12 @@ NOT_PORTED = {
     "--speculative-depth": "item 9 (speculative depth)",
     "--tp": "item 13 (multi-GPU)",
     "--dp": "item 13 (multi-GPU)",
+    "--zero1": "item 13 (multi-GPU)",
     "--profiler-port": "the tracing item (a live profiler endpoint)",
     "--asr": "item 11 (ASR)",
     "--asr-dir": "item 11 (ASR)",
     "--asr-int8": "item 11 (ASR)",
     "bench": "item 1 (bench harness)",
-    "train": "item 12 (training)",
-    "export": "item 12 (training)",
     "convert": "item 11 (ASR: the convert drill's fidelity report)",
 }
 
@@ -149,6 +151,63 @@ def _cmd_qa(args):
     sys.exit(0 if ok else 1)
 
 
+def _cmd_train(args):
+    import os
+
+    if args.zero1:
+        _not_ported("--zero1")
+    for flag, ways in (("--tp", args.train_tp), ("--dp", args.train_dp)):
+        if ways is not None and ways > 1:
+            _not_ported(flag)
+    if args.model == "lm":
+        from fireredtts2_tpu_torch.config import (
+            llm_config_from_json, tiny_engine_config,
+        )
+        from fireredtts2_tpu_torch.train.loop import (
+            TrainConfig, jsonl_batches, train,
+        )
+
+        cfg = (llm_config_from_json(
+                   os.path.join(args.pretrained_dir, "config_llm.json"))
+               if args.pretrained_dir else tiny_engine_config().llm)
+        tcfg = TrainConfig(
+            batch_size=args.batch_size, seq_len=args.seq_len,
+            peak_lr=args.lr, checkpoint_dir=args.ckpt_dir,
+            checkpoint_every=args.ckpt_every, log_every=args.log_every,
+            mixed_precision=args.bf16, eval_every=args.eval_every,
+            metrics_path=args.metrics_path, remat=args.remat,
+            grad_accum=args.grad_accum)
+        data = jsonl_batches(args.data, cfg, tcfg) if args.data else None
+        train(cfg, tcfg, data=data, num_steps=args.steps, seed=args.seed,
+              device=args.device)
+    else:
+        from fireredtts2_tpu_torch.config import (
+            codec_config_from_json, tiny_engine_config,
+        )
+        from fireredtts2_tpu_torch.train.codec_loop import (
+            CodecTrainConfig, train_codec, wav_dir_batches,
+        )
+
+        cfg = (codec_config_from_json(
+                   os.path.join(args.pretrained_dir, "config_codec.json"))
+               if args.pretrained_dir else tiny_engine_config().codec)
+        tcfg = CodecTrainConfig(
+            batch_size=args.batch_size, peak_lr=args.lr,
+            window_samples=args.window_samples,
+            checkpoint_dir=args.ckpt_dir, checkpoint_every=args.ckpt_every,
+            log_every=args.log_every, eval_every=args.eval_every,
+            metrics_path=args.metrics_path, remat=args.remat)
+        data = wav_dir_batches(args.data, tcfg) if args.data else None
+        train_codec(cfg, tcfg, data=data, num_steps=args.steps,
+                    seed=args.seed, device=args.device)
+
+
+def _cmd_export(args):
+    from fireredtts2_tpu_torch.runtime.convert import export_main
+
+    sys.exit(export_main(args))
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="fireredtts2_tpu_torch")
     p.add_argument("--pretrained-dir", default=None,
@@ -157,8 +216,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gen-type", default="dialogue",
                    choices=["dialogue", "monologue"])
     p.add_argument("--device", default="cuda",
-                   help="where the engine runs (default cuda; cpu must be "
-                        "asked for)")
+                   help="where the engine or training runs (default cuda; "
+                        "cpu must be asked for)")
     p.add_argument("--quantize-backbone", action="store_true",
                    help="weight-only int8 backbone")
     p.add_argument("--fused-depth-plan", default=None, metavar="PLAN",
@@ -225,7 +284,58 @@ def build_parser() -> argparse.ArgumentParser:
     q = sub.add_parser("qa", help="run QA scenarios against the engine")
     q.set_defaults(fn=_cmd_qa)
 
-    for name in ("bench", "train", "export", "convert"):
+    t = sub.add_parser(
+        "train", help="train the LM (jsonl token shards) or the codec (wav "
+                      "dir) on one card, with checkpoint/resume")
+    t.add_argument("--model", default="lm", choices=["lm", "codec"])
+    t.add_argument("--data", default=None,
+                   help="lm: jsonl token-shard path; codec: wav directory "
+                        "(default: synthetic smoke batches)")
+    t.add_argument("--steps", type=int, default=100)
+    t.add_argument("--batch-size", type=int, default=8)
+    t.add_argument("--lr", type=float, default=3e-4)
+    t.add_argument("--ckpt-dir", default=None)
+    t.add_argument("--ckpt-every", type=int, default=1000)
+    t.add_argument("--log-every", type=int, default=50)
+    t.add_argument("--eval-every", type=int, default=0)
+    t.add_argument("--metrics-path", default=None,
+                   help="append jsonl train/eval metrics here")
+    t.add_argument("--dp", dest="train_dp", type=int, default=None,
+                   help="above 1: not ported (item 13)")
+    t.add_argument("--tp", dest="train_tp", type=int, default=1,
+                   help="above 1: not ported (item 13)")
+    t.add_argument("--seq-len", type=int, default=256,
+                   help="lm only: training sequence length (frames)")
+    t.add_argument("--window-samples", type=int, default=32_000,
+                   help="codec only: 16 kHz window length (multiple of "
+                        "1280 = one 12.5 Hz token)")
+    t.add_argument("--bf16", action="store_true",
+                   help="lm only: bf16 forward/backward, fp32 master params")
+    t.add_argument("--zero1", action="store_true",
+                   help="not ported (item 13)")
+    t.add_argument("--remat", default="", choices=["", "full", "dots"],
+                   help="per-layer rematerialization (activation memory "
+                        "for recompute; values unchanged)")
+    t.add_argument("--grad-accum", type=int, default=1,
+                   help="lm only: micro-batches accumulated per optimizer "
+                        "update (batch-size must divide evenly)")
+    t.add_argument("--seed", type=int, default=0)
+    t.set_defaults(fn=_cmd_train)
+
+    x = sub.add_parser(
+        "export", help="train checkpoint(s) -> a serving dir of DIR/torch/ "
+                       "trees (closes train -> serve)")
+    x.add_argument("--out", required=True, help="serving dir to write")
+    x.add_argument("--config-dir", required=True,
+                   help="dir holding config_llm.json/config_codec.json "
+                        "(and fallback torch/ trees for unexported families)")
+    x.add_argument("--lm-ckpt", default=None,
+                   help="train.loop step dir (step_XXXXXXXX)")
+    x.add_argument("--codec-ckpt", default=None,
+                   help="train.codec_loop step dir")
+    x.set_defaults(fn=_cmd_export)
+
+    for name in ("bench", "convert"):
         sub.add_parser(name, help=f"not ported ({NOT_PORTED[name]})",
                        add_help=False)
     return p

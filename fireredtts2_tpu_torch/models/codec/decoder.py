@@ -1,10 +1,13 @@
 """Acoustic decoder / streaming vocoder: UpConv, causal Vocos backbone,
 iSTFT head.
 
-Counterpart of ``fireredtts2_tpu/models/codec/decoder.py`` (the causal
-streaming path). Every cache has a fixed shape; the attention cache is a
-preallocated MERGED (L, B, T, H*Dh) slab that kernel C writes in place.
-The small conv and iSTFT caches are replaced by new tensors per chunk.
+Counterpart of ``fireredtts2_tpu/models/codec/decoder.py``: the batch
+decoder (``acoustic_decoder_forward``, causal and non-causal: whole
+utterances, training and offline decode, plain PyTorch as JAX runs it as
+plain XLA) and the causal streaming path. Every streaming cache has a
+fixed shape; the attention cache is a preallocated MERGED (L, B, T, H*Dh)
+slab that kernel C writes in place. The small conv and iSTFT caches are
+replaced by new tensors per chunk.
 Layout: features (B, T, C); convs transpose internally; conv weights keep
 the torch (out, in, k) / transposed-conv (in, out, k) layouts the JAX
 package stores.
@@ -20,11 +23,13 @@ import torch.nn.functional as F
 
 from fireredtts2_tpu_torch.config import AcousticDecoderConfig
 from fireredtts2_tpu_torch.weights import host_to_device
+from fireredtts2_tpu_torch.ops import masks as mask_ops
 from fireredtts2_tpu_torch.ops.stft import (
-    hann_tensor, irfft_frames, overlap_add, window_envelope,
+    hann_tensor, irfft_frames, istft, overlap_add, window_envelope,
 )
 from fireredtts2_tpu_torch.models.codec.whisper_nn import (
-    init_kv_slab, init_whisper_layers, layer_norm, whisper_layers_forward,
+    conv1d as wconv1d, init_kv_slab, init_whisper_layers, layer_norm,
+    whisper_layers_forward,
 )
 
 Params = dict[str, Any]
@@ -50,6 +55,13 @@ def conv_transpose1d(x: torch.Tensor, w: torch.Tensor, stride: int,
     (C_in, C_out, K) -> (B, C_out, (T-1)*stride + K)."""
     y = F.conv_transpose1d(x, w.to(x.dtype), None, stride)
     return y + bias.to(y.dtype)[None, :, None]
+
+
+def causal_conv1d(x: torch.Tensor, p: Params) -> torch.Tensor:
+    """Batch causal conv: left-pad k-1 zeros, then a valid conv (full fp32
+    for fp32 x, ``ops.precision``). x (B, C, T) -> (B, C', T)."""
+    k = p["w"].shape[-1]
+    return wconv1d(F.pad(x, (k - 1, 0)), p, 1, 0)
 
 
 def causal_conv1d_chunk(x: torch.Tensor, p: Params, cache: torch.Tensor
@@ -112,6 +124,15 @@ def init_causal_resnet(gen, dim: int, dtype=torch.float32, device=None
             "conv2": _init_conv1d(gen, dim, dim, 3, dtype, device)}
 
 
+def causal_resnet_forward(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Batch causal resnet block, x (B, T, C)."""
+    h = F.silu(layer_norm(x, p["ln1_w"], p["ln1_b"]))
+    h = causal_conv1d(h.transpose(1, 2), p["conv1"]).transpose(1, 2)
+    h = F.silu(layer_norm(h, p["ln2_w"], p["ln2_b"]))
+    h = causal_conv1d(h.transpose(1, 2), p["conv2"]).transpose(1, 2)
+    return x + h
+
+
 def causal_resnet_chunk(p: Params, x: torch.Tensor, cache1: torch.Tensor,
                         cache2: torch.Tensor):
     h = F.silu(layer_norm(x, p["ln1_w"], p["ln1_b"]))
@@ -126,12 +147,43 @@ def causal_resnet_chunk(p: Params, x: torch.Tensor, cache1: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def group_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               groups: int = 32, eps: float = 1e-6) -> torch.Tensor:
+    """GroupNorm over the channels of (B, C, T), in fp32."""
+    B, C, T = x.shape
+    xf = x.to(torch.float32).reshape(B, groups, C // groups, T)
+    mu = xf.mean(dim=(2, 3), keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=(2, 3), keepdim=True)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).reshape(B, C, T)
+    return (y * w.to(torch.float32)[None, :, None]
+            + b.to(torch.float32)[None, :, None]).to(x.dtype)
+
+
+def init_resnet(gen, dim: int, dtype=torch.float32, device=None) -> Params:
+    """Non-causal resnet block: GroupNorm -> SiLU -> Conv(k3, p1), twice."""
+    def const(value):
+        return torch.full((dim,), value, dtype=dtype, device=device)
+
+    return {"gn1_w": const(1.0), "gn1_b": const(0.0),
+            "conv1": _init_conv1d(gen, dim, dim, 3, dtype, device),
+            "gn2_w": const(1.0), "gn2_b": const(0.0),
+            "conv2": _init_conv1d(gen, dim, dim, 3, dtype, device)}
+
+
+def resnet_forward(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Non-causal resnet block, x (B, T, C)."""
+    h = x.transpose(1, 2)
+    h = wconv1d(F.silu(group_norm(h, p["gn1_w"], p["gn1_b"])), p["conv1"], 1, 1)
+    h = wconv1d(F.silu(group_norm(h, p["gn2_w"], p["gn2_b"])), p["conv2"], 1, 1)
+    return x + h.transpose(1, 2)
+
+
 def init_acoustic_decoder(gen: torch.Generator, cfg: AcousticDecoderConfig,
                           dtype=torch.float32, device=None) -> Params:
-    """Random params of the causal decoder in the JAX tree layout."""
-    if not cfg.causal:
-        raise NotImplementedError("only the causal (streaming) decoder is ported")
+    """Random params of the decoder in the JAX tree layout: causal resnets
+    (LayerNorm) for the causal decoder, GroupNorm ones otherwise."""
     d = cfg.embed_dim
+    resnet = init_causal_resnet if cfg.causal else init_resnet
 
     def w(*shape):
         return (torch.randn(shape, generator=gen, dtype=torch.float32,
@@ -144,15 +196,25 @@ def init_acoustic_decoder(gen: torch.Generator, cfg: AcousticDecoderConfig,
         "up1_w": w(d, d, 3), "up1_b": const(0.0, d),
         "up2_w": w(d, d, 3), "up2_b": const(0.0, d),
         "in_proj": _init_conv1d(gen, d, d, 7, dtype, device),
-        "prior0": init_causal_resnet(gen, d, dtype, device),
-        "prior1": init_causal_resnet(gen, d, dtype, device),
+        "prior0": resnet(gen, d, dtype, device),
+        "prior1": resnet(gen, d, dtype, device),
         "layers": init_whisper_layers(gen, cfg.num_layers, d, 4 * d, dtype,
                                       device),
-        "post0": init_causal_resnet(gen, d, dtype, device),
-        "post1": init_causal_resnet(gen, d, dtype, device),
+        "post0": resnet(gen, d, dtype, device),
+        "post1": resnet(gen, d, dtype, device),
         "final_ln_w": const(1.0, d), "final_ln_b": const(0.0, d),
         "head_w": w(d, cfg.n_fft + 2), "head_b": const(0.0, cfg.n_fft + 2),
     }
+
+
+def _upsample_batch(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """50 -> 100 Hz: ConvT(k3, s2) + GELU + ConvT(k3, s1) + GELU, trimmed
+    to 2T. x (B, T, D) -> (B, 2T, D)."""
+    target = 2 * x.shape[1]
+    h = x.transpose(1, 2)
+    h = F.gelu(conv_transpose1d(h, params["up1_w"], 2, params["up1_b"]))
+    h = F.gelu(conv_transpose1d(h, params["up2_w"], 1, params["up2_b"]))
+    return h.transpose(1, 2)[:, :target]
 
 
 def _head_spectrum(params: Params, x: torch.Tensor):
@@ -163,6 +225,36 @@ def _head_spectrum(params: Params, x: torch.Tensor):
     mag = torch.clamp(torch.exp(pred[:, :F_]), max=1e2)
     phase = pred[:, F_:]
     return mag * torch.cos(phase), mag * torch.sin(phase)
+
+
+def acoustic_decoder_forward(params: Params, cfg: AcousticDecoderConfig,
+                             x: torch.Tensor, lengths: torch.Tensor,
+                             remat: str | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batch decode: x (B, T50, D) 50 Hz latents, lengths at 50 Hz ->
+    ((B, T50 * 2 * hop) audio, lengths * 2 * hop). The causal decoder's
+    attention is 8-block-causal, so batch equals streaming; the non-causal
+    one (same-padded convs, GroupNorm resnets) attends to every non-pad
+    key. `remat` applies per layer to the attention stack."""
+    h = _upsample_batch(params, x)
+    T = h.shape[1]
+    lengths = lengths * 2
+    hc = h.transpose(1, 2)
+    if cfg.causal:
+        hc = causal_conv1d(hc, params["in_proj"]).transpose(1, 2)
+        block = causal_resnet_forward
+        mask = mask_ops.block_causal_mask(lengths, T, VOCODER_CHUNK)
+    else:
+        hc = wconv1d(hc, params["in_proj"], 1, 3).transpose(1, 2)
+        block = resnet_forward
+        mask = mask_ops.nonpad_mask(lengths, T)[:, None, :].expand(-1, T, -1)
+    hc = block(params["prior1"], block(params["prior0"], hc))
+    hc, _ = whisper_layers_forward(params["layers"], cfg.num_heads, hc,
+                                   mask=mask, remat=remat)
+    hc = block(params["post1"], block(params["post0"], hc))
+    hc = layer_norm(hc, params["final_ln_w"], params["final_ln_b"], eps=1e-6)
+    re, im = _head_spectrum(params, hc)
+    return istft(re, im, cfg.n_fft, cfg.hop_length), lengths * cfg.hop_length
 
 
 # ---------------------------------------------------------------------------

@@ -46,14 +46,17 @@ def init_ssl_adaptor(gen: torch.Generator, cfg: SslAdaptorConfig,
 
 
 def ssl_adaptor_forward(params: Params, cfg: SslAdaptorConfig,
-                        x: torch.Tensor, lengths: torch.Tensor
+                        x: torch.Tensor, lengths: torch.Tensor,
+                        remat: str | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x (B, T, in_dim) -> ((B, T, out_dim), lengths); padded keys masked."""
+    """x (B, T, in_dim) -> ((B, T, out_dim), lengths); padded keys masked;
+    `remat` as in ``whisper_nn.whisper_layers_forward``."""
     h = _mm(x, params["in_proj_w"]) + params["in_proj_b"]
     T = h.shape[1]
     valid = torch.arange(T, device=h.device)[None, :] < lengths[:, None]
     h, _ = whisper_layers_forward(params["layers"], cfg.num_heads, h,
-                                  mask=valid[:, None, :].expand(-1, T, -1))
+                                  mask=valid[:, None, :].expand(-1, T, -1),
+                                  remat=remat)
     h = layer_norm(h, params["ln_w"], params["ln_b"])
     return _mm(h, params["out_proj_w"]) + params["out_proj_b"], lengths
 

@@ -6,11 +6,12 @@ Counterpart of ``fireredtts2_tpu/models/codec/model.py``:
   RVQ codes, in 6 s windows (``encode_window``, ``codec_encode``;
   token_length = ceil(samples / 1280));
 - decode: RVQ decode -> UpConv x4 -> streaming acoustic decoder
-  (``codec_decode_chunks``).
+  (``codec_decode_chunks``), or the batch decoder over the whole
+  utterance (``codec_decode``, offline).
 The encode runs on fp32 log-mels, so its activations are fp32 whatever the
 weights' dtype, every fp32 product in full fp32 (``ops.precision``). The
-semantic decoder (the SSL reconstruction head) serves training only and is
-not in the tree.
+semantic decoder (the SSL reconstruction head) serves training only: it is
+in the tree only when training asks for it.
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ from fireredtts2_tpu_torch.models.codec.rvq import (
     init_rvq_params, rvq_decode, rvq_encode,
 )
 from fireredtts2_tpu_torch.models.codec.decoder import (
-    VocoderStreamState, init_acoustic_decoder, init_upconv,
-    stream_decode_scan, stream_state_init, upconv_forward,
+    VocoderStreamState, acoustic_decoder_forward, init_acoustic_decoder,
+    init_upconv, stream_decode_scan, stream_state_init, upconv_forward,
 )
 from fireredtts2_tpu_torch.models.codec.whisper_nn import (
     init_whisper_encoder, whisper_encoder_forward,
@@ -47,18 +48,20 @@ def _next_pow2(n: int) -> int:
 
 
 def init_codec_params(gen: torch.Generator, cfg: CodecConfig,
-                      dtype=torch.float32, device=None) -> Params:
+                      dtype=torch.float32, device=None,
+                      semantic_head: bool = False) -> Params:
     """Random params in the JAX tree layout: the decode side ("rvq",
     "upsample", "acoustic_decoder") drawn first, then the encoders ("ssl",
     "ssl_adaptor", "acoustic_encoder", "downsample"), plus the host-built
-    fp32 "mel_filters"."""
+    fp32 "mel_filters"; with semantic_head, training's "semantic_decoder"
+    drawn last."""
     def encoder(c):
         return init_whisper_encoder(gen, c.in_dim, c.embed_dim, c.num_layers,
                                     c.num_heads, c.resolved_ffn_dim,
                                     c.max_positions, dtype, device)
 
     m = cfg.mel
-    return {
+    params = {
         "rvq": init_rvq_params(gen, cfg.rvq, dtype, device),
         "upsample": init_upconv(gen, cfg.upsample_embed_dim,
                                 cfg.upsample_stride, dtype, device),
@@ -72,6 +75,10 @@ def init_codec_params(gen: torch.Generator, cfg: CodecConfig,
         "mel_filters": torch.from_numpy(whisper_mel_filters(
             m.num_mels, m.n_fft, m.sampling_rate, m.fmin, m.fmax)).to(device),
     }
+    if semantic_head:
+        params["semantic_decoder"] = init_ssl_adaptor(
+            gen, cfg.semantic_decoder, dtype, device)
+    return params
 
 
 def _mel(params: Params, cfg: CodecConfig, audio16k: torch.Tensor,
@@ -162,16 +169,34 @@ def codec_encode(params: Params, cfg: CodecConfig, audio16k: np.ndarray,
     return out, token_lengths
 
 
+def _upsampled(params: Params, cfg: CodecConfig, tokens: torch.Tensor
+               ) -> torch.Tensor:
+    """tokens (B, nq, L) -> the decoder's 50 Hz input (B, 4L, D)."""
+    feats = rvq_decode(params["rvq"], cfg.rvq, tokens.permute(1, 0, 2))
+    dtype = params["upsample"]["in_proj_w"].dtype
+    return upconv_forward(params["upsample"], cfg.upsample_stride,
+                          feats.to(dtype))
+
+
+def codec_decode(params: Params, cfg: CodecConfig, tokens: torch.Tensor
+                 ) -> torch.Tensor:
+    """Batch decode of whole utterances: tokens (B, nq, L) -> (B, L * 1920)
+    audio at 24 kHz, through the batch decoder (no gradients kept)."""
+    with torch.no_grad():
+        up = _upsampled(params, cfg, tokens)
+        lengths = torch.full((tokens.shape[0],), up.shape[1],
+                             dtype=torch.int32, device=up.device)
+        audio, _ = acoustic_decoder_forward(params["acoustic_decoder"],
+                                            cfg.acoustic_decoder, up, lengths)
+    return audio
+
+
 def codec_decode_chunks(params: Params, cfg: CodecConfig, tokens: torch.Tensor):
     """Bucket-safe decode: tokens (B, nq, Lpad) -> (middles (L, B, 1920),
     tails (L, B, 360)) with exact streaming semantics, assembled for any
     true length T <= Lpad by :func:`assemble_chunks`."""
-    codes = tokens.permute(1, 0, 2)
-    feats = rvq_decode(params["rvq"], cfg.rvq, codes)
-    dtype = params["upsample"]["in_proj_w"].dtype
-    up = upconv_forward(params["upsample"], cfg.upsample_stride,
-                        feats.to(dtype))
-    return stream_decode_scan(params["acoustic_decoder"], cfg.acoustic_decoder, up)
+    return stream_decode_scan(params["acoustic_decoder"], cfg.acoustic_decoder,
+                              _upsampled(params, cfg, tokens))
 
 
 def assemble_chunks(middles: np.ndarray, tails: np.ndarray, T: int,

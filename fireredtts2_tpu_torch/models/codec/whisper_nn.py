@@ -29,6 +29,7 @@ from fireredtts2_tpu_torch.ops.attention import mha_attention
 from fireredtts2_tpu_torch.ops.flash_decode import flash_decode_update_bounded
 from fireredtts2_tpu_torch.ops.precision import pconv1d
 from fireredtts2_tpu_torch.ops.quant import quantize_tree, quantized_matmul
+from fireredtts2_tpu_torch.ops.remat import remat_layer
 
 Params = dict[str, Any]
 
@@ -131,19 +132,24 @@ def whisper_layers_forward(params: Params, num_heads: int, h: torch.Tensor,
                            cache_pos: torch.Tensor | None = None,
                            q_end: torch.Tensor | None = None, live_hi=None,
                            mask: torch.Tensor | None = None,
+                           remat: str | None = None,
                            ) -> tuple[torch.Tensor, dict[str, torch.Tensor] | None]:
     """Run the layer stack.
 
     Without a cache: stateless, every layer attends over the whole window
-    under `mask` (B, S, S) (the encoders). With one: slab decode. cache:
+    under `mask` (B, S, S) (the encoders, the batch decoder, training),
+    each layer under ``ops.remat`` when `remat` names a mode ("full",
+    "dots"; values unchanged). With one: slab decode. cache:
     (L, B, T, H*Dh) k/v slabs (updated in place); cache_pos (B,) int32
     per-stream write slots; q_end (B, S) exclusive per-query bounds;
     live_hi the batch's max live slot (every query must see >= 1 slot)."""
     L = params["wq"].shape[0]
     if cache is None:
-        for layer in range(L):
-            h = _whisper_layer(h, {name: t[layer] for name, t in params.items()},
-                               num_heads, mask)
+        body = remat_layer(_whisper_layer, remat) if remat else _whisper_layer
+        # one unbind per stacked leaf (its backward stacks the gradients
+        # once; a slice per layer would add L zero-padded ones)
+        for per_layer in zip(*(t.unbind(0) for t in params.values())):
+            h = body(h, dict(zip(params, per_layer)), num_heads, mask)
         return h, None
     assert cache_pos.ndim == 1, "slab decode needs (B,) positions"
     for layer in range(L):
@@ -206,11 +212,13 @@ def init_whisper_encoder(gen: torch.Generator, in_dim: int, embed_dim: int,
 
 
 def whisper_encoder_forward(params: Params, num_heads: int, mel: torch.Tensor,
-                            mel_lengths: torch.Tensor
+                            mel_lengths: torch.Tensor,
+                            remat: str | None = None,
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """mel (B, T, n_mels) -> ((B, T//2, D), lengths // 2): two GELU convs
     (k3 p1; k3 s2 p1), sinusoid positions, the layers with padded keys
-    masked out, a final layer norm."""
+    masked out (each under ``ops.remat`` with `remat`), a final layer
+    norm."""
     x = mel.transpose(1, 2)                              # (B, n_mels, T)
     x = F.gelu(conv1d(x, params["conv1"], 1, 1))
     x = F.gelu(conv1d(x, params["conv2"], 2, 1))
@@ -220,5 +228,6 @@ def whisper_encoder_forward(params: Params, num_heads: int, mel: torch.Tensor,
     T = x.shape[1]
     valid = torch.arange(T, device=x.device)[None, :] < lengths[:, None]
     mask = valid[:, None, :].expand(-1, T, -1)           # keys masked
-    h, _ = whisper_layers_forward(params["layers"], num_heads, x, mask=mask)
+    h, _ = whisper_layers_forward(params["layers"], num_heads, x, mask=mask,
+                                  remat=remat)
     return layer_norm(h, params["ln_w"], params["ln_b"]), lengths

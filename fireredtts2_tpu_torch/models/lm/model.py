@@ -1,9 +1,9 @@
 """Dual-transformer text-speech LM (backbone + depth decoder): the main
 generation path.
 
-Counterpart of ``fireredtts2_tpu/models/lm/model.py`` (generation subset,
-append-prefill, rewind and the continuous batcher's slot admission
-included: no training loss or speculative depth). With a fused-depth plan and a ``depth_chain`` bundle
+Counterpart of ``fireredtts2_tpu/models/lm/model.py`` (generation,
+append-prefill, rewind, the continuous batcher's slot admission and the
+training loss ``lm_loss``; no speculative depth). With a fused-depth plan and a ``depth_chain`` bundle
 in the tree the depth decode is one launch of kernel B per frame
 (``ops.depth_chain``).
 Frames interleave audio_num_codebooks audio columns and one text column;
@@ -85,7 +85,23 @@ def init_lm_params(gen: torch.Generator, cfg: LLMConfig, dtype=torch.float32,
         # (ncb-1, D_dec, V_audio), as the JAX tree stores it
         "audio_head": lin(dec.embed_dim, (ncb - 1) * V)
         .reshape(dec.embed_dim, ncb - 1, V).permute(1, 0, 2).contiguous(),
+        **({"depth_draft": init_draft_head(gen, cfg, dtype, device)}
+           if cfg.depth_draft_head else {}),
     }
+
+
+def init_draft_head(gen: torch.Generator, cfg: LLMConfig, dtype=torch.float32,
+                    device=None) -> Params:
+    """The MTP-style draft head lm_loss trains when the tree has one: a
+    trunk from [last_h, embed(c0)] (uniform +-1/sqrt(2 D_backbone)) plus
+    zero per-position offsets, decoded through the audio heads."""
+    bb, dec = cfg.backbone, cfg.decoder
+    bound = 1.0 / math.sqrt(2 * bb.embed_dim)
+    u = torch.rand((2 * bb.embed_dim, dec.embed_dim), generator=gen,
+                   dtype=torch.float32, device=device)
+    return {"trunk": ((u * 2.0 - 1.0) * bound).to(dtype),
+            "pos": torch.zeros((cfg.audio_num_codebooks - 1, dec.embed_dim),
+                               dtype=dtype, device=device)}
 
 
 KV_ALIGN = 512
@@ -454,3 +470,127 @@ def lm_generate_loop(params: Params, cfg: LLMConfig, state: LMState,
         all_done = bool(done.all())
         t += 1
     return state, buf, n_frames
+
+
+# ---------------------------------------------------------------------------
+# Training loss
+# ---------------------------------------------------------------------------
+
+
+def _masked_ce(logits: torch.Tensor, targets: torch.Tensor,
+               weights: torch.Tensor) -> torch.Tensor:
+    """Weighted mean cross-entropy in fp32."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None].to(torch.int64))[..., 0]
+    w = weights.to(torch.float32)
+    return (nll * w).sum() / w.sum().clamp(min=1.0)
+
+
+def _roll_left(x: torch.Tensor) -> torch.Tensor:
+    """x shifted one position left along dim 1 (the last wraps to the end,
+    as jnp.roll(x, -1, axis=1))."""
+    return torch.roll(x, -1, dims=1)
+
+
+def lm_loss(params: Params, cfg: LLMConfig, tokens: torch.Tensor,
+            tokens_mask: torch.Tensor, gen: torch.Generator | None = None,
+            depth_indices: torch.Tensor | None = None
+            ) -> dict[str, torch.Tensor]:
+    """Training loss of the JAX package's lm_loss (the reference model's
+    forward).
+
+    Args:
+        tokens: (B, S, C+1) int interleaved frames; tokens_mask the same
+            shape, bool.
+        gen: the generator of the depth decoder's random subset of
+            (B*S)//8 positions, on the tokens' device.
+        depth_indices: (N,) flat B*S positions that replace the draw.
+
+    Returns dict(loss, text_loss, c0_loss, depth_loss), with draft_loss
+    when the tree has a ``depth_draft`` head. Logits and losses are fp32.
+    """
+    bb_cfg, dec_cfg = cfg.backbone, cfg.decoder
+    B, S, _ = tokens.shape
+    ncb, V = cfg.audio_num_codebooks, cfg.audio_vocab_size
+    dtype, dev = params["projection"].dtype, tokens.device
+    tokens = tokens.to(torch.int64)
+    tokens_mask = tokens_mask.to(torch.bool)
+
+    h = frame_hidden(params, cfg, tokens, tokens_mask, dtype)
+    audio_mask = tokens_mask[:, :, 0]
+    text_mask = tokens_mask[:, :, -1]
+    padding_mask = audio_mask | text_mask
+
+    # causal over non-pad positions, plus self
+    causal = mask_ops.causal_mask(S, dev)[None]
+    pair = padding_mask[:, :, None] & padding_mask[:, None, :]
+    attn = (causal & pair) | torch.eye(S, dtype=torch.bool, device=dev)[None]
+    positions = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    remat = cfg.train_remat or None
+    h_out, _ = transformer_forward(params["backbone"], bb_cfg, h, positions,
+                                   attn, remat=remat)
+    h32 = h_out.to(torch.float32)
+
+    # codebook 0: position p predicts the audio frame at p + 1
+    c0_pred_mask = _roll_left(audio_mask)
+    c0_pred_mask[:, -1] = False
+    c0_logits = h32 @ params["codebook0_head"].to(torch.float32)
+    c0_loss = _masked_ce(c0_logits, _roll_left(tokens[:, :, 0]), c0_pred_mask)
+
+    # text: positions whose next token is text predict it; id 0 is ignored
+    text_target_mask = _roll_left(text_mask)
+    text_target_mask[:, -1] = False
+    text_targets = _roll_left(tokens[:, :, -1])
+    text_logits = h32 @ params["text_head"].to(torch.float32)
+    text_loss = _masked_ce(text_logits, text_targets,
+                           text_target_mask & (text_targets != 0))
+
+    # the depth decoder on a random subset of the audio positions
+    flat_w = c0_pred_mask.reshape(-1).to(torch.float32)
+    if depth_indices is not None:
+        idx = depth_indices.to(device=dev, dtype=torch.int64)
+    else:
+        # with no weighted position the draw is uniform; its picks weigh 0
+        probs = torch.where(flat_w.sum() > 0, flat_w, torch.ones_like(flat_w))
+        idx = torch.multinomial(probs, max(B * S // 8, 1), replacement=True,
+                                generator=gen)
+    n_sub = idx.shape[0]
+    sub_w = flat_w[idx]
+    sub_h = h_out.reshape(B * S, -1)[idx]
+    sub_frame = _roll_left(tokens).reshape(B * S, -1)[idx]
+
+    # depth input: [h, embed(c_0), ..., embed(c_{ncb-2})]
+    offs = torch.arange(ncb - 1, device=dev) * V
+    c_embeds = params["audio_embeddings"][sub_frame[:, :ncb - 1] + offs]
+    dec_in = torch.cat([sub_h[:, None, :], c_embeds.to(dtype)], dim=1) \
+        @ params["projection"]
+    dec_pos = torch.arange(ncb, dtype=torch.int32, device=dev).expand(n_sub, ncb)
+    dec_attn = mask_ops.causal_mask(ncb, dev).expand(n_sub, ncb, ncb)
+    dec_h, _ = transformer_forward(params["decoder"], dec_cfg, dec_in, dec_pos,
+                                   dec_attn, remat=remat)
+    # position i (1..ncb-1) predicts codebook i through audio_head[i-1]
+    heads = params["audio_head"].to(torch.float32)
+    dep_logits = torch.einsum("nsd,sdv->nsv", dec_h[:, 1:].to(torch.float32),
+                              heads)
+    dep_targets = sub_frame[:, 1:ncb]
+    dep_w = sub_w[:, None].expand_as(dep_targets)
+    depth_loss = _masked_ce(dep_logits, dep_targets, dep_w)
+
+    w = cfg.decoder_loss_weight
+    loss = 2.0 * ((1.0 - w) * c0_loss + w * depth_loss)
+    if cfg.use_text_loss:
+        loss = loss + 0.01 * text_loss
+    out = {"loss": loss, "text_loss": text_loss, "c0_loss": c0_loss,
+           "depth_loss": depth_loss}
+
+    # the draft head's CE on the same subset
+    if "depth_draft" in params:
+        dh = params["depth_draft"]
+        e0 = params["audio_embeddings"][sub_frame[:, 0]].to(dtype)
+        trunk = torch.cat([sub_h.to(dtype), e0], dim=-1) @ dh["trunk"]
+        hp = trunk[:, None, :] + dh["pos"][None]
+        draft_logits = torch.einsum("nsd,sdv->nsv", hp.to(torch.float32), heads)
+        draft_loss = _masked_ce(draft_logits, dep_targets, dep_w)
+        out["draft_loss"] = draft_loss
+        out["loss"] = loss + cfg.draft_loss_weight * draft_loss
+    return out

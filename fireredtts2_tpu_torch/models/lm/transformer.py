@@ -4,7 +4,9 @@ Counterpart of ``fireredtts2_tpu/models/lm/transformer.py``. Parameters keep
 the JAX layout: layer weights stacked on a leading L axis, matmul weights
 (in, out). The KV cache is a preallocated MERGED (L, B, T, Hkv*Dh) slab
 pair; where the JAX package threads the slabs through its layer scan as a
-carry, this port writes the fresh rows into them IN PLACE.
+carry, this port writes the fresh rows into them IN PLACE. Without a cache
+the stack runs stateless (training's forward), each layer optionally under
+``ops.remat``.
 
 Routing inside a cached layer:
 - S > 1 (prefill) and the depth decoder's small cache: dense masked
@@ -28,6 +30,7 @@ from fireredtts2_tpu_torch.config import TransformerConfig
 from fireredtts2_tpu_torch.ops.attention import gqa_attention
 from fireredtts2_tpu_torch.ops.flash_decode import flash_decode_gqa1
 from fireredtts2_tpu_torch.ops.quant import quantize_tree, quantized_matmul
+from fireredtts2_tpu_torch.ops.remat import remat_layer
 from fireredtts2_tpu_torch.ops.rope import apply_rope, rope_angles
 
 Params = dict[str, Any]
@@ -115,6 +118,30 @@ def slab_write_rows(cache_pos: torch.Tensor, S: int, T: int
     return torch.where(keep, rows, (T - S) + ar[None] - n_keep), keep
 
 
+def _qkv(h: torch.Tensor, lp: Params, cfg: TransformerConfig,
+         cos: torch.Tensor, sin: torch.Tensor):
+    """The layer's pre-norm and roped q, k and v, (B, S, H, Dh)."""
+    B, S, _ = h.shape
+    Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
+    q = (quantized_matmul(x, lp, "wq") + lp["bq"]).reshape(B, S, Hq, Dh)
+    k = (quantized_matmul(x, lp, "wk") + lp["bk"]).reshape(B, S, Hkv, Dh)
+    v = (quantized_matmul(x, lp, "wv") + lp["bv"]).reshape(B, S, Hkv, Dh)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _out_mlp(h: torch.Tensor, attn: torch.Tensor, lp: Params,
+             cfg: TransformerConfig) -> torch.Tensor:
+    """The attention output projection and the SwiGLU MLP, residuals
+    included."""
+    B, S, _ = h.shape
+    h = h + quantized_matmul(attn.reshape(B, S, -1), lp, "wo").to(h.dtype)
+    x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
+    gate = F.silu(quantized_matmul(x, lp, "w_gate").to(torch.float32)).to(h.dtype)
+    up = quantized_matmul(x, lp, "w_up")
+    return h + quantized_matmul(gate * up, lp, "w_down").to(h.dtype)
+
+
 def _layer(h: torch.Tensor, lp: Params, cfg: TransformerConfig,
            cos: torch.Tensor, sin: torch.Tensor, mask: Optional[torch.Tensor],
            k4: torch.Tensor, v4: torch.Tensor, layer: int, cache_pos,
@@ -125,14 +152,8 @@ def _layer(h: torch.Tensor, lp: Params, cfg: TransformerConfig,
     slabs' current values at those rows, from :func:`slab_write_rows`),
     then attention reads the slab."""
     B, S, _ = h.shape
-    Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-
-    x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-    q = (quantized_matmul(x, lp, "wq") + lp["bq"]).reshape(B, S, Hq, Dh)
-    k = (quantized_matmul(x, lp, "wk") + lp["bk"]).reshape(B, S, Hkv, Dh)
-    v = (quantized_matmul(x, lp, "wv") + lp["bv"]).reshape(B, S, Hkv, Dh)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    Hkv, Dh = cfg.num_kv_heads, cfg.head_dim
+    q, k, v = _qkv(h, lp, cfg, cos, sin)
 
     kw = k.reshape(B, S, Hkv * Dh).to(k4.dtype)
     vw = v.reshape(B, S, Hkv * Dh).to(v4.dtype)
@@ -153,35 +174,57 @@ def _layer(h: torch.Tensor, lp: Params, cfg: TransformerConfig,
         attn = gqa_attention(
             q, k4[layer].reshape(B, T, Hkv, Dh).to(h.dtype),
             v4[layer].reshape(B, T, Hkv, Dh).to(h.dtype), mask)
+    return _out_mlp(h, attn, lp, cfg)
 
-    h = h + quantized_matmul(attn.reshape(B, S, Hq * Dh), lp, "wo").to(h.dtype)
-    x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
-    gate = F.silu(quantized_matmul(x, lp, "w_gate").to(torch.float32)).to(h.dtype)
-    up = quantized_matmul(x, lp, "w_up")
-    return h + quantized_matmul(gate * up, lp, "w_down").to(h.dtype)
+
+def _layer_stateless(h: torch.Tensor, lp: Params, cfg: TransformerConfig,
+                     cos: torch.Tensor, sin: torch.Tensor,
+                     mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """One layer without a cache: attention over this call's own K/V
+    (plain ``gqa_attention``, as JAX runs it as plain XLA)."""
+    q, k, v = _qkv(h, lp, cfg, cos, sin)
+    return _out_mlp(h, gqa_attention(q, k, v, mask), lp, cfg)
 
 
 def transformer_forward(params: Params, cfg: TransformerConfig,
                         h: torch.Tensor, positions: torch.Tensor,
-                        mask: Optional[torch.Tensor], cache: KVCache,
-                        cache_pos, live_window: Optional[tuple] = None,
-                        ) -> tuple[torch.Tensor, KVCache]:
-    """Run the decoder stack over a KV cache (the stateless training
-    forward comes with training).
+                        mask: Optional[torch.Tensor] = None,
+                        cache: Optional[KVCache] = None, cache_pos=None,
+                        live_window: Optional[tuple] = None,
+                        remat: Optional[str] = None,
+                        ) -> tuple[torch.Tensor, Optional[KVCache]]:
+    """Run the decoder stack.
 
     Args:
         h: (B, S, D) input embeddings; positions: (B, S) RoPE positions.
-        mask: bool (B, S, T_max) slab rows, True = attend. Unused (None) for
-            S = 1 with a live window.
-        cache: KV slabs from :func:`init_kv_cache`, updated in place.
+        mask: bool, True = attend. Without a cache (B, S, S); with one
+            (B, S, T_max) slab rows, unused (None) for S = 1 with a live
+            window.
+        cache: KV slabs from :func:`init_kv_cache`, updated in place; None
+            = the stateless forward (training), which returns no cache.
         cache_pos: int or (B,) tensor, the slot of this call's first token;
             with a tensor, rows at or past the slab's end are dropped.
         live_window: ((B,) start, (B,) end) live region of each stream's
             slab; with S = 1 attention runs in kernel A over it.
+        remat: "full" | "dots" | None, per-layer rematerialization of the
+            stateless forward (``ops.remat``); values are unchanged.
     Returns:
-        (h_out (B, S, D) after the final norm, the cache).
+        (h_out (B, S, D) after the final norm, the cache or None).
     """
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_base)
+    # one unbind per stacked leaf: its backward stacks the layers' gradients
+    # once, where a slice per layer would add L full-size zero-padded ones
+    names = [n for n in params if n != "final_norm"]
+    layers = [dict(zip(names, per_layer)) for per_layer in
+              zip(*(params[n].unbind(0) for n in names))]
+    if cache is None:
+        body = _layer_stateless
+        if remat:
+            body = remat_layer(body, remat)
+        for lp in layers:
+            h = body(h, lp, cfg, cos, sin, mask)
+        return rms_norm(h, params["final_norm"], cfg.norm_eps), None
+
     bounded = None
     if live_window is not None and h.shape[1] == 1:
         start, end = live_window
@@ -194,9 +237,7 @@ def transformer_forward(params: Params, cfg: TransformerConfig,
         rows, keep = slab_write_rows(cache_pos, S, k4.shape[2])
         bidx = torch.arange(B, device=h.device)[:, None]
         write = (bidx, rows, keep, k4[:, bidx, rows], v4[:, bidx, rows])
-    for layer in range(cfg.num_layers):
-        lp = {name: t[layer] for name, t in params.items()
-              if name != "final_norm"}
+    for layer, lp in enumerate(layers):
         h = _layer(h, lp, cfg, cos, sin, mask, k4, v4, layer, cache_pos,
                    bounded, write)
     return rms_norm(h, params["final_norm"], cfg.norm_eps), cache

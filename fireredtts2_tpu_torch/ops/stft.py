@@ -3,8 +3,9 @@ convolutions, no FFT primitive.
 
 Counterpart of ``fireredtts2_tpu/ops/stft.py``: the mel frontend's forward
 STFT (``stft_power``: reflect pad, then the windowed DFT as one strided
-conv over the basis) and what the streaming vocoder uses (a matmul inverse
-DFT, overlap-add and the window envelope). The bases are built once in
+conv over the basis), what the streaming vocoder uses (a matmul inverse
+DFT, overlap-add and the window envelope) and the batch decoder's
+``istft``. The bases are built once in
 float64 numpy, exactly as the JAX package builds them, and cached per
 device; the products follow ``ops.precision`` (full fp32 for fp32
 operands), as JAX runs them at ``Precision.HIGHEST``.
@@ -60,11 +61,14 @@ _TENSORS: dict[tuple, torch.Tensor] = {}
 
 
 def _const(name: str, n_fft: int, build, dtype, device) -> torch.Tensor:
-    """Cached device copy of a host-built constant."""
+    """Cached device copy of a host-built constant. It is made outside
+    inference mode even when first asked for inside it (serving), so that
+    training's autograd may save it for backward later in the process."""
     key = (name, n_fft, dtype, str(device))
     t = _TENSORS.get(key)
     if t is None:
-        t = torch.as_tensor(build()).to(device=device, dtype=dtype)
+        with torch.inference_mode(False):
+            t = torch.as_tensor(build()).to(device=device, dtype=dtype)
         _TENSORS[key] = t
     return t
 
@@ -125,3 +129,20 @@ def window_envelope(n_fft: int, hop_length: int, num_frames: int,
                            hop_length)[0]
     return _const(f"env{hop_length}x{num_frames}", n_fft, build, dtype, device)
 
+
+
+def istft(spec_re: torch.Tensor, spec_im: torch.Tensor, n_fft: int,
+          hop_length: int) -> torch.Tensor:
+    """Batch iSTFT with "same" padding (win = n_fft), hann window:
+    (B, F, T) real and imaginary parts -> (B, T * hop) waveform, trimmed
+    by (n_fft - hop)//2 on each side. The envelope is clamped at 1e-11:
+    a periodic hann window is 0 at its first sample, so its very edges
+    are 0 (inside the trimmed region)."""
+    w = hann_tensor(n_fft, spec_re.dtype, spec_re.device)
+    frames = irfft_frames(spec_re, spec_im, n_fft) * w[None, :, None]
+    y = overlap_add(frames, hop_length)
+    env = window_envelope(n_fft, hop_length, spec_re.shape[-1], dtype=y.dtype,
+                          device=y.device)
+    y = y / torch.clamp(env[None, :], min=1e-11)
+    pad = (n_fft - hop_length) // 2
+    return y[:, pad:-pad]

@@ -1,7 +1,8 @@
 """Performance budget of the port.
 
-Counterpart of ``fireredtts2_tpu/runtime/perf.py: load_perf_budget``. The
-rest of that module (the jitted LM timing, the roofline accounting, the
+Counterpart of ``fireredtts2_tpu/runtime/perf.py: load_perf_budget`` and
+its matmul parameter count (the training FLOP count). The rest of that
+module (the jitted LM timing, the roofline accounting, the
 ``jax.profiler`` hooks) has no port yet.
 """
 
@@ -10,6 +11,8 @@ from __future__ import annotations
 import json
 import os
 from typing import Any
+
+from fireredtts2_tpu_torch.config import TransformerConfig
 
 DEFAULT_BUDGET = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -32,3 +35,15 @@ def load_perf_budget() -> dict[str, Any]:
         return {}
     with open(path) as f:
         return json.load(f)
+
+
+def transformer_layer_params(cfg: TransformerConfig) -> int:
+    """Matmul parameters of one layer (norms and biases excluded)."""
+    D, I = cfg.embed_dim, cfg.intermediate_dim
+    attn = D * (cfg.num_heads * cfg.head_dim) * 2 \
+        + D * (cfg.num_kv_heads * cfg.head_dim) * 2
+    return attn + 3 * D * I
+
+
+def transformer_matmul_params(cfg: TransformerConfig) -> int:
+    return cfg.num_layers * transformer_layer_params(cfg)

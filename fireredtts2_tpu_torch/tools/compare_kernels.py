@@ -27,7 +27,8 @@ and writes every result to ``--out``. Needs a CUDA device.
 ``generate`` among ``--kernels`` (not in the default) also traces the
 serving preset's ``generate`` of 10 frames at flagship width (random
 weights, after a warm-up call) in each run: CUDA launches, device time, and
-kernel A's time and launches by name (``gqa1``).
+kernel A's time and launches by name (``gqa1``); then times chip_smoke's
+untraced 50-frame ``generate``: the LM's ms per frame and the offline RTF.
 """
 
 from __future__ import annotations
@@ -104,6 +105,16 @@ if "generate" in kernels:
         launches=len(ev), kernel_a_launches=len(a),
         ms=sum(e.time_range.elapsed_us() for e in a) / 1e3)]
     out["generate"][0]["kernel_a_share"] = out["generate"][0]["ms"] / device_ms
+    # untraced: chip_smoke's 50-frame generate, the LM's host-clock ms/frame
+    t0 = time.perf_counter()
+    audio = eng.generate(cs.TEXT, "[S1]", max_audio_length_ms=4000, utt_seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = eng.last_stats
+    out["generate"][0].update(
+        lm_ms_per_frame=st["lm_s"] / max(st["frames"], 1) * 1e3,
+        offline_rtf=len(audio) / eng.output_sample_rate / wall,
+        untraced_frames=st["frames"])
     del eng
 print("RESULT " + json.dumps(out, default=str), flush=True)
 """
@@ -169,7 +180,11 @@ def main(argv=None) -> int:
                     f"{label} kernel A {r['ms']:.3f} ms of {r['device_ms']:.3f} "
                     f"device ms ({r['kernel_a_share']:.4f}) in "
                     f"{r['kernel_a_launches']} launches, {r['launches']} CUDA "
-                    f"launches over {r['frames']} frames"
+                    f"launches over {r['frames']} frames, wall "
+                    f"{r['wall_ms']:.1f} ms; untraced LM "
+                    f"{r['lm_ms_per_frame']:.2f} ms/frame over "
+                    f"{r['untraced_frames']} frames, offline RTF "
+                    f"{r['offline_rtf']:.3f}"
                     for label, res in runs for r in res[k]), flush=True)
                 continue
             print(f"kernel {k.upper()} {dict(want)}: " + "; ".join(row)

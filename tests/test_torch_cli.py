@@ -4,7 +4,8 @@
   server: every method (REST, chunked stream, WebSocket stream and
   dialogue, the OpenAI routes, voices, conversations, admin reload);
 - ``python -m fireredtts2_tpu_torch --device cpu`` generate, monologue,
-  qa and serve (a subprocess answering over its sockets);
+  qa and serve (a subprocess answering over its sockets), train (the LM
+  and the codec) and export;
 - the entry point's defaults: the card unless --device cpu is given, and
   every flag or subcommand of the JAX CLI without a port exits non-zero
   naming its ROADMAP item.
@@ -176,8 +177,8 @@ def test_cli_serve_answers_over_sockets(tmp_path):
     (["serve", "--asr-dir", "/x"], "item 11"),
     (["serve", "--profiler-port", "9999"], "tracing item"),
     (["bench"], "item 1 "),
-    (["train", "--model", "lm"], "item 12"),
-    (["export", "--out", "x"], "item 12"),
+    (["train", "--zero1"], "item 13"),
+    (["train", "--tp", "2"], "item 13"),
     (["convert"], "item 11"),
 ])
 def test_cli_unported_flags_exit_nonzero(argv, item):
@@ -185,6 +186,42 @@ def test_cli_unported_flags_exit_nonzero(argv, item):
         cli.main(["--device", "cpu"] + argv)
     assert e.value.code not in (0, None)
     assert "no port yet" in str(e.value.code) and item in str(e.value.code)
+
+
+def test_cli_train_and_export(tmp_path, capsys):
+    """train --model lm and --model codec, 2 steps each with checkpoints
+    and an eval at step 2, then export both into a serving dir of
+    DIR/torch/ trees."""
+    ck = {m: str(tmp_path / m) for m in ("lm", "codec")}
+    cli.main(["--device", "cpu", "train", "--model", "lm", "--steps", "2",
+              "--batch-size", "2", "--seq-len", "16", "--log-every", "1",
+              "--eval-every", "2", "--ckpt-dir", ck["lm"]])
+    cli.main(["--device", "cpu", "train", "--model", "codec", "--steps", "2",
+              "--batch-size", "1", "--window-samples", "2560",
+              "--log-every", "1", "--eval-every", "2", "--remat", "dots",
+              "--ckpt-dir", ck["codec"]])
+    out = capsys.readouterr().out
+    assert out.count("step 2: loss ") == 2 and "step 1: loss " in out
+    evals = [ln for ln in out.splitlines() if ln.startswith("step 2: eval_")]
+    assert len(evals) == 2 and all(" eval_loss " in ln for ln in evals), out
+    cfg = tmp_path / "cfg"
+    cfg.mkdir()
+    for name in ("config_llm.json", "config_codec.json"):
+        (cfg / name).write_text("{}")
+    steps = {m: os.path.join(d, "step_00000002") for m, d in ck.items()}
+    with pytest.raises(SystemExit) as e:
+        cli.main(["export", "--out", str(tmp_path / "served"), "--config-dir",
+                  str(cfg), "--lm-ckpt", steps["lm"], "--codec-ckpt",
+                  steps["codec"]])
+    assert e.value.code == 0
+    assert '"exported": [\n    "llm_posttrain",\n    "codec"\n  ]' in \
+        capsys.readouterr().out
+    import torch
+    lm = ckpt.load_params(ckpt.converted_path(str(tmp_path / "served"),
+                                              "llm_posttrain"))
+    saved = torch.load(os.path.join(steps["lm"], "params.pt"),
+                       weights_only=True)
+    assert torch.equal(lm["backbone"]["wq"], saved["backbone"]["wq"])
 
 
 def test_cli_runs_on_the_card_unless_asked():

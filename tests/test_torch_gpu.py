@@ -1,6 +1,6 @@
 """PyTorch port on the card: the CUDA kernels against their plain PyTorch
-versions, and a small engine through both kernels. Marked `gpu`; each test
-skips when no CUDA device is present.
+versions, a small engine through both kernels and a tiny LM's train step.
+Marked `gpu`; each test skips when no CUDA device is present.
 
 Run on a machine with a card (no JAX needed there, so the suite's
 conftest.py, which imports jax, is left out):
@@ -833,3 +833,43 @@ def test_dialogue_stream_equals_batch_on_card(cuda):
     assert eng.encode_calls == calls
     assert np.isfinite(audio).all() and len(audio) > 0
     assert np.isfinite(np.concatenate([c for _, c in pieces])).all()
+
+
+# ---------------------------------------------------------------------------
+# Training on the card (no kernel of its own): the tiny LM's train_step
+# ---------------------------------------------------------------------------
+
+
+def test_train_step_on_card_matches_cpu_and_remat(cuda):
+    """A tiny LM's train_step on the card at f32 gives the CPU's loss
+    within 1e-4 relative (the same depth subset passed to both); at bf16
+    compute remat "dots" gives a loss bitwise equal to no remat."""
+    from fireredtts2_tpu_torch.config import tiny_engine_config
+    from fireredtts2_tpu_torch.models.lm.model import init_lm_params
+    from fireredtts2_tpu_torch.train import loop as tl
+    from fireredtts2_tpu_torch.train import step as ts
+
+    cfg = tiny_engine_config().llm
+    gen = torch.Generator().manual_seed(0)
+    params = init_lm_params(gen, cfg, torch.float32, "cpu")
+    tok, msk = next(tl.synthetic_batches(cfg, tl.TrainConfig(
+        batch_size=4, seq_len=64), seed=1))
+    idx = torch.multinomial(torch.ones(4 * 64), 32, replacement=True,
+                            generator=gen)
+    losses = {}
+    for dev, remat, dt in (("cpu", "", None), (cuda, "", None),
+                           (cuda, "", torch.bfloat16),
+                           (cuda, "dots", torch.bfloat16)):
+        opt = ts.make_optimizer(1e-3, 1, 10)
+        state = ts.init_train_state(ts.tree_map(lambda p: p.to(dev), params),
+                                    opt)
+        _, m = ts.train_step(
+            state, torch.from_numpy(tok).to(dev), torch.from_numpy(msk).to(dev),
+            cfg=dataclasses.replace(cfg, train_remat=remat), optimizer=opt,
+            compute_dtype=dt, depth_indices=[idx.to(dev)])
+        assert torch.isfinite(m["grad_norm"])
+        losses[(str(dev), remat, dt)] = m["loss"].cpu()
+    cpu, card = losses[("cpu", "", None)], losses[("cuda", "", None)]
+    torch.testing.assert_close(card, cpu, rtol=1e-4, atol=0)
+    assert torch.equal(losses[("cuda", "dots", torch.bfloat16)],
+                       losses[("cuda", "", torch.bfloat16)])
