@@ -19,8 +19,10 @@ Phases (any failure exits non-zero and prints no result line):
    flagship vocoder slab (12, B, 3008, 1024) bf16, B in {1, 8}, S in {8, 32,
    128} (stream blocks of 1, 4 and 16 frames) and 64 (generate's vocoder
    passes), B=16 at S in {8, 32} (the 16-slot pool's grouped passes), live
-   ~200 and ~2900, plus writes that overshoot the slab; the
-   written rows must be identical and the attention close; each case's
+   ~200 and ~2900, plus writes that overshoot the slab (B=2 at T - 8 and
+   T + 8) and the offline decode's first pass past a full slab (B=1, S=64
+   at pos T): rows written at min(pos, T - S), as the JAX kernel writes
+   them; the written rows must be identical and the attention close; each case's
    split size and its CUDA launches per call (profiler); kernel C's
    read-only mode (D) once with lower bounds;
 5. kernel B (fused_depth_decode) against its plain version at the
@@ -107,6 +109,23 @@ Phases (any failure exits non-zero and prints no result line):
    pool (seq_capacity=1024, max_frames_cap=128) with an idle slot stepping
    past its slab's end beside a 50-frame neighbour; an engine loaded at
    full width from DIR (JSON configs of the flagship) and its load time;
+11b. Whisper ASR (fireredtts2_tpu_torch.asr), no kernel of its own, at
+   whisper-large-v3's full width and depth (32 + 32 layers, 1280 wide,
+   vocabulary 51,866; ~1.54 B fp32 parameters from a seed): (a) a 10 s
+   voiced clip through the temperature-fallback ladder and a 45 s one
+   greedy in two 30 s windows (the second's prompt conditioned on the
+   first's tokens), at most 32 tokens a window; the language detected
+   (probabilities summing to 1 within 1e-5); the 10 s clip again with
+   int8 weights; every transcript non-empty, every token id in the
+   vocabulary, no "transcription failed" logged; (b) one S > 1 forward
+   over the prompt and the greedy tokens, its argmax equal to the steps'
+   tokens up to the first top-2 logit gap under 1e-3; (c) a 2 + 2-layer
+   model at full width transcribing on the card and on the CPU in fp32:
+   equal tokens; (e) encoder ms per 30 s window and decoder ms per token
+   (CUDA events), a decoder step's device ms and CUDA launches (profiler),
+   the greedy loop's ms per token, each clip's wall and RTF, peak memory;
+   an HF whisper dir written from (a)'s weights by the port's own writer
+   (all 448 decoder positions), read back and timed, for 12(b);
 12. the serving front end over sockets on that engine: (a) the port's
    server in this process (WebSocketTTSServer with max_streams=8 and
    HealthHTTPServer on free localhost ports) driven by the port's client,
@@ -131,7 +150,14 @@ Phases (any failure exits non-zero and prints no result line):
    --fused-depth-plan gate=r8,up=s8,down=s8 serve --max-streams 8` as a
    subprocess (log: chiprun_out/phase12_serve.log): /health within 300 s,
    /stats naming the card, its first (cold) and third (fitted) greedy
-   request within 1 LSB of (a)'s cold and fitted ones; then terminated;
+   request within 1 LSB of (a)'s cold and fitted ones; with `--asr
+   --asr-dir` phase 11b's dir and `--asr-max-new-tokens 32` (random
+   weights seldom emit EOT, so each rung of the server's six-rung ladder
+   decodes its whole budget: 32 tokens a rung, as in 11b(a), in place of
+   224): a /v1/audio/speech request of 4 s (kernels
+   A, B and C launched in the server, by /stats' kernel_launches), then
+   its wav through client.transcribe (200, non-empty text), the round
+   trip's wall; then terminated;
 13. training (``fireredtts2_tpu_torch.train``), no kernel of its own: (a)
    the flagship LM (EngineConfig().llm, ~2.1 B parameters) from random
    weights on the card, fp32 masters, bf16 compute, B=4 x S=512, remat
@@ -528,13 +554,19 @@ def check_kernel_c(dev, L, T, H, Dh, reps, cases=None, timed=True):
     cases = cases or ([(B, S, live) for B in (1, 8) for S in (8, 32, 64, 128)
                        for live in (200, 2900)]
                       + [(16, S, live) for S in (8, 32) for live in (200, 2900)])
-    cases = list(cases) + [("overshoot", 64, T)]
+    # past the slab: writes at min(pos, T - S), as JAX's chip route does;
+    # "past_slab" is the offline decode's first 8-token pass beyond a full
+    # slab (codec_decode_chunks: pos = T)
+    cases = list(cases) + [("overshoot", 64, T), ("past_slab", 64, T)]
     results = []
     for B, S, live in cases:
-        overshoot = B == "overshoot"
+        overshoot, past_slab = B == "overshoot", B == "past_slab"
         if overshoot:
             B = 2
-            pos = np.array([T - 8, T + 8])      # past the slab: writes clamp
+            pos = np.array([T - 8, T + 8])
+        elif past_slab:
+            B = 1
+            pos = np.array([T])
         else:
             base = (live - S) // 8 * 8
             pos = np.maximum(base - 8 * np.arange(B), 0)
@@ -558,9 +590,11 @@ def check_kernel_c(dev, L, T, H, Dh, reps, cases=None, timed=True):
         if torch.device(dev).type == "cuda":
             launches = cuda_launches(lambda: fd.flash_decode_update_bounded(
                 q, nk, nv, kk, vk, layer, pos_t, q_end, live_hi))
-        read = int(q_end.max(dim=1).values.sum())      # slab rows attended
+        # slab rows attended: a query past the slab reads its T rows only
+        qe = q_end.clamp(max=T)
+        read = int(qe.max(dim=1).values.sum())
         bnd, by = bound_ms(2 * (2 * B * S * D) + 2 * 2 * B * S * D
-                           + read * D * 4, 4 * D * int(q_end.sum()))
+                           + read * D * 4, 4 * D * int(qe.sum()))
         times = {}
         if timed:
             step = itertools.count()
@@ -578,7 +612,7 @@ def check_kernel_c(dev, L, T, H, Dh, reps, cases=None, timed=True):
             times["library_ms"] = library_ms(
                 sdpa_call(q.transpose(1, 2), kv[0], kv[1], mask), reps)
         results.append(dict(B=B, S=S, live=live, overshoot=overshoot,
-                            max_abs_err=err, ok=ok and rows_ok,
+                            past_slab=past_slab, max_abs_err=err, ok=ok and rows_ok,
                             rows_identical=rows_ok, bound_ms=bnd, bound_by=by,
                             split=fd.bounded_split(T, B, H),
                             cuda_launches_per_call=launches, **times))
@@ -2534,7 +2568,7 @@ def run_server(dev, card: str, keep: dict, direct_rtf=None,
 
         # (b) the normal entry point, a process of its own
         res["cli"] = run_cli_server(d, dict(cold=cold_pcm, warm=rest_pcm),
-                                    greedy, checks)
+                                    greedy, checks, keep.get("asr_dir"))
     finally:
         if live is not None:
             live.close()
@@ -2600,15 +2634,20 @@ def reload_check(live, c, d: str, greedy: dict, before, checks: dict,
     checks["reload_same_greedy"] = res["after_reload_lsb"] in (0, 1)
 
 
-def run_cli_server(d: str, want_pcm: dict, greedy: dict, checks: dict
-                   ) -> dict:
+def run_cli_server(d: str, want_pcm: dict, greedy: dict, checks: dict,
+                   asr_dir: str | None = None) -> dict:
     """`python -m fireredtts2_tpu_torch --pretrained-dir DIR
     --quantize-backbone --fused-depth-plan PRESET serve --max-streams 8`
     as a subprocess (log: chiprun_out/phase12_serve.log): /health within
     300 s, /stats naming the card, the greedy request within 1 LSB of the
     in-process server's, as its first request (block policy cold) and
     once the policy's fit exists (its third): want_pcm {"cold", "warm"}.
-    The process is terminated at the end."""
+    With asr_dir (the ASR phase's HF whisper dir) the server also runs
+    `--asr --asr-dir asr_dir --asr-max-new-tokens ASR_MAX_NEW`: a
+    /v1/audio/speech request (kernels A, B
+    and C launched in it, by /stats' kernel_launches), then that wav
+    through client.transcribe (200, text). The process is terminated at
+    the end."""
     import torch
     from fireredtts2_tpu_torch.client import FireRedTTSClient
 
@@ -2619,6 +2658,9 @@ def run_cli_server(d: str, want_pcm: dict, greedy: dict, checks: dict
            "--quantize-backbone", "--fused-depth-plan", PRESET, "serve",
            "--max-streams", str(SERVER_MAX_STREAMS), "--http-port",
            str(http_port), "--ws-port", str(ws_port)]
+    if asr_dir:
+        cmd += ["--asr", "--asr-dir", asr_dir,
+                "--asr-max-new-tokens", str(ASR_MAX_NEW)]
     out: dict = dict(cmd=" ".join(cmd[1:]))
     t0 = time.perf_counter()
     with open(log_path, "w") as logf:
@@ -2653,6 +2695,8 @@ def run_cli_server(d: str, want_pcm: dict, greedy: dict, checks: dict
                         gap = lsb_gap(pcm_of(a), want_pcm[label])
                         out[f"{label}_vs_in_process_lsb"] = gap
                         checks[f"cli_{label}_equals_in_process"] = gap in (0, 1)
+                if asr_dir:
+                    out["asr"] = served_transcription(c, checks)
         finally:
             proc.terminate()
             try:
@@ -2661,8 +2705,334 @@ def run_cli_server(d: str, want_pcm: dict, greedy: dict, checks: dict
                 proc.kill()
                 proc.wait(timeout=60)
     out["exit_code"] = proc.returncode
-    out["log_tail"] = open(log_path).read()[-2000:]
+    text = open(log_path).read()
+    out["log_tail"] = text[-2000:]
+    m = re.search(r"ASR from .*: loaded in ([\d.]+) s, warmed up in ([\d.]+) s",
+                  text)
+    if m:
+        out["asr_load_s"], out["asr_warmup_s"] = float(m[1]), float(m[2])
+    if asr_dir:
+        checks["cli_no_transcription_failure"] = (
+            m is not None and "transcription failed" not in text)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Whisper ASR at whisper-large-v3's full width
+# ---------------------------------------------------------------------------
+
+ASR_SEED = 17
+ASR_MAX_NEW = 32            # tokens a window: random weights seldom emit EOT
+ASR_PREV = 16               # the long-form run's <|startofprev|> window
+ASR_FALLBACK = (0.5,)       # the ladder's rungs above T = 0
+ASR_NARROW = 2              # (c)'s encoder and decoder depth
+ASR_CLIPS_S = (10.0, 45.0)
+LANG_SUM_TOL = 1e-5         # |sum of the language probabilities - 1|
+TOP2_GAP = 1e-3             # (b): positions past the first closer call are not held
+# the fields an HF config.json gives (asr.convert.asr_config_from_hf)
+HF_FIELDS = ("n_mels", "vocab_size", "encoder_layers", "decoder_layers",
+             "num_heads", "embed_dim", "ffn_dim", "max_source_positions",
+             "max_target_positions", "sot_id", "eot_id")
+
+
+class FailureLog:
+    """Collects the ASR service's logged failures ("transcription failed")
+    while it is attached."""
+
+    def __init__(self):
+        import logging
+
+        self.records: list = []
+        outer = self
+
+        class _H(logging.Handler):
+            def emit(self, record):
+                if "transcription failed" in record.getMessage():
+                    outer.records.append(record.getMessage())
+        self.handler = _H()
+        self.logger = logging.getLogger("fireredtts2_tpu_torch.asr.asr")
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def asr_ids(res) -> list:
+    return [t for seg in res.segments for t in seg["tokens"]]
+
+
+def transcript_ok(res, vocab: int) -> bool:
+    """A non-silent clip's transcript: text, and every token id in the
+    vocabulary."""
+    ids = asr_ids(res)
+    return bool(res.text.strip()) and bool(ids) and all(
+        0 <= t < vocab for t in ids)
+
+
+def teacher_forced(asr, audio: np.ndarray) -> dict:
+    """(b): one S > 1 forward over the prompt and the step-by-step greedy
+    tokens of the clip's first window; its argmax at each position must be
+    the token the steps chose, up to the first position whose top-2 logit
+    gap is under TOP2_GAP."""
+    import torch
+    from fireredtts2_tpu_torch.asr import model as am
+
+    cfg, dev = asr.model_cfg, asr.device
+    mel, mel_len = asr._mel(audio[: asr._n_samples])
+    prompt = torch.from_numpy(asr._prompt_ids(None)[0]).to(dev)
+    ctx = am.encoder_context(asr.params, cfg, mel, mel_len)
+    res = am._sample_loop(asr.params, cfg, *ctx,
+                          am.init_asr_decode_state(cfg, 1, torch.float32, dev),
+                          prompt, ASR_MAX_NEW)
+    n = int(res.n_tokens[0])
+    ids = res.tokens[0, :n].long()
+    full = torch.cat([prompt[0], ids])[None]
+    state = am.init_asr_decode_state(cfg, 1, torch.float32, dev)
+    logits, _ = am.asr_decoder_forward(asr.params, cfg, full, state, *ctx)
+    P = prompt.shape[1]
+    pred = logits[0, P - 1: P - 1 + n]          # position P-1+i predicts ids[i]
+    top2 = pred.topk(2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1]).cpu()
+    close = [i for i in range(n) if gap[i] < TOP2_GAP]
+    held = close[0] if close else n
+    equal = bool((pred.argmax(-1)[:held] == ids[:held]).all())
+    return dict(tokens=n, held=held, equal=equal,
+                min_top2_gap=float(gap.min()) if n else None)
+
+
+def asr_step_numbers(asr, audio: np.ndarray) -> dict:
+    """Encoder ms per 30 s window and decoder ms per token (CUDA events),
+    the greedy loop's wall per token (one host read of `done` a token), a
+    decoder step's device ms and CUDA launches (profiler)."""
+    import torch
+    from fireredtts2_tpu_torch.asr import model as am
+
+    cfg, p, dev = asr.model_cfg, asr.params, asr.device
+    mel, mel_len = asr._mel(audio[: asr._n_samples])
+    out = dict(encoder_ms=event_ms(lambda: am.asr_encode(p, cfg, mel, mel_len),
+                                   reps=5, warmup=1),
+               context_ms=event_ms(lambda: am.encoder_context(p, cfg, mel,
+                                                              mel_len),
+                                   reps=3, warmup=1))
+    ctx = am.encoder_context(p, cfg, mel, mel_len)
+    prompt = torch.from_numpy(asr._prompt_ids(None)[0]).to(dev)
+    layers = am.decoder_layer_views(p)
+    state = am.init_asr_decode_state(cfg, 1, torch.float32, dev)
+    logits, state = am.asr_decoder_forward(p, cfg, prompt, state, *ctx, layers)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+
+    def step():
+        return am.asr_decoder_forward(p, cfg, tok, state, *ctx, layers)
+
+    out["decoder_ms_per_token"] = event_ms(step, reps=20)
+    out["decoder_device_ms_per_token"] = device_ms(step, reps=5)
+    out["cuda_launches_per_token"] = cuda_launches(step)
+    _sync()
+    t0 = time.perf_counter()
+    res = am._sample_loop(p, cfg, *ctx,
+                          am.init_asr_decode_state(cfg, 1, torch.float32, dev),
+                          prompt, ASR_MAX_NEW)
+    n_calls = int(res.n_tokens[0]) + 1
+    _sync()
+    out["loop_ms_per_token"] = (time.perf_counter() - t0) * 1e3 / n_calls
+    return out
+
+
+def run_asr(dev, card: str, keep: dict, config=None) -> dict:
+    """Whisper at whisper-large-v3's full width and depth (32 + 32 layers,
+    1280 wide, vocabulary 51,866), fp32 random weights from ASR_SEED:
+    (a) a 10 s and a 45 s voiced clip transcribed (the ladder; the long one
+    greedy in two windows, the second conditioned on the first), the
+    language detected, the 10 s clip again with int8 weights; (b) the
+    teacher-forced check; (c) a 2 + 2-layer model at full width on the
+    card and on the CPU, tokens equal; the numbers of (e); and a served
+    HF dir written from (a)'s weights for phase 12's subprocess
+    (keep["asr_dir"]): its header and config checked here. config: another model config (a CPU
+    rehearsal's tiny one)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from fireredtts2_tpu_torch.asr import (
+        ASRConfig, WhisperASR, WhisperASRModelConfig, init_asr_params,
+        write_hf_whisper_dir,
+    )
+    from fireredtts2_tpu_torch.asr import model as am
+    from fireredtts2_tpu_torch.asr.convert import (
+        _HFConfig, asr_config_from_hf, hf_whisper_state_dict,
+    )
+
+    t_phase = time.perf_counter()
+    checks: dict = {}
+    res: dict = dict(card=card)
+    cfg = config or WhisperASRModelConfig()
+    V = cfg.vocab_size
+    _sync()
+    on_card = torch.device(dev).type == "cuda"
+    base_gb = torch.cuda.memory_allocated() / 1e9 if on_card else float("nan")
+    reset_peak(dev)
+    gen = torch.Generator(device=dev).manual_seed(ASR_SEED)
+    t0 = time.perf_counter()
+    params = init_asr_params(gen, cfg, device=dev)
+    _sync()
+    res["init_s"] = time.perf_counter() - t0
+    res["params"] = sum(t.numel() for _, t in _leaves(params))
+    ladder = ASRConfig(max_new_tokens=ASR_MAX_NEW,
+                       fallback_temperatures=ASR_FALLBACK)
+    long_form = ASRConfig(max_new_tokens=ASR_MAX_NEW, prev_window=ASR_PREV,
+                          fallback_temperatures=())
+    clips = {s: voiced(int(s * 16_000), ASR_SEED + i)
+             for i, s in enumerate(ASR_CLIPS_S)}
+    short, long_ = clips[ASR_CLIPS_S[0]], clips[ASR_CLIPS_S[1]]
+    with FailureLog() as failures:
+        asr = WhisperASR(config=ladder, params=params, model_cfg=cfg,
+                         warmup=False, device=dev)
+        asr.config = long_form
+        asr.transcribe(short[:16_000])                 # warm-up, greedy
+        # (a) the 10 s clip through the ladder
+        asr.config = ladder
+        calls = asr.decode_calls
+        _sync()
+        r10, wall10 = timed(asr.transcribe, short)
+        _sync()
+        res["short"] = dict(wall_s=wall10, rtf=ASR_CLIPS_S[0] / wall10,
+                            decode_calls=asr.decode_calls - calls,
+                            temperature=r10.segments[0]["temperature"]
+                            if r10.segments else None,
+                            tokens=len(asr_ids(r10)), text=r10.text[:120])
+        checks["asr_short_transcript"] = transcript_ok(r10, V)
+        # (a) the 45 s clip, greedy, in two windows
+        asr.config = long_form
+        sots: list = []
+        prompt_ids = asr._prompt_ids
+
+        def spy(*a):
+            out = prompt_ids(*a)
+            sots.append(out[1])
+            return out
+        asr._prompt_ids = spy
+        _sync()
+        r45, wall45 = timed(asr.transcribe, long_)
+        _sync()
+        del asr._prompt_ids
+        res["long"] = dict(wall_s=wall45, rtf=ASR_CLIPS_S[1] / wall45,
+                           windows=len(r45.segments), sot_indices=sots,
+                           tokens=len(asr_ids(r45)))
+        checks["asr_long_transcript"] = transcript_ok(r45, V)
+        checks["asr_long_two_windows_conditioned"] = (
+            len(r45.segments) == 2 and sots[-1] == ASR_PREV + 1)
+        # (a) the language
+        mel, mel_len = asr._mel(short[: asr._n_samples])
+        probs = am.asr_detect_language(params, cfg, mel, mel_len)[0]
+        res["language"] = asr.detect_language(short)["language"]
+        res["language_prob_sum_err"] = abs(float(probs.double().sum()) - 1.0)
+        checks["asr_language_probs_sum_to_1"] = (
+            res["language_prob_sum_err"] <= LANG_SUM_TOL
+            and probs.shape == (cfg.num_languages,))
+        # (b) teacher-forced against the steps
+        res["teacher_forced"] = teacher_forced(asr, short)
+        checks["asr_teacher_forced_equals_steps"] = (
+            res["teacher_forced"]["equal"] and res["teacher_forced"]["tokens"] > 0)
+        # (e) the numbers
+        res["fp32"] = asr_step_numbers(asr, short)
+        # (a) int8
+        asr8 = WhisperASR(config=ladder, params=params, model_cfg=cfg,
+                          warmup=False, quantize_int8=True, device=dev)
+        asr8.config = long_form
+        asr8.transcribe(short[:16_000])
+        asr8.config = ladder
+        _sync()
+        r8, wall8 = timed(asr8.transcribe, short)
+        _sync()
+        ids8, ids32 = asr_ids(r8), asr_ids(r10)
+        res["int8"] = dict(wall_s=wall8, rtf=ASR_CLIPS_S[0] / wall8,
+                           tokens=len(ids8),
+                           tokens_equal_fp32=sum(a == b for a, b in zip(ids8, ids32)),
+                           **asr_step_numbers(asr8, short))
+        checks["asr_int8_transcript"] = transcript_ok(r8, V)
+        del asr8
+        res["peak_gb"] = peak_gb(dev)
+        res["peak_gb_over_base"] = res["peak_gb"] - base_gb
+
+        # the served dir from (a)'s weights, read back
+        d = tempfile.mkdtemp(prefix=".serving_ckpt_asr_",
+                             dir=os.path.dirname(os.path.abspath(__file__)))
+        atexit.register(shutil.rmtree, d, True)
+        t0 = time.perf_counter()
+        write_hf_whisper_dir(d, params, cfg)
+        res["dir_write_s"] = time.perf_counter() - t0
+        st_path = os.path.join(d, "model.safetensors")
+        res["dir_gb"] = os.path.getsize(st_path) / 1e9
+        # its header and config; 12(b)'s server loads the tensors
+        with open(st_path, "rb") as f:
+            header = json.loads(f.read(int.from_bytes(f.read(8), "little")))
+        want = {k: list(t.shape) for k, t in hf_whisper_state_dict(params).items()}
+        with open(os.path.join(d, "config.json")) as f:
+            lcfg = asr_config_from_hf(_HFConfig(json.load(f)))
+        checks["asr_dir_header_and_config"] = (
+            {k: v["shape"] for k, v in header.items() if k != "__metadata__"}
+            == want and all(v["dtype"] == "F32" for v in header.values())
+            and all(getattr(lcfg, f) == getattr(cfg, f) for f in HF_FIELDS))
+        del asr, params
+        torch.cuda.empty_cache()
+        keep["asr_dir"] = d
+
+        # (c) narrow depth at full width: the card against the CPU
+        ncfg = dataclasses.replace(cfg, encoder_layers=ASR_NARROW,
+                                   decoder_layers=ASR_NARROW)
+        cpu_params = init_asr_params(torch.Generator().manual_seed(ASR_SEED + 1),
+                                     ncfg, device="cpu")
+        on = {where: WhisperASR(config=long_form, params=cpu_params,
+                                model_cfg=ncfg, warmup=False, device=where)
+              for where in ("cpu", dev)}
+        (rc, res["narrow_cpu_s"]), (rg, res["narrow_card_s"]) = (
+            timed(on["cpu"].transcribe, short), timed(on[dev].transcribe, short))
+        res["narrow_tokens"] = (len(asr_ids(rc)), len(asr_ids(rg)))
+        checks["asr_narrow_card_equals_cpu"] = (
+            asr_ids(rc) == asr_ids(rg) and bool(asr_ids(rc)))
+        del on, cpu_params
+        torch.cuda.empty_cache()
+    res["failures"] = failures.records
+    checks["asr_no_logged_failure"] = not failures.records
+    res.update(checks=checks, ok=all(checks.values()),
+               phase_s=time.perf_counter() - t_phase)
+    return res
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + k + ".")
+        else:
+            yield prefix + k, v
+
+
+def served_transcription(c, checks: dict) -> dict:
+    """(d): a greedy /v1/audio/speech request of 4 s at most through the
+    CLI server's kernels A, B and C, then its wav to
+    /v1/audio/transcriptions through the client: 200 and text."""
+    import io
+
+    from scipy.io import wavfile
+
+    k0 = c.stats()["kernel_launches"]
+    wav, speech_s = timed(c.speech, SERVE_TEXTS[1], seed=11, temperature=1.0,
+                          max_audio_length_ms=4000)
+    k1 = c.stats()["kernel_launches"]
+    launched = {k: k1[k] - k0[k] for k in k1}
+    sr, pcm = wavfile.read(io.BytesIO(wav))
+    audio = pcm.astype(np.float32) / 32768.0
+    text, transcribe_s = timed(c.transcribe, audio, sr)
+    checks["cli_speech_launches_a_b_c"] = all(
+        launched[k] > 0 for k in ("flash_decode_gqa1", "fused_depth_decode",
+                                  "flash_decode_update_bounded"))
+    checks["cli_transcription_text"] = bool(text.strip())
+    return dict(speech_s=speech_s, transcribe_s=transcribe_s,
+                round_trip_s=speech_s + transcribe_s, audio_s=len(audio) / sr,
+                launches=launched, text=text[:120])
 
 
 # ---------------------------------------------------------------------------
@@ -3040,7 +3410,8 @@ def main() -> int:
                            voc["reps"])
     for r in res_c:
         log(f"kernel C B={r['B']} S={r['S']} live~{r['live']}"
-            f"{' overshoot' if r['overshoot'] else ''}: max_abs_err "
+            f"{' overshoot' if r['overshoot'] else ''}"
+            f"{' past the slab (pos = T)' if r['past_slab'] else ''}: max_abs_err "
             f"{r['max_abs_err']:.3e} rows_identical={r['rows_identical']} "
             f"ok={r['ok']}  {fmt_times(r)}; split {r['split']} slots, "
             f"{r['cuda_launches_per_call']} CUDA launch(es) a call  [{card}]")
@@ -3285,6 +3656,46 @@ def main() -> int:
     report["serving"] = sv
 
     mark("11")
+    # 11b. Whisper ASR at whisper-large-v3's full width
+    asr_res = run_asr(dev, card, keep)
+    sh, lg, i8, f32 = (asr_res["short"], asr_res["long"], asr_res["int8"],
+                       asr_res["fp32"])
+    log(f"[asr] whisper-large-v3 widths, {asr_res['params'] / 1e9:.3f} B "
+        f"parameters, fp32, random weights (seed {ASR_SEED}), made in "
+        f"{asr_res['init_s']:.1f} s  [{card}]")
+    log(f"[asr] {ASR_CLIPS_S[0]:.0f} s clip, ladder: wall {sh['wall_s']:.3f} s, "
+        f"RTF {sh['rtf']:.3f}, {sh['decode_calls']} decodes (last at T="
+        f"{sh['temperature']}), {sh['tokens']} tokens; {ASR_CLIPS_S[1]:.0f} s "
+        f"clip, greedy: wall {lg['wall_s']:.3f} s, RTF {lg['rtf']:.3f}, "
+        f"{lg['windows']} windows, SOT at {lg['sot_indices']}  [{card}]")
+    for label, r in (("fp32", f32), ("int8", i8)):
+        log(f"[asr {label}] encoder {r['encoder_ms']:.2f} ms per 30 s window "
+            f"(+ cross K/V: {r['context_ms']:.2f}); decoder "
+            f"{r['decoder_ms_per_token']:.2f} ms per token (CUDA events, "
+            f"steps queued), device {r['decoder_device_ms_per_token']} ms, "
+            f"{r['cuda_launches_per_token']} CUDA launches a token; the "
+            f"greedy loop {r['loop_ms_per_token']:.2f} ms per token (one "
+            f"host read a token)  [{card}]")
+    log(f"[asr int8] {ASR_CLIPS_S[0]:.0f} s clip: wall {i8['wall_s']:.3f} s, "
+        f"RTF {i8['rtf']:.3f}; {i8['tokens_equal_fp32']} of {i8['tokens']} "
+        f"tokens as fp32's  [{card}]")
+    tf = asr_res["teacher_forced"]
+    log(f"[asr] language {asr_res['language']} (|sum p - 1| = "
+        f"{asr_res['language_prob_sum_err']:.2e}); teacher-forced vs steps: "
+        f"{tf['held']} of {tf['tokens']} positions held (top-2 gap >= "
+        f"{TOP2_GAP}; smallest {tf['min_top2_gap']}), equal {tf['equal']}; "
+        f"{ASR_NARROW}+{ASR_NARROW} layers card vs CPU: tokens "
+        f"{asr_res['narrow_tokens']}, CPU {asr_res['narrow_cpu_s']:.2f} s, "
+        f"card {asr_res['narrow_card_s']:.2f} s  [{card}]")
+    log(f"[asr] peak memory {asr_res['peak_gb']:.2f} GB ({asr_res['peak_gb_over_base']:.2f} "
+        f"above the phase's start); served dir {asr_res['dir_gb']:.2f} GB "
+        f"written in {asr_res['dir_write_s']:.1f} s  [{card}]")
+    log(f"[asr] checks: {asr_res['checks']}; phase {asr_res['phase_s']:.1f} s")
+    ok &= asr_res["ok"]
+    report["asr"] = asr_res
+    torch.cuda.empty_cache()
+
+    mark("11b")
     # 12. the serving front end over sockets on phase 11's loaded engine
     pool8 = sv["pools"].get(SERVER_MAX_STREAMS, {})
     srv = run_server(dev, card, keep,
@@ -3326,6 +3737,15 @@ def main() -> int:
         f"exit {cl['exit_code']}, device {cl.get('stats_device')}, greedy vs "
         f"in-process: cold {cl.get('cold_vs_in_process_lsb')} LSB, warm "
         f"{cl.get('warm_vs_in_process_lsb')} LSB  [{card}]")
+    sa = cl.get("asr")
+    if sa:
+        log(f"[server] CLI server --asr: ASR loaded from the dir in "
+            f"{cl.get('asr_load_s')} s, warmed up in {cl.get('asr_warmup_s')} s; "
+            f"/v1/audio/speech {sa['speech_s']:.2f} s ({sa['audio_s']:.2f} s "
+            f"audio, launches {sa['launches']}), its wav transcribed in "
+            f"{sa['transcribe_s']:.2f} s; round trip {sa['round_trip_s']:.2f} s"
+            f"  [{card}]")
+    shutil.rmtree(keep.pop("asr_dir", ""), ignore_errors=True)
     log(f"[server] launches in (a): {srv['launches']}")
     log(f"[server] checks: {srv['checks']}; phase {srv['phase_s']:.1f} s")
     for k, n in srv["launches"].items():
@@ -3435,7 +3855,8 @@ def main() -> int:
               pick(res_c, B=1, S=64, live=2900),
               cuda_launches_per_call=pick(res_c, B=1, S=64, live=2900)[
                   "cuda_launches_per_call"],
-              b16=at(pick(res_c, B=16, S=32, live=2900))),
+              b16=at(pick(res_c, B=16, S=32, live=2900)),
+              past_slab=at(pick(res_c, past_slab=True))),
         entry("flash_decode_bounded", csrc + "flash_decode_update.cu",
               "fireredtts2_tpu/ops/pallas_flash.py:323",
               res_d["launches"], [res_d], res_d, launched_in="check",

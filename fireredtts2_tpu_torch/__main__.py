@@ -6,6 +6,7 @@ Counterpart of ``fireredtts2_tpu/__main__.py``:
   python -m fireredtts2_tpu_torch monologue --text "..." --prompt-wav ref.wav \\
                                             --prompt-text "..." --out out.wav
   python -m fireredtts2_tpu_torch serve     --ws-port 8765 --http-port 8080
+  python -m fireredtts2_tpu_torch serve     --asr --asr-dir whisper-large-v3
   python -m fireredtts2_tpu_torch qa        # run the QA scenario suite
   python -m fireredtts2_tpu_torch train     --model lm --steps 100 --ckpt-dir ckpts
   python -m fireredtts2_tpu_torch export    --out DIR --config-dir CFG \\
@@ -33,11 +34,8 @@ NOT_PORTED = {
     "--dp": "item 13 (multi-GPU)",
     "--zero1": "item 13 (multi-GPU)",
     "--profiler-port": "the tracing item (a live profiler endpoint)",
-    "--asr": "item 11 (ASR)",
-    "--asr-dir": "item 11 (ASR)",
-    "--asr-int8": "item 11 (ASR)",
     "bench": "item 1 (bench harness)",
-    "convert": "item 11 (ASR: the convert drill's fidelity report)",
+    "convert": "item 20 (the convert drill and its fidelity report)",
 }
 
 
@@ -54,9 +52,8 @@ def _check_ported(args) -> None:
         _not_ported("--tp")
     if args.dp is not None:
         _not_ported("--dp")
-    for flag in ("profiler_port", "asr", "asr_dir", "asr_int8"):
-        if getattr(args, flag, None):
-            _not_ported("--" + flag.replace("_", "-"))
+    if getattr(args, "profiler_port", None):
+        _not_ported("--profiler-port")
 
 
 def _build_engine(args):
@@ -115,6 +112,42 @@ def _cmd_monologue(args):
     print(f"wrote {args.out}: {len(audio)/engine.output_sample_rate:.2f}s")
 
 
+def _build_asr(args):
+    """serve --asr: Whisper from --asr-dir (an HF whisper checkpoint dir),
+    else the tiny random-weight dev model; --asr-int8 makes its hot
+    matmuls weight-only int8; --asr-max-new-tokens caps each window's
+    decode. None without --asr."""
+    if not args.asr:
+        return None
+    import numpy as np
+
+    from fireredtts2_tpu_torch.asr import ASRConfig, WhisperASR
+
+    config = ASRConfig()
+    if args.asr_max_new_tokens is not None:
+        config = ASRConfig(max_new_tokens=args.asr_max_new_tokens)
+
+    if args.asr_dir:
+        import time
+
+        from fireredtts2_tpu_torch.asr import load_hf_whisper
+
+        t0 = time.perf_counter()
+        params, model_cfg = load_hf_whisper(args.asr_dir)
+        asr = WhisperASR(config, params=params, model_cfg=model_cfg,
+                         warmup=False, quantize_int8=args.asr_int8,
+                         device=args.device)
+        t1 = time.perf_counter()
+        asr.transcribe(np.zeros(16_000, np.float32), 16_000)   # warm-up
+        print(f"serve: ASR from {args.asr_dir}: loaded in {t1 - t0:.2f} s, "
+              f"warmed up in {time.perf_counter() - t1:.2f} s", flush=True)
+        return asr
+    print("[warn] serve --asr without --asr-dir: tiny random-weight dev ASR "
+          "(transcripts are noise)", file=sys.stderr)
+    return WhisperASR(config, warmup=False, quantize_int8=args.asr_int8,
+                      device=args.device)
+
+
 def _cmd_serve(args):
     import os
 
@@ -126,11 +159,13 @@ def _cmd_serve(args):
         primary=args.llm_primary, hf_model_dir=args.llm_model_dir,
         openai_base_url=args.openai_base_url, openai_model=args.openai_model,
         openai_api_key=os.environ.get("OPENAI_API_KEY"))
+    asr = _build_asr(args)
     serve(engine, ws_port=args.ws_port, http_port=args.http_port,
           session_dir=args.session_dir, max_streams=args.max_streams,
           voice_dir=args.voice_dir, responder=responder,
           require_auth=args.require_auth, host=args.host,
-          reload_root=args.reload_root)
+          reload_root=args.reload_root,
+          transcriber=asr.as_transcriber() if asr else None)
 
 
 def _cmd_qa(args):
@@ -275,10 +310,17 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--openai-model", default="gpt-3.5-turbo")
     s.add_argument("--profiler-port", type=int, default=0,
                    help="not ported (a live profiler endpoint)")
-    s.add_argument("--asr", action="store_true", help="not ported (item 11)")
-    s.add_argument("--asr-dir", default=None, help="not ported (item 11)")
+    s.add_argument("--asr", action="store_true",
+                   help="serve /v1/audio/transcriptions with Whisper")
+    s.add_argument("--asr-dir", default=None,
+                   help="HF whisper checkpoint dir (config.json and "
+                        "model.safetensors or pytorch_model.bin; default: "
+                        "a tiny random-weight dev model)")
     s.add_argument("--asr-int8", action="store_true",
-                   help="not ported (item 11)")
+                   help="weight-only int8 ASR matmuls")
+    s.add_argument("--asr-max-new-tokens", type=int, default=None,
+                   help="tokens each 30 s window may decode (default 224, "
+                        "less what the model's positions cannot hold)")
     s.set_defaults(fn=_cmd_serve)
 
     q = sub.add_parser("qa", help="run QA scenarios against the engine")

@@ -13,7 +13,7 @@ also take the port server's ``seed`` (the request's noise seed).
     for chunk in c.synthesize_streaming("[S1]Hi."):     # low-latency
         play(chunk)
     wav_bytes = c.speech("Hello", response_format="wav")  # OpenAI-compat
-    text = c.transcribe(mic_audio)                        # needs --asr
+    text = c.transcribe(mic_audio)       # needs serve --asr (see transcribe)
     pid = c.create_voice("alice", "reference text", ref_wav)
     cloned = c.clone_speech("New words.", pid)
 """
@@ -248,8 +248,11 @@ class FireRedTTSClient:
 
     def transcribe(self, audio: np.ndarray, sample_rate: int = 16_000
                    ) -> str:
-        """POST /v1/audio/transcriptions (the server needs a transcriber;
-        503 otherwise)."""
+        """POST /v1/audio/transcriptions -> the transcript. The server
+        must run with ``serve --asr`` (503 otherwise): ``--asr-dir DIR``
+        names a local HF whisper checkpoint (config.json and
+        model.safetensors or pytorch_model.bin); without it the server
+        transcribes with a tiny random-weight dev model."""
         out = self._post("/v1/audio/transcriptions", {
             "data": _f32_to_pcm16_hex(audio), "sample_rate": sample_rate})
         return out["text"]

@@ -20,7 +20,8 @@ same trees; the codec's RVQ subtree and mel filterbank stay float32.
 trees under ``DIR/jax/``), so a pickle is read and converted once.
 A local HF whisper checkout (the SSL encoder, when ``codec.pt`` has none)
 is read from ``model.safetensors`` by this module's own reader, or from
-``pytorch_model.bin``.
+``pytorch_model.bin``; ``write_safetensors`` writes such a file (neither
+needs the ``safetensors`` package).
 """
 
 from __future__ import annotations
@@ -165,29 +166,37 @@ def _conv1d_params(sd: Mapping, name: str, dtype) -> Params:
     return p
 
 
-def _convert_whisper_layers(sd: Mapping, prefix: str, L: int, dtype) -> Params:
-    def pl(fmt: str, transpose: bool = True) -> torch.Tensor:
-        return _stack([_t(sd[fmt.format(p=prefix, i=i)]).T if transpose
-                       else _t(sd[fmt.format(p=prefix, i=i)])
-                       for i in range(L)], dtype)
+# whisper layer tree key -> (the reference's / HF's module under
+# {prefix}.{i}, its parameter, transposed: a Linear weight (out, in) ->
+# (in, out))
+WHISPER_LAYER_KEYS = {
+    "wq": ("self_attn.q_proj", "weight", True),
+    "bq": ("self_attn.q_proj", "bias", False),
+    "wk": ("self_attn.k_proj", "weight", True),
+    "wv": ("self_attn.v_proj", "weight", True),
+    "bv": ("self_attn.v_proj", "bias", False),
+    "wo": ("self_attn.out_proj", "weight", True),
+    "bo": ("self_attn.out_proj", "bias", False),
+    "attn_ln_w": ("self_attn_layer_norm", "weight", False),
+    "attn_ln_b": ("self_attn_layer_norm", "bias", False),
+    "fc1_w": ("fc1", "weight", True),
+    "fc1_b": ("fc1", "bias", False),
+    "fc2_w": ("fc2", "weight", True),
+    "fc2_b": ("fc2", "bias", False),
+    "ffn_ln_w": ("final_layer_norm", "weight", False),
+    "ffn_ln_b": ("final_layer_norm", "bias", False),
+}
 
-    return {
-        "wq": pl("{p}.{i}.self_attn.q_proj.weight"),
-        "bq": pl("{p}.{i}.self_attn.q_proj.bias", False),
-        "wk": pl("{p}.{i}.self_attn.k_proj.weight"),
-        "wv": pl("{p}.{i}.self_attn.v_proj.weight"),
-        "bv": pl("{p}.{i}.self_attn.v_proj.bias", False),
-        "wo": pl("{p}.{i}.self_attn.out_proj.weight"),
-        "bo": pl("{p}.{i}.self_attn.out_proj.bias", False),
-        "attn_ln_w": pl("{p}.{i}.self_attn_layer_norm.weight", False),
-        "attn_ln_b": pl("{p}.{i}.self_attn_layer_norm.bias", False),
-        "fc1_w": pl("{p}.{i}.fc1.weight"),
-        "fc1_b": pl("{p}.{i}.fc1.bias", False),
-        "fc2_w": pl("{p}.{i}.fc2.weight"),
-        "fc2_b": pl("{p}.{i}.fc2.bias", False),
-        "ffn_ln_w": pl("{p}.{i}.final_layer_norm.weight", False),
-        "ffn_ln_b": pl("{p}.{i}.final_layer_norm.bias", False),
-    }
+
+def convert_stacked_layers(sd: Mapping, prefix: str, L: int, keys: Mapping,
+                           dtype) -> Params:
+    """{tree key: (module, parameter, transposed)} -> each key's L layers
+    of ``{prefix}.{i}.{module}.{parameter}`` stacked."""
+    def stacked(module: str, param: str, transpose: bool) -> torch.Tensor:
+        arrs = [_t(sd[f"{prefix}.{i}.{module}.{param}"]) for i in range(L)]
+        return _stack([a.T for a in arrs] if transpose else arrs, dtype)
+
+    return {k: stacked(*v) for k, v in keys.items()}
 
 
 def _convert_whisper_encoder(sd: Mapping, prefix: str,
@@ -196,8 +205,9 @@ def _convert_whisper_encoder(sd: Mapping, prefix: str,
         "conv1": _conv1d_params(sd, f"{prefix}.conv1", dtype),
         "conv2": _conv1d_params(sd, f"{prefix}.conv2", dtype),
         "pos": _leaf(sd, f"{prefix}.embed_positions.weight", dtype),
-        "layers": _convert_whisper_layers(sd, f"{prefix}.layers",
-                                          cfg.num_layers, dtype),
+        "layers": convert_stacked_layers(sd, f"{prefix}.layers",
+                                         cfg.num_layers, WHISPER_LAYER_KEYS,
+                                         dtype),
         "ln_w": _leaf(sd, f"{prefix}.layer_norm.weight", dtype),
         "ln_b": _leaf(sd, f"{prefix}.layer_norm.bias", dtype),
     }
@@ -208,8 +218,9 @@ def _convert_ssl_adaptor(sd: Mapping, prefix: str, cfg: SslAdaptorConfig,
     return {
         "in_proj_w": _arr(_lin(sd, f"{prefix}.in_proj"), dtype),
         "in_proj_b": _leaf(sd, f"{prefix}.in_proj.bias", dtype),
-        "layers": _convert_whisper_layers(sd, f"{prefix}.layers",
-                                          cfg.num_layers, dtype),
+        "layers": convert_stacked_layers(sd, f"{prefix}.layers",
+                                         cfg.num_layers, WHISPER_LAYER_KEYS,
+                                         dtype),
         "ln_w": _leaf(sd, f"{prefix}.layer_norm.weight", dtype),
         "ln_b": _leaf(sd, f"{prefix}.layer_norm.bias", dtype),
         "out_proj_w": _arr(_lin(sd, f"{prefix}.out_proj"), dtype),
@@ -318,8 +329,9 @@ def convert_codec_state_dict(sd: Mapping, cfg: CodecConfig,
             "in_proj": _conv1d_params(sd, f"{bb}.in_proj", dtype),
             "prior0": resnet(sd, f"{bb}.prior_net.0", dtype),
             "prior1": resnet(sd, f"{bb}.prior_net.1", dtype),
-            "layers": _convert_whisper_layers(sd, f"{bb}.transformers",
-                                              ad.num_layers, dtype),
+            "layers": convert_stacked_layers(sd, f"{bb}.transformers",
+                                             ad.num_layers, WHISPER_LAYER_KEYS,
+                                             dtype),
             "post0": resnet(sd, f"{bb}.post_net.0", dtype),
             "post1": resnet(sd, f"{bb}.post_net.1", dtype),
             "final_ln_w": _leaf(sd, f"{bb}.final_norm.weight", dtype),
@@ -384,7 +396,8 @@ def read_safetensors(path: str) -> dict[str, torch.Tensor]:
     with open(path, "rb") as f:
         n = int.from_bytes(f.read(8), "little")
         header = json.loads(f.read(n))
-        data = bytearray(f.read())
+        data = bytearray(os.fstat(f.fileno()).st_size - 8 - n)
+        f.readinto(data)
     out = {}
     for name, info in header.items():
         if name == "__metadata__":
@@ -400,6 +413,29 @@ def read_safetensors(path: str) -> dict[str, torch.Tensor]:
                                      count=(end - start) // item,
                                      offset=start).reshape(shape)
     return out
+
+
+def write_safetensors(path: str, tensors: Mapping[str, torch.Tensor]) -> None:
+    """{name: tensor} -> a ``.safetensors`` file that
+    :func:`read_safetensors` (and the ``safetensors`` package) reads: the
+    header's JSON padded with spaces to a multiple of 8 bytes, then each
+    tensor's raw little-endian bytes in order."""
+    names = {v: k for k, v in _ST_DTYPES.items()}
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for t in tensors.values():
+            if t.numel():
+                f.write(t.detach().contiguous().cpu().reshape(-1)
+                        .view(torch.uint8).numpy())
 
 
 def load_hf_whisper_encoder_sd(model_dir: str, prefix: str = "ssl") -> dict:

@@ -1,9 +1,10 @@
 """Performance budget of the port.
 
 Counterpart of ``fireredtts2_tpu/runtime/perf.py: load_perf_budget`` and
-its matmul parameter count (the training FLOP count). The rest of that
-module (the jitted LM timing, the roofline accounting, the
-``jax.profiler`` hooks) has no port yet.
+its matmul parameter count (the training FLOP count), plus the kernel
+launch counts the server's ``/stats`` reports. The rest of that module
+(the jitted LM timing, the roofline accounting, the ``jax.profiler``
+hooks) has no port yet.
 """
 
 from __future__ import annotations
@@ -35,6 +36,17 @@ def load_perf_budget() -> dict[str, Any]:
         return {}
     with open(path) as f:
         return json.load(f)
+
+
+def kernel_launches() -> dict[str, int]:
+    """Each serving kernel wrapper's launch count in this process (A, C,
+    D and F by their wrappers' names, B, E)."""
+    from fireredtts2_tpu_torch.ops import depth_chain, flash_decode, int4
+
+    counts = flash_decode.launch_counts()
+    counts["fused_depth_decode"] = depth_chain.fused_depth_decode.launches
+    counts["int4_matmul"] = int4.int4_matmul.launches
+    return counts
 
 
 def transformer_layer_params(cfg: TransformerConfig) -> int:

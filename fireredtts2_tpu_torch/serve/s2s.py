@@ -1,7 +1,8 @@
 """Speech-to-speech pipeline: ASR -> conversation LLM -> TTS.
 
 Counterpart of ``fireredtts2_tpu/serve/s2s.py``: the responders and the
-pipeline class; the transcriber is passed in (the port has no ASR yet).
+pipeline class; the transcriber is passed in
+(``asr.WhisperASR.as_transcriber()``).
 Capability parity with the reference overlay:
 - `speech_to_speech_interface.py` (:267-450): process_audio_input /
   process_text_input pipeline glue;

@@ -559,14 +559,19 @@ class WebSocketTTSServer:
 
     def stats(self) -> dict:
         """The monitor's summary with the engine's card memory, clients,
-        sessions, uptime; with a batcher its telemetry (live streams, queue
-        depth, chunk drops, the block policy, host_stats); and the
-        recommendation engine's output over all of it, the device-regression
-        rule budgeted by the port's perf_budget.json."""
-        from fireredtts2_tpu_torch.runtime.perf import load_perf_budget
+        sessions, uptime, each CUDA kernel's launches in this process
+        (``runtime.perf.kernel_launches``); with a batcher its telemetry
+        (live streams, queue depth, chunk drops, the block policy,
+        host_stats); and the recommendation engine's output over all of
+        it, the device-regression rule budgeted by the port's
+        perf_budget.json."""
+        from fireredtts2_tpu_torch.runtime.perf import (
+            kernel_launches, load_perf_budget,
+        )
         from fireredtts2_tpu_torch.runtime.policy import RecommendationEngine
 
         out = self.monitor.summary(self.service.engine.device)
+        out["kernel_launches"] = kernel_launches()
         out["clients"] = len(self.clients)
         out["sessions"] = self.sessions.active_count
         out["uptime_s"] = time.time() - self.started

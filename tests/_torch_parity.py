@@ -1,8 +1,14 @@
 """Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py):
 tiny-config parameters from the JAX package's own initialisers, bridged
-into the port, the JAX sampling draws of a frame as the port's noise
-tensor, a prompt-like test waveform, and the one-thread fixture every such
-module imports."""
+into the port, a JAX engine built on those initialisers jitted, the JAX
+sampling draws of a frame as the port's noise tensor, a prompt-like test
+waveform, and the one-thread fixture every such module imports.
+
+The JAX initialisers run jitted (``jax_init``): one compile per config
+and dtype for the process, where running them op by op compiles each op
+at each new shape (~23 s for the tiny LM and codec on this suite's CPU,
+against ~12 s). The values are the initialisers' own, as XLA compiles
+them as one program; both sides of a parity test take the same tree."""
 
 from functools import lru_cache
 
@@ -13,6 +19,7 @@ import pytest
 import torch
 
 from fireredtts2_tpu.config import tiny_engine_config as j_tiny
+from fireredtts2_tpu.engine import engine as j_engine
 from fireredtts2_tpu.models.codec.model import init_codec_params as j_init_codec
 from fireredtts2_tpu.models.lm.model import init_lm_params as j_init_lm
 
@@ -37,13 +44,35 @@ def to_t(a) -> torch.Tensor:
 
 
 @lru_cache(maxsize=None)
+def _jitted_init(fn, cfg, dtype):
+    return jax.jit(lambda key: fn(key, cfg, dtype))
+
+
+def jax_init(fn, key, cfg, dtype=jnp.float32):
+    """fn(key, cfg, dtype) for a JAX initialiser fn (init_lm_params,
+    init_codec_params), jitted once per (fn, cfg, dtype)."""
+    return _jitted_init(fn, cfg, dtype)(key)
+
+
+def jax_engine(**kw):
+    """The JAX package's FireRedTTS2Engine(**kw), its parameter
+    initialisers run through ``jax_init``."""
+    with pytest.MonkeyPatch.context() as mp:
+        for name, fn in (("init_lm_params", j_init_lm),
+                         ("init_codec_params", j_init_codec)):
+            mp.setattr(j_engine, name,
+                       lambda key, cfg, dtype, fn=fn: jax_init(fn, key, cfg, dtype))
+        return j_engine.FireRedTTS2Engine(**kw)
+
+
+@lru_cache(maxsize=None)
 def tiny_params(seed: int = 0):
     """(jax_cfg, port_cfg, jax lm params, jax codec params, port lm params,
     port codec params) at float32, from the JAX initialisers."""
     jcfg, tcfg = j_tiny(), t_tiny()
     k1, k2 = jax.random.split(jax.random.PRNGKey(seed))
-    jlm = j_init_lm(k1, jcfg.llm, jnp.float32)
-    jcodec = j_init_codec(k2, jcfg.codec, jnp.float32)
+    jlm = jax_init(j_init_lm, k1, jcfg.llm)
+    jcodec = jax_init(j_init_codec, k2, jcfg.codec)
     return jcfg, tcfg, jlm, jcodec, from_jax(jlm), from_jax(jcodec)
 
 

@@ -30,7 +30,6 @@ import pytest
 import torch
 
 from fireredtts2_tpu.config import tiny_engine_config as j_tiny
-from fireredtts2_tpu.engine.engine import FireRedTTS2Engine as JEngine
 from fireredtts2_tpu.models.codec import decoder as j_dec
 from fireredtts2_tpu.models.lm import model as j_lm
 from fireredtts2_tpu.models.pipeline import stream_block as j_stream_block
@@ -50,7 +49,8 @@ from fireredtts2_tpu_torch.utils.text import clean_text, split_text
 from fireredtts2_tpu_torch.weights import from_jax
 
 from _torch_parity import (  # noqa: F401  (one_torch_thread: autouse)
-    jax_frame_noise, one_torch_thread, tiny_params, to_t, wave_close,
+    jax_engine, jax_frame_noise, one_torch_thread, tiny_params, to_t,
+    wave_close,
 )
 
 ATOL = 1e-5
@@ -374,7 +374,7 @@ def engines():
     tcfg = t_tiny(depth_topk=1)
     tcfg = dataclasses.replace(tcfg, llm=dataclasses.replace(tcfg.llm,
                                                              dtype="float32"))
-    jeng = JEngine(config=jcfg, seed=3)
+    jeng = jax_engine(config=jcfg, seed=3)
     teng = TEngine(tcfg, device="cpu", lm_params=from_jax(jeng.lm_params),
                    codec_params=from_jax(jeng.codec_params))
     return jeng, teng

@@ -6,6 +6,9 @@
 - ``python -m fireredtts2_tpu_torch --device cpu`` generate, monologue,
   qa and serve (a subprocess answering over its sockets), train (the LM
   and the codec) and export;
+- serve --asr / --asr-dir (a tiny HF whisper dir) / --asr-int8 /
+  --asr-max-new-tokens build the transcriber, and /v1/audio/transcriptions answers with it, in process
+  and from the serve subprocess;
 - the entry point's defaults: the card unless --device cpu is given, and
   every flag or subcommand of the JAX CLI without a port exits non-zero
   naming its ROADMAP item.
@@ -19,9 +22,12 @@ import urllib.error
 
 import numpy as np
 import pytest
+import torch
 from scipy.io import wavfile
 
 from fireredtts2_tpu_torch import __main__ as cli
+from fireredtts2_tpu_torch.asr import WhisperASR, WhisperASRModelConfig
+from fireredtts2_tpu_torch.asr.convert import write_hf_whisper_dir
 from fireredtts2_tpu_torch.client import FireRedTTSClient
 from fireredtts2_tpu_torch.config import tiny_engine_config
 from fireredtts2_tpu_torch.engine import FireRedTTS2Engine
@@ -139,7 +145,7 @@ def test_cli_serve_answers_over_sockets(tmp_path):
     proc = _cli("--device", "cpu", "serve", "--host", "127.0.0.1",
                 "--http-port", str(http_port), "--ws-port", str(ws_port),
                 "--max-streams", "2", "--reload-root", str(tmp_path / "ckpts"),
-                stdout=log, stderr=subprocess.STDOUT)
+                "--asr", stdout=log, stderr=subprocess.STDOUT)
     try:
         c = FireRedTTSClient(f"http://127.0.0.1:{http_port}",
                              ws_url=f"ws://127.0.0.1:{ws_port}", timeout=120)
@@ -156,6 +162,7 @@ def test_cli_serve_answers_over_sockets(tmp_path):
         assert st["device"] == {"platform": "cpu"} and "active_streams" in st
         a, _ = c.synthesize("Served.", max_audio_length_ms=MS, seed=1)
         assert len(a) > 0
+        assert c.transcribe(voiced(8_000, 4)) != ""
         assert len(np.concatenate(list(c.stream_ws(
             "Served.", max_audio_length_ms=MS)))) > 0
         for d, code in ((tmp_path, 403), (tmp_path / "ckpts" / "none", 400)):
@@ -173,19 +180,91 @@ def test_cli_serve_answers_over_sockets(tmp_path):
     (["--tp", "2", "qa"], "item 13"),
     (["--dp", "2", "qa"], "item 13"),
     (["--speculative-depth", "qa"], "item 9"),
-    (["serve", "--asr"], "item 11"),
-    (["serve", "--asr-dir", "/x"], "item 11"),
     (["serve", "--profiler-port", "9999"], "tracing item"),
     (["bench"], "item 1 "),
     (["train", "--zero1"], "item 13"),
     (["train", "--tp", "2"], "item 13"),
-    (["convert"], "item 11"),
+    (["convert"], "item 20"),
 ])
 def test_cli_unported_flags_exit_nonzero(argv, item):
     with pytest.raises(SystemExit) as e:
         cli.main(["--device", "cpu"] + argv)
     assert e.value.code not in (0, None)
     assert "no port yet" in str(e.value.code) and item in str(e.value.code)
+
+
+# a tiny whisper with large-v3's vocabulary, whose special-token ids an HF
+# config.json leaves at their defaults
+TINY_HF = WhisperASRModelConfig(
+    n_mels=16, encoder_layers=2, decoder_layers=2, num_heads=2, embed_dim=32,
+    ffn_dim=64, max_source_positions=32, max_target_positions=24)
+
+
+@pytest.fixture(scope="module")
+def whisper_dir(tmp_path_factory):
+    """A tiny HF whisper dir from random port weights, and the weights."""
+    src = WhisperASR(model_cfg=TINY_HF, warmup=False, device="cpu", seed=4)
+    d = str(tmp_path_factory.mktemp("whisper"))
+    write_hf_whisper_dir(d, src.params, TINY_HF)
+    return d, src.params
+
+
+@pytest.mark.parametrize("argv", [["--asr"], ["--asr", "--asr-int8"],
+                                  ["--asr", "--asr-dir", "DIR"],
+                                  ["--asr", "--asr-dir", "DIR", "--asr-int8"],
+                                  ["--asr", "--asr-dir", "DIR",
+                                   "--asr-max-new-tokens", "6"]])
+def test_cli_serve_asr_flags_build_transcriber(whisper_dir, argv, capsys):
+    """serve's --asr flags -> the WhisperASR the server is given: the tiny
+    dev model, or the dir's weights (loaded, warmed up), int8 on ask, each
+    window's decode capped on ask (default: what the positions hold)."""
+    d, params = whisper_dir
+    argv = [d if a == "DIR" else a for a in argv]
+    args = cli.build_parser().parse_args(["--device", "cpu", "serve", *argv])
+    asr = cli._build_asr(args)
+    int8 = "--asr-int8" in argv
+    assert asr.device.type == "cpu"
+    cap = (6 if "--asr-max-new-tokens" in argv
+           else asr.model_cfg.max_target_positions - 5)
+    assert asr.config.max_new_tokens == cap
+    assert (asr.params["decoder"]["layers"]["fc1_w"].dtype == torch.int8) == int8
+    if "--asr-dir" in argv:
+        assert asr.model_cfg == TINY_HF and asr.total_transcriptions == 1
+        assert torch.equal(asr.params["decoder"]["token_emb"],
+                           params["decoder"]["token_emb"])
+        if not int8:
+            assert torch.equal(asr.params["encoder"]["layers"]["wq"],
+                               params["encoder"]["layers"]["wq"])
+    else:
+        assert "tiny random-weight dev ASR" in capsys.readouterr().err
+        assert asr.total_transcriptions == 0
+    text = asr.as_transcriber()(voiced(8_000, 3))
+    assert text and all(0 <= int(i) < asr.model_cfg.vocab_size
+                        for i in text.split())
+    assert cli._build_asr(cli.build_parser().parse_args(
+        ["--device", "cpu", "serve"])) is None
+
+
+def test_openai_transcription_route_with_whisper(live, whisper_dir):
+    """/v1/audio/transcriptions on an in-process server with the tiny
+    engine and the dir's Whisper: 200 and the transcriber's text, through
+    client.transcribe."""
+    from fireredtts2_tpu_torch.serve import server
+
+    srv, _ = live
+    asr = cli._build_asr(cli.build_parser().parse_args(
+        ["--device", "cpu", "serve", "--asr", "--asr-dir", whisper_dir[0]]))
+    http = server.HealthHTTPServer(srv.ws, host="127.0.0.1", port=free_port(),
+                                   transcriber=asr.as_transcriber())
+    http.start()
+    try:
+        c = FireRedTTSClient(f"http://127.0.0.1:{http.httpd.server_port}",
+                             timeout=120)
+        audio = voiced(12_000, 5)
+        text = c.transcribe(audio)
+        assert text != "" and text == asr.transcribe(audio).text
+    finally:
+        http.stop()
 
 
 def test_cli_train_and_export(tmp_path, capsys):

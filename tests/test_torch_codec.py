@@ -16,9 +16,11 @@ import torch
 
 from fireredtts2_tpu.models.codec import decoder as jdec
 from fireredtts2_tpu.models.codec import model as jcm
+from fireredtts2_tpu.models.codec import whisper_nn as jwn
 
 from fireredtts2_tpu_torch.models.codec import decoder as tdec
 from fireredtts2_tpu_torch.models.codec import model as tcm
+from fireredtts2_tpu_torch.models.codec import whisper_nn as twn
 from fireredtts2_tpu_torch.ops import flash_decode as tfd
 
 from _torch_parity import one_torch_thread, tiny_params, to_t, wave_close  # noqa: F401
@@ -43,6 +45,71 @@ def test_codec_decode_chunks_matches_jax(rng, monkeypatch, voc_path):
     wave_close(tm.numpy(), jm, "middles")
     wave_close(tt.numpy(), jt, "tails")
     assert tfd.flash_decode_update_bounded.launches == 0
+
+
+def test_vocoder_slab_write_past_end_matches_jax_chip_route(rng, monkeypatch):
+    """One vocoder slab layer (_whisper_layer_slab4) writing S=16 rows at
+    pos T - 8 (half past the slab's end) and T (wholly past). JAX's chip
+    route (the Pallas kernel, here in interpret mode) writes at
+    min(pos, T - S); its plain route scatters and drops the rows past T.
+    The port writes as the chip route does, on every device: output and
+    slabs within 1e-5. The plain route's difference is pinned: stream 1's
+    rows all dropped, stream 0's first 8 rows at their own slots."""
+    jcfg, _, _, jcodec, _, tcodec = tiny_params()
+    acfg = jcfg.codec.acoustic_decoder
+    L, H, D, T = (acfg.num_layers, acfg.num_heads, acfg.embed_dim,
+                  acfg.max_stream_latents)
+    B, S, layer = 2, 16, 1
+    pos = np.array([T - 8, T], np.int32)
+    q_end = (pos[:, None] + 8 * (np.arange(S)[None] // 8 + 1)).astype(np.int32)
+    live_hi = np.int32(pos.max() + S)
+    h = rng.standard_normal((B, S, D)).astype(np.float32)
+    k4, v4 = (rng.standard_normal((L, B, T, D)).astype(np.float32)
+              for _ in range(2))
+    lp_j = {k: v[layer] for k, v in jcodec["acoustic_decoder"]["layers"].items()}
+    lp_t = {k: v[layer] for k, v in tcodec["acoustic_decoder"]["layers"].items()}
+
+    def jax_route(route):
+        monkeypatch.setenv("FRTTS2_FLASH_VOC", route)
+        f = jax.jit(lambda *a: jwn._whisper_layer_slab4(
+            a[0], lp_j, jnp.int32(layer), H, *a[1:]))
+        return [np.asarray(x) for x in f(h, k4, v4, pos, q_end, live_hi)]
+
+    chip, plain = jax_route("interpret"), jax_route("0")
+    tk, tv = to_t(k4), to_t(v4)
+    th = twn._whisper_layer_slab4(to_t(h), lp_t, layer, H, tk, tv, to_t(pos),
+                                  to_t(q_end), int(live_hi))
+    for got, want, what in ((th, chip[0], "h"), (tk, chip[1], "k"),
+                            (tv, chip[2], "v")):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5,
+                                   err_msg=what)
+    np.testing.assert_array_equal(plain[1][layer, 1], k4[layer, 1])
+    np.testing.assert_allclose(plain[1][layer, 0, T - 8:],
+                               chip[1][layer, 0, T - S:T - 8], rtol=1e-6,
+                               atol=1e-6)
+    assert np.abs(plain[0] - chip[0]).max() > 1e-3
+
+
+def test_codec_decode_chunks_past_the_slab_matches_jax_chip_route(rng,
+                                                                   monkeypatch):
+    """The offline decode of T/8 + 8 tokens (its fifth 8-token pass starts
+    at the 256-latent slab's end) against JAX's chip route in interpret
+    mode: middles and tails within 1e-4 of the peak, the overflowing pass
+    included. JAX's plain route agrees up to the last token that fits and
+    differs from there on."""
+    jcfg, tcfg, _, jcodec, _, tcodec = tiny_params()
+    fit = jcfg.codec.acoustic_decoder.max_stream_latents // 8
+    toks = _tokens(jcfg, 1, fit + 8, rng)
+    tm, tt = tcm.codec_decode_chunks(tcodec, tcfg.codec, to_t(toks))
+    monkeypatch.setenv("FRTTS2_FLASH_VOC", "interpret")
+    jm, jt = jcm.codec_decode_chunks(jcodec, jcfg.codec, jnp.asarray(toks))
+    wave_close(tm.numpy(), jm, "middles")
+    wave_close(tt.numpy(), jt, "tails")
+    monkeypatch.setenv("FRTTS2_FLASH_VOC", "0")
+    pm, _ = jcm.codec_decode_chunks(jcodec, jcfg.codec, jnp.asarray(toks))
+    pm, jm = np.asarray(pm), np.asarray(jm)
+    wave_close(pm[:fit], jm[:fit], "plain route, tokens that fit")
+    assert np.abs(pm[fit:] - jm[fit:]).max() > 1e-2 * np.abs(jm).max()
 
 
 def test_stream_decode_block_batched_matches_jax(rng):

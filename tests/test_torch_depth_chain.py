@@ -19,7 +19,6 @@ import torch
 
 from fireredtts2_tpu.config import LLMConfig as JLLM
 from fireredtts2_tpu.config import tiny_engine_config as j_tiny
-from fireredtts2_tpu.engine.engine import FireRedTTS2Engine as JEngine
 from fireredtts2_tpu.models.codec.model import init_codec_params as j_init_codec
 from fireredtts2_tpu.models.lm import model as jmodel
 from fireredtts2_tpu.ops import pallas_depth as jpd
@@ -31,7 +30,9 @@ from fireredtts2_tpu_torch.models.lm import model as tmodel
 from fireredtts2_tpu_torch.ops import depth_chain as tdc
 from fireredtts2_tpu_torch.weights import from_jax
 
-from _torch_parity import one_torch_thread, to_t, wave_close  # noqa: F401
+from _torch_parity import (  # noqa: F401  (one_torch_thread: autouse)
+    jax_engine, jax_init, one_torch_thread, to_t, wave_close,
+)
 
 PLANS = ["", "gate=r4,up=s8,down=s8", "gate=s8,up=r4,down=r4",
          "gate=s8,up=s8,down=s8"]
@@ -59,7 +60,7 @@ def _depth_noise(key, B, ncb, V) -> torch.Tensor:
 @pytest.fixture(scope="module")
 def setup():
     jcfg, tcfg = _cfgs()
-    params = jmodel.init_lm_params(jax.random.PRNGKey(0), jcfg, jnp.float32)
+    params = jax_init(jmodel.init_lm_params, jax.random.PRNGKey(0), jcfg)
     B = 3
     last_h = jax.random.normal(jax.random.PRNGKey(1),
                                (B, jcfg.backbone.embed_dim), jnp.float32)
@@ -285,12 +286,12 @@ def _preset_engines():
             fused_depth_plan=PRESET))
     jcfg, tcfg = cfg(j_tiny), cfg(t_tiny)
     k1, k2 = jax.random.split(jax.random.PRNGKey(3))
-    jeng = JEngine(config=jcfg, seed=3)
+    jeng = jax_engine(config=jcfg, seed=3)
     teng = TEngine(tcfg, device="cpu",
-                   lm_params=from_jax(jmodel.init_lm_params(k1, jcfg.llm,
-                                                            jnp.float32)),
-                   codec_params=from_jax(j_init_codec(k2, jcfg.codec,
-                                                      jnp.float32)))
+                   lm_params=from_jax(jax_init(jmodel.init_lm_params, k1,
+                                               jcfg.llm)),
+                   codec_params=from_jax(jax_init(j_init_codec, k2,
+                                                  jcfg.codec)))
     return jeng, teng
 
 

@@ -17,7 +17,6 @@ import pytest
 from scipy.io import wavfile
 
 from fireredtts2_tpu.config import tiny_engine_config as j_tiny
-from fireredtts2_tpu.engine.engine import FireRedTTS2Engine as JEngine
 from fireredtts2_tpu.engine.engine import Segment as JSegment
 
 from fireredtts2_tpu_torch.config import tiny_engine_config as t_tiny
@@ -25,7 +24,7 @@ from fireredtts2_tpu_torch.engine import FireRedTTS2Engine as TEngine, Segment
 from fireredtts2_tpu_torch.utils.audio_io import load_prompt_audio_16k, resample
 from fireredtts2_tpu_torch.weights import from_jax
 
-from _torch_parity import one_torch_thread, voiced, wave_close  # noqa: F401
+from _torch_parity import jax_engine, one_torch_thread, voiced, wave_close  # noqa: F401
 
 TEXTS = ["[S1]Hello there, how are you?", "[S2]Fine, thanks.",
          "[S1]Good to hear."]
@@ -48,7 +47,7 @@ def engines():
     """A JAX engine and a port engine with its weights, both float32 with
     a top-1 depth chain (built once: the JAX engine compiles its programs
     per instance)."""
-    jeng = JEngine(config=_greedy(j_tiny()), seed=5)
+    jeng = jax_engine(config=_greedy(j_tiny()), seed=5)
     teng = TEngine(_greedy(t_tiny()), device="cpu",
                    lm_params=from_jax(jeng.lm_params),
                    codec_params=from_jax(jeng.codec_params))

@@ -15,7 +15,6 @@ import pytest
 import torch
 
 from fireredtts2_tpu.config import tiny_engine_config as j_tiny
-from fireredtts2_tpu.engine.engine import FireRedTTS2Engine as JEngine
 from fireredtts2_tpu.models.codec.model import stream_decode_init as j_vinit
 from fireredtts2_tpu.models.lm.model import init_lm_state as j_lminit
 from fireredtts2_tpu.models.pipeline import stream_block as j_stream_block
@@ -28,7 +27,8 @@ from fireredtts2_tpu_torch.models.pipeline import stream_block as t_stream_block
 from fireredtts2_tpu_torch.weights import from_jax
 
 from _torch_parity import (  # noqa: F401  (one_torch_thread: autouse)
-    jax_frame_noise, one_torch_thread, tiny_params, to_t, wave_close,
+    jax_engine, jax_frame_noise, one_torch_thread, tiny_params, to_t,
+    wave_close,
 )
 
 
@@ -95,7 +95,7 @@ def greedy_engines():
     tcfg = dataclasses.replace(
         tcfg, llm=dataclasses.replace(tcfg.llm, dtype="float32"))
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
-    jeng = JEngine(config=jcfg, seed=3)
+    jeng = jax_engine(config=jcfg, seed=3)
     teng = TEngine(tcfg, device="cpu", lm_params=from_jax(jeng.lm_params),
                    codec_params=from_jax(jeng.codec_params))
     return jeng, teng

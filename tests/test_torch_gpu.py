@@ -873,3 +873,41 @@ def test_train_step_on_card_matches_cpu_and_remat(cuda):
     torch.testing.assert_close(card, cpu, rtol=1e-4, atol=0)
     assert torch.equal(losses[("cuda", "dots", torch.bfloat16)],
                        losses[("cuda", "", torch.bfloat16)])
+
+
+def test_asr_full_width_two_layers_on_card_matches_cpu(cuda):
+    """Whisper at whisper-large-v3's widths with 2 + 2 layers, fp32: the
+    card's greedy transcription of a 3 s clip equals the CPU's token for
+    token, and one S > 1 forward over the prompt and those tokens picks
+    them again (where its top-2 logit gap is at least 1e-3)."""
+    from fireredtts2_tpu_torch.asr import (
+        ASRConfig, WhisperASR, WhisperASRModelConfig, init_asr_params,
+    )
+    from fireredtts2_tpu_torch.asr import model as am
+
+    cfg = dataclasses.replace(WhisperASRModelConfig(), encoder_layers=2,
+                              decoder_layers=2)
+    params = init_asr_params(torch.Generator().manual_seed(3), cfg)
+    conf = ASRConfig(max_new_tokens=16, fallback_temperatures=())
+    t = np.arange(48_000) / 16_000
+    audio = (0.3 * np.sin(2 * np.pi * (150 + 40 * t) * t)
+             * (0.5 + 0.5 * np.sin(2 * np.pi * 2 * t) ** 2)).astype(np.float32)
+    on = {d: WhisperASR(conf, params=params, model_cfg=cfg, warmup=False,
+                        device=d) for d in ("cpu", cuda)}
+    ids = {d: [i for s in a.transcribe(audio).segments for i in s["tokens"]]
+           for d, a in on.items()}
+    assert ids["cpu"] and ids["cpu"] == ids[cuda]
+    asr = on[cuda]
+    mel, mel_len = asr._mel(audio)
+    prompt = torch.from_numpy(asr._prompt_ids(None)[0]).to(cuda)
+    cross, enc_len = am.encoder_context(asr.params, cfg, mel, mel_len)
+    full = torch.cat([prompt[0], torch.tensor(ids[cuda], device=cuda)])[None]
+    logits, _ = am.asr_decoder_forward(
+        asr.params, cfg, full, am.init_asr_decode_state(cfg, 1, device=cuda),
+        cross, enc_len)
+    P, n = prompt.shape[1], len(ids[cuda])
+    pred = logits[0, P - 1: P - 1 + n]
+    top2 = pred.topk(2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1]).cpu()
+    held = next((i for i in range(n) if gap[i] < 1e-3), n)
+    assert pred.argmax(-1)[:held].tolist() == ids[cuda][:held]

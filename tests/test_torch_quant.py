@@ -17,7 +17,6 @@ import torch
 
 from fireredtts2_tpu.config import TransformerConfig as JTC
 from fireredtts2_tpu.config import tiny_engine_config as j_tiny
-from fireredtts2_tpu.engine.engine import FireRedTTS2Engine as JEngine
 from fireredtts2_tpu.models.codec import whisper_nn as jwn
 from fireredtts2_tpu.models.codec.model import init_codec_params as j_init_codec
 from fireredtts2_tpu.models.lm import transformer as jtr
@@ -34,7 +33,9 @@ from fireredtts2_tpu_torch.ops import int4 as ti4
 from fireredtts2_tpu_torch.ops.quant import quantized_matmul
 from fireredtts2_tpu_torch.weights import from_jax, init_random
 
-from _torch_parity import one_torch_thread, to_t, wave_close  # noqa: F401
+from _torch_parity import (  # noqa: F401  (one_torch_thread: autouse)
+    jax_engine, jax_init, one_torch_thread, to_t, wave_close,
+)
 
 
 @pytest.fixture(scope="module")
@@ -113,11 +114,11 @@ def _engines(codec=None, **llm):
             codec=dataclasses.replace(c.codec, **(codec or {})))
     jcfg, tcfg = cfg(j_tiny), cfg(t_tiny)
     k1, k2 = jax.random.split(jax.random.PRNGKey(4))
-    jeng = JEngine(config=jcfg, seed=4)
+    jeng = jax_engine(config=jcfg, seed=4)
     teng = TEngine(tcfg, device="cpu",
-                   lm_params=from_jax(j_init_lm(k1, jcfg.llm, jnp.float32)),
-                   codec_params=from_jax(j_init_codec(k2, jcfg.codec,
-                                                      jnp.float32)))
+                   lm_params=from_jax(jax_init(j_init_lm, k1, jcfg.llm)),
+                   codec_params=from_jax(jax_init(j_init_codec, k2,
+                                                  jcfg.codec)))
     return jeng, teng
 
 

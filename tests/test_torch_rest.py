@@ -36,7 +36,6 @@ import numpy as np
 import pytest
 
 from fireredtts2_tpu.config import tiny_engine_config as j_tiny
-from fireredtts2_tpu.engine import FireRedTTS2Engine as JEngine
 from fireredtts2_tpu.serve import server as j_server
 
 from fireredtts2_tpu_torch.config import tiny_engine_config as t_tiny
@@ -48,7 +47,7 @@ from fireredtts2_tpu_torch.serve.security import (
 )
 from fireredtts2_tpu_torch.weights import from_jax
 
-from _torch_parity import one_torch_thread, voiced  # noqa: F401  (autouse)
+from _torch_parity import jax_engine, one_torch_thread, voiced  # noqa: F401  (autouse)
 from conftest import free_port
 
 GREEDY = {"top_k": 1, "max_audio_length_ms": 640}
@@ -93,7 +92,8 @@ def _config(tiny):
     """The tiny config at float32 with a top-1 depth chain, its vocoder slab
     the flagship's 3008 latents: /v1/audio/speech has the stock 30 s cap,
     which the flagship's slab holds and the tiny's 256 do not (past the
-    slab the two engines' offline decodes differ: ROADMAP.md section 3)."""
+    slab JAX's CPU route drops rows where the port, as JAX's chip route,
+    clamps: ROADMAP.md section 3)."""
     cfg = tiny(depth_topk=1)
     codec = cfg.codec
     return dataclasses.replace(
@@ -105,7 +105,7 @@ def _config(tiny):
 @pytest.fixture(scope="module")
 def engines():
     jcfg, tcfg = _config(j_tiny), _config(t_tiny)
-    jeng = JEngine(config=jcfg, seed=3)
+    jeng = jax_engine(config=jcfg, seed=3)
     teng = TEngine(tcfg, device="cpu", lm_params=from_jax(jeng.lm_params),
                    codec_params=from_jax(jeng.codec_params))
     return jeng, teng
