@@ -126,6 +126,27 @@ Phases (any failure exits non-zero and prints no result line):
    the greedy loop's ms per token, each clip's wall and RTF, peak memory;
    an HF whisper dir written from (a)'s weights by the port's own writer
    (all 448 decoder positions), read back and timed, for 12(b);
+11c. the rest of transcription on 11b's model (no second init), the 10 s
+   clip, 32 tokens a window: (a) beam search at W=5 on the T = 0 rung
+   (token ids in the vocabulary, at most W finished, the winner's sum of
+   log-probabilities within 1e-3 relative of a teacher-forced forward's,
+   the EOT's term included when it finished) and best-of-5 at T = 0.5
+   (the winner equal to the best row of a plain batch of 5 identical
+   rows, each encoded, decoded with the same draws), then both through
+   the service's ladder; (b) word timestamps of a greedy transcript
+   (starts monotonic, 0 <= start <= end <= the clip's length, every token
+   in some word); (c) a 2 + 2-layer model at full width, beam W=3 on the
+   card and on the CPU: tokens, n_tokens and n_finished equal; (d)
+   StreamingWhisperASR over the clip in 0.5 s chunks (the ladder off:
+   random weights run every rung to its budget): results, no kept
+   exception; (e) one RealtimeASRServer session (start, the clip's PCM16
+   in 100 ms frames, end; interim passes off), over localhost sockets
+   where websockets imports, else through an in-process connection into
+   its handler: a final transcript, no error message; (f) ms per token of
+   beam and best-of (the host loop's wall; a decoder step at W rows by
+   CUDA events), the slab gather's bytes a token, the alignment forward
+   (320 heads) and the DTW, streaming push-to-result and realtime
+   end-to-final seconds, peak memory;
 12. the serving front end over sockets on that engine: (a) the port's
    server in this process (WebSocketTTSServer with max_streams=8 and
    HealthHTTPServer on free localhost ports) driven by the port's client,
@@ -175,7 +196,20 @@ Phases (any failure exits non-zero and prints no result line):
    with phase 11's DIR as the config dir (its codec tree copied), an
    engine loaded from the export with the serving preset, a 10-frame
    greedy generate: kernels A, B and C launched, audio finite, the
-   engine's unquantised leaves equal to the exported masters in its dtype.
+   engine's unquantised leaves equal to the exported masters in its dtype;
+14. the convert drill at the flagship's widths (EngineConfig()'s LM and
+   codec, seeded weights): a reference-layout dir in a temporary
+   `.convert_drill_*/` in the checkout (removed at the end whatever
+   fails) with config_llm.json, config_codec.json and the reference's
+   pickles llm_posttrain.pt and codec.pt (tools/ref_checkpoint.py); (a)
+   run_convert(DIR, fidelity=True) in process, launch counts set to 0
+   before it and read after: goldens recorded, kernels A and C launched
+   and B not (the checkpoint's own config: bf16, no fused depth plan),
+   wer and cer finite; (b) `python -m fireredtts2_tpu_torch
+   --pretrained-dir DIR convert` as a subprocess (log:
+   chiprun_out/phase14_convert_cli.log): exit 0, every golden "ok"; (c)
+   pickle write, conversion, goldens, fidelity (generate, transcribe) and
+   the CLI's wall seconds.
 
 Bounds are the larger of the bytes a call must move (each input read once,
 each output written once) over 3.35 TB/s and its operations over the bf16
@@ -2976,9 +3010,11 @@ def run_asr(dev, card: str, keep: dict, config=None) -> dict:
             {k: v["shape"] for k, v in header.items() if k != "__metadata__"}
             == want and all(v["dtype"] == "F32" for v in header.values())
             and all(getattr(lcfg, f) == getattr(cfg, f) for f in HF_FIELDS))
-        del asr, params
-        torch.cuda.empty_cache()
+        del asr
         keep["asr_dir"] = d
+        # phase 11c searches on these weights (no second init)
+        keep["asr_model"] = dict(params=params, cfg=cfg, clip=short)
+        del params
 
         # (c) narrow depth at full width: the card against the CPU
         ncfg = dataclasses.replace(cfg, encoder_layers=ASR_NARROW,
@@ -2997,6 +3033,335 @@ def run_asr(dev, card: str, keep: dict, config=None) -> dict:
         torch.cuda.empty_cache()
     res["failures"] = failures.records
     checks["asr_no_logged_failure"] = not failures.records
+    res.update(checks=checks, ok=all(checks.values()),
+               phase_s=time.perf_counter() - t_phase)
+    return res
+
+
+ASR_BEAM = 5                # 11c: beam width and best-of candidates
+ASR_BEST_T = 0.5            # the best-of rung's temperature
+ASR_SUM_TOL = 1e-3          # beam sum vs a teacher-forced forward, relative
+ASR_NARROW_BEAM = 3         # (c)'s beam width
+STREAM_CHUNK_S = 0.5        # (d)'s pushes
+RT_FRAME_S = 0.1            # (e)'s PCM16 frames
+
+
+def forced_logprob_sum(params, cfg, ctx, prompt, ids: list, max_new: int
+                       ) -> float:
+    """The log-probability of `ids` (and of EOT after them when fewer than
+    max_new) under one teacher-forced S > 1 forward after `prompt`."""
+    import torch
+    from fireredtts2_tpu_torch.asr import model as am
+
+    dev = prompt.device
+    tail = ids + ([cfg.eot_id] if len(ids) < max_new else [])
+    full = torch.cat([prompt[0], torch.tensor(tail, device=dev)])[None]
+    state = am.init_asr_decode_state(cfg, 1, torch.float32, dev)
+    logits, _ = am.asr_decoder_forward(params, cfg, full, state, *ctx)
+    P = prompt.shape[1]
+    lp = torch.log_softmax(logits[0, P - 1: P - 1 + len(tail)].double(), -1)
+    return float(lp.gather(1, torch.tensor(tail, device=dev)[:, None]).sum())
+
+
+class LocalConnection:
+    """An in-process stand-in for a WebSocket connection to
+    RealtimeASRServer._handle: an async iterator over `frames`, an async
+    send that keeps each message with its arrival time."""
+
+    def __init__(self, frames: list):
+        self.frames = frames
+        self.sent: list = []
+        self.t_end = None
+
+    def __aiter__(self):
+        return self._frames()
+
+    async def _frames(self):
+        for f in self.frames:
+            if isinstance(f, str) and '"end_session"' in f:
+                self.t_end = time.perf_counter()
+            yield f
+
+    async def send(self, msg: str) -> None:
+        self.sent.append((time.perf_counter(), json.loads(msg)))
+
+
+def realtime_session(server, audio: np.ndarray) -> dict:
+    """One session: start, the audio as PCM16 frames of RT_FRAME_S, end.
+    Over localhost sockets where ``websockets`` imports, else through
+    LocalConnection into the server's handler. -> the messages received,
+    the route, and the seconds from end_session to the final transcript."""
+    import asyncio
+
+    from fireredtts2_tpu_torch.asr.realtime import RealtimeASRClient
+
+    n = int(RT_FRAME_S * server.cfg.sample_rate)
+    pcm = [(np.clip(audio[i:i + n], -1, 1) * 32767).astype("<i2").tobytes()
+           for i in range(0, len(audio), n)]
+    start, end = (json.dumps({"type": "start_session"}),
+                  json.dumps({"type": "end_session"}))
+    try:
+        import websockets  # noqa: F401
+    except ImportError:
+        conn = LocalConnection([start] + pcm + [end])
+        asyncio.run(server._handle(conn))
+        msgs = [m for _, m in conn.sent]
+        t_final = next((t for t, m in conn.sent if m["type"] == "transcription"
+                        and m["is_final"] and t >= conn.t_end), None)
+        return dict(route="in-process", messages=msgs,
+                    end_to_final_s=None if t_final is None
+                    else t_final - conn.t_end)
+
+    async def scenario():
+        await server.start()
+        client = RealtimeASRClient(f"ws://127.0.0.1:{server.port}")
+        msgs, t_final = [], None
+        try:
+            await client.connect()
+            msgs.append(await client.start_session())
+            for frame in pcm:
+                await client.ws.send(frame)
+            t_end = time.perf_counter()
+            await client.end_session()
+            while True:
+                m = await client.recv(timeout=600)
+                msgs.append(m)
+                if (m["type"] == "transcription" and m["is_final"]
+                        and t_final is None):
+                    t_final = time.perf_counter()
+                if m["type"] in ("session_ended", "error"):
+                    break
+        finally:
+            await client.close()
+            await server.stop()
+        return dict(route="sockets", messages=msgs,
+                    end_to_final_s=None if t_final is None
+                    else t_final - t_end)
+    server.port = free_port()
+    server.host = "127.0.0.1"
+    return asyncio.run(scenario())
+
+
+def run_asr_search(dev, card: str, keep: dict) -> dict:
+    """Phase 11c on phase 11b's weights (keep["asr_model"], freed here):
+    (a) beam search at W=5 on the clip's T = 0 rung and best-of-5 at
+    T = 0.5, by the model's functions (beam: token ids in the vocabulary,
+    n_finished <= W, the winner's sum equal to a teacher-forced forward's;
+    best-of: the winner equal to the best row of a plain batch of N rows
+    decoded with the same draws) and through the service's ladder; (b)
+    word timestamps of a greedy transcript; (c) a 2 + 2-layer model at
+    full width, beam W=3 on the card and on the CPU; (d) the streaming
+    service over the clip in 0.5 s chunks; (e) one realtime session; (f)
+    the numbers: ms per token (CUDA events of a decoder step at W rows,
+    and the host loop's wall), the alignment forward and the DTW,
+    streaming and realtime latency, peak memory."""
+    import dataclasses
+
+    import torch
+    from fireredtts2_tpu_torch.asr import (
+        ASRConfig, StreamingWhisperASR, WhisperASR, init_asr_params,
+        split_to_words,
+    )
+    from fireredtts2_tpu_torch.asr import model as am
+    from fireredtts2_tpu_torch.asr.realtime import (
+        RealtimeASRServer, StreamingConfig,
+    )
+    from fireredtts2_tpu_torch.asr.timestamps import dtw_path
+
+    t_phase = time.perf_counter()
+    checks: dict = {}
+    model = keep.pop("asr_model")
+    params, cfg, clip = model["params"], model["cfg"], model["clip"]
+    V, W = cfg.vocab_size, ASR_BEAM
+    clip_s = len(clip) / 16_000
+    res: dict = dict(card=card, clip_s=clip_s)
+    reset_peak(dev)
+
+    def service(**kw):
+        conf = dict(max_new_tokens=ASR_MAX_NEW, fallback_temperatures=())
+        conf.update(kw)
+        return WhisperASR(config=ASRConfig(**conf), params=params,
+                          model_cfg=cfg, warmup=False, device=dev)
+
+    with FailureLog() as failures:
+        # (a) the searches by the model's functions, on the clip's window
+        asr = service(beam_size=W, best_of=W, fallback_temperatures=(ASR_BEST_T,),
+                      logprob_threshold=float("inf"))
+        mel, mel_len = asr._mel(clip[: asr._n_samples])
+        ctx = am.encoder_context(params, cfg, mel, mel_len)
+        prompt = torch.from_numpy(asr._prompt_ids(None)[0]).to(dev)
+        am._beam_loop(params, cfg, *ctx, prompt, 4, W)             # warm-up
+        _sync()
+        beam, beam_s = timed(am._beam_loop, params, cfg, *ctx, prompt,
+                             ASR_MAX_NEW, W)
+        _sync()
+        n = int(beam.n_tokens[0])
+        ids = beam.tokens[0, :n].tolist()
+        forced = forced_logprob_sum(params, cfg, ctx, prompt, ids, ASR_MAX_NEW)
+        got = float(beam.sum_logprob[0])
+        res["beam"] = dict(W=W, tokens=n, n_finished=int(beam.n_finished[0]),
+                           sum_logprob=got, forced_sum=forced,
+                           steps=n + (n < ASR_MAX_NEW), wall_s=beam_s)
+        checks["asr_beam_tokens_in_vocab"] = bool(ids) and all(
+            0 <= t < V for t in ids)
+        checks["asr_beam_pool_at_most_w"] = 0 <= int(beam.n_finished[0]) <= W
+        checks["asr_beam_sum_equals_teacher_forced"] = (
+            abs(got - forced) <= ASR_SUM_TOL * abs(forced))
+
+        noise = asr.noise_fn(1, W)
+        best, best_s = timed(am._best_of_loop, params, cfg, *ctx, prompt,
+                             ASR_MAX_NEW, W, ASR_BEST_T, noise)
+        _sync()
+        # the plain batch: N identical rows, each encoded (no tiling)
+        tcross, tlen = am.encoder_context(params, cfg, mel.repeat(W, 1, 1),
+                                          mel_len.repeat(W))
+        plain = am._sample_loop(
+            params, cfg, tcross, tlen,
+            am.init_asr_decode_state(cfg, W, torch.float32, dev),
+            prompt.repeat_interleave(W, dim=0), ASR_MAX_NEW, ASR_BEST_T,
+            noise)
+        avg = plain.sum_logprob / (plain.n_tokens.float() + 1.0)
+        w = int(avg.argmax())
+        res["best_of"] = dict(N=W, temperature=ASR_BEST_T,
+                              tokens=int(best.n_tokens[0]), winner_row=w,
+                              rows_tokens=plain.n_tokens.tolist(), wall_s=best_s)
+        checks["asr_best_of_equals_plain_batch"] = (
+            int(best.n_tokens[0]) == int(plain.n_tokens[w])
+            and torch.equal(best.tokens[0], plain.tokens[w]))
+        del tcross, tlen, plain
+
+        # (a) through the service: beam on the T = 0 rung, best-of at 0.5
+        calls = asr.decode_calls
+        _sync()
+        r, wall = timed(asr.transcribe, clip)
+        _sync()
+        res["service"] = dict(wall_s=wall, rtf=clip_s / wall,
+                              decode_calls=asr.decode_calls - calls,
+                              temperature=r.segments[0]["temperature"]
+                              if r.segments else None,
+                              tokens=len(asr_ids(r)))
+        checks["asr_service_beam_then_best_of"] = (
+            transcript_ok(r, V) and asr.decode_calls - calls == 2)
+
+        # (f) a decoder step at W rows (CUDA events) and the loops' wall
+        tcross, tlen = am._tile_beams(*ctx, W)
+        layers = am.decoder_layer_views(params)
+        state = am.init_asr_decode_state(cfg, W, torch.float32, dev)
+        logits, state = am.asr_decoder_forward(
+            params, cfg, prompt.repeat_interleave(W, dim=0), state, tcross,
+            tlen, layers)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        res["step_ms_w_rows"] = event_ms(
+            lambda: am.asr_decoder_forward(params, cfg, tok, state, tcross,
+                                           tlen, layers), reps=10)
+        res["beam_loop_ms_per_token"] = beam_s * 1e3 / res["beam"]["steps"]
+        res["best_of_loop_ms_per_token"] = best_s * 1e3 / (
+            max(res["best_of"]["rows_tokens"]) + 1)
+        slab = state.cache_k
+        res["slab_gather_mb_per_token"] = 4 * slab.numel() * 4 / 1e6
+        del tcross, tlen, state, slab
+
+        # (b) word timestamps of a greedy transcript
+        asr_w = service(word_timestamps=True)
+        r_w = asr_w.transcribe(clip)
+        words = [w_ for seg in r_w.segments for w_ in seg.get("words", [])]
+        seg_ids = asr_ids(r_w)
+        starts = [w_["start"] for w_ in words]
+        _, counts = split_to_words(seg_ids, asr_w.detokenize)
+        res["words"] = dict(n_words=len(words), tokens=len(seg_ids),
+                            first=words[:3])
+        checks["asr_words_monotonic_in_clip"] = bool(words) and all(
+            a <= b for a, b in zip(starts, starts[1:])) and all(
+            0.0 <= w_["start"] <= w_["end"] <= clip_s + 1e-6 for w_ in words)
+        checks["asr_words_cover_every_token"] = (
+            sum(counts) == len(seg_ids) and len(counts) == len(words))
+        full = torch.cat([prompt[0], torch.tensor(seg_ids, device=dev)])[None]
+        heads = asr_w.alignment_heads
+        res["align_heads"] = len(heads)
+        res["align_ms"] = event_ms(
+            lambda: am._alignment_loop(params, cfg, *ctx, full, heads),
+            reps=3, warmup=1)
+        probs, _ = am._alignment_loop(params, cfg, *ctx, full, heads)
+        res["align_maps_mb"] = probs.numel() * 4 / 1e6
+        n_frames = max(len(clip) // 320, 1)
+        mat = probs[0, :, prompt.shape[1]:, :n_frames].mean(0).cpu().numpy()
+        t0 = time.perf_counter()
+        dtw_path(-mat)
+        res["dtw_ms"] = (time.perf_counter() - t0) * 1e3
+        res["dtw_cells"] = list(mat.shape)
+        del probs, asr_w
+
+        # (c) 2 + 2 layers at full width: beam on the card and on the CPU
+        ncfg = dataclasses.replace(cfg, encoder_layers=ASR_NARROW,
+                                   decoder_layers=ASR_NARROW)
+        cpu_params = init_asr_params(
+            torch.Generator().manual_seed(ASR_SEED + 2), ncfg, device="cpu")
+        outs = {}
+        for where in ("cpu", dev):
+            a = WhisperASR(params=cpu_params, model_cfg=ncfg, warmup=False,
+                           device=where)
+            m, ml = a._mel(clip[: a._n_samples])
+            pr = torch.from_numpy(a._prompt_ids(None)[0]).to(where)
+            outs[where] = am.asr_beam_decode(a.params, ncfg, m, ml, pr,
+                                             ASR_MAX_NEW, ASR_NARROW_BEAM)
+        oc, og = outs["cpu"], outs[dev]
+        res["narrow_beam"] = dict(W=ASR_NARROW_BEAM,
+                                  n_tokens=(int(oc.n_tokens[0]),
+                                            int(og.n_tokens[0])),
+                                  n_finished=(int(oc.n_finished[0]),
+                                              int(og.n_finished[0])))
+        checks["asr_narrow_beam_card_equals_cpu"] = all(
+            torch.equal(getattr(og, f).cpu(), getattr(oc, f))
+            for f in ("tokens", "n_tokens", "n_finished"))
+        del outs, cpu_params
+
+        # (d) streaming over the clip in 0.5 s chunks
+        streaming = StreamingWhisperASR(service())
+        step = int(STREAM_CHUNK_S * 16_000)
+        expect = (len(clip) - streaming.chunk_size) // (
+            streaming.chunk_size - streaming.overlap_size) + 1
+        streaming.start_streaming()
+        pushed, arrived = [], []
+        for i in range(0, len(clip), step):
+            streaming.add_audio_chunk(clip[i:i + step])
+            pushed.append(time.perf_counter())
+        deadline = time.perf_counter() + 120
+        while len(arrived) < expect and time.perf_counter() < deadline:
+            got_r = streaming.get_transcription_result(timeout=0.5)
+            if got_r is not None:
+                arrived.append(time.perf_counter())
+        kept = None
+        try:
+            streaming.stop_streaming()
+        except Exception as e:        # the thread's kept exception
+            kept = repr(e)
+        per = (streaming.chunk_size - streaming.overlap_size) // step
+        first = streaming.chunk_size // step - 1
+        lat = [t - pushed[min(first + k * per, len(pushed) - 1)]
+               for k, t in enumerate(arrived)]
+        res["streaming"] = dict(results=len(arrived), expected=expect,
+                                push_to_result_s=lat, error=kept)
+        checks["asr_streaming_results_no_error"] = bool(arrived) and kept is None
+
+        # (e) one realtime session, interim passes off
+        server = RealtimeASRServer(service(),
+                                   StreamingConfig(interim_interval_s=3600.0))
+        rt = realtime_session(server, clip)
+        finals = [m for m in rt["messages"]
+                  if m["type"] == "transcription" and m["is_final"]]
+        errors = [m for m in rt["messages"] if m["type"] == "error"]
+        res["realtime"] = dict(route=rt["route"], finals=len(finals),
+                               errors=errors,
+                               end_to_final_s=rt["end_to_final_s"],
+                               text=finals[-1]["text"][:80] if finals else None)
+        checks["asr_realtime_final_no_error"] = (
+            bool(finals) and not errors and bool(finals[-1]["text"])
+            and rt["end_to_final_s"] is not None)
+    res["failures"] = failures.records
+    checks["asr_search_no_logged_failure"] = not failures.records
+    res["peak_gb"] = peak_gb(dev)
+    del params, model, ctx, asr
+    torch.cuda.empty_cache()
     res.update(checks=checks, ok=all(checks.values()),
                phase_s=time.perf_counter() - t_phase)
     return res
@@ -3319,6 +3684,156 @@ def run_training(dev, card: str, config_dir: str, config=None,
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    res.update(checks=checks, ok=all(checks.values()),
+               phase_s=time.perf_counter() - t_phase)
+    return res
+
+
+DRILL_SEED = 23
+DRILL_CLI_TIMEOUT_S = 600
+DRILL_KERNELS = ("flash_decode_gqa1", "flash_decode_update_bounded")
+
+
+class StageTimer:
+    """While attached, wraps callables (attributes of modules or classes,
+    restored on exit) to add up their wall seconds under a name (`s`) and
+    keep the clock at their first call (`first`)."""
+
+    def __init__(self, *targets):
+        self.targets = targets          # (owner, attribute, name)
+        self.s: dict = {}
+        self.first: dict = {}
+        self._saved: list = []
+
+    def __enter__(self):
+        for owner, attr, name in self.targets:
+            fn = getattr(owner, attr)
+            self._saved.append((owner, attr, fn))
+
+            def wrapped(*a, _fn=fn, _name=name, **kw):
+                t0 = time.perf_counter()
+                self.first.setdefault(_name, t0)
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    _sync()
+                    self.s[_name] = (self.s.get(_name, 0.0)
+                                     + time.perf_counter() - t0)
+            setattr(owner, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in reversed(self._saved):
+            setattr(owner, attr, fn)
+
+
+def run_convert_drill(dev, card: str, config=None) -> dict:
+    """Phase 14, the convert drill at the flagship's widths (config:
+    another, a CPU rehearsal's): a reference-layout dir written from seeded
+    weights in a temporary dir inside the checkout (removed at the end,
+    whatever fails): config_llm.json, config_codec.json, llm_posttrain.pt
+    and codec.pt. (a) run_convert(DIR, fidelity=True) in process, launch
+    counts zeroed before it: goldens recorded, kernels A and C launched
+    and B not (the checkpoint's own config: bf16, no fused depth plan),
+    wer and cer finite; (b) `python -m fireredtts2_tpu_torch
+    --pretrained-dir DIR convert` as a subprocess: exit 0, every golden
+    "ok"; (c) pickle write, conversion, goldens, fidelity (generate,
+    transcribe) and the CLI's wall seconds."""
+    import tempfile
+
+    import torch
+    from fireredtts2_tpu_torch.config import EngineConfig
+    from fireredtts2_tpu_torch.engine import FireRedTTS2Engine
+    from fireredtts2_tpu_torch.models.codec.model import init_codec_params
+    from fireredtts2_tpu_torch.models.lm.model import init_lm_params
+    from fireredtts2_tpu_torch.runtime import convert as conv
+    from fireredtts2_tpu_torch.serve import qa
+    from fireredtts2_tpu_torch.tools.ref_checkpoint import (
+        write_reference_pickles,
+    )
+    from fireredtts2_tpu_torch.weights import dtype_of
+
+    t_phase = time.perf_counter()
+    config = config or EngineConfig()
+    checks: dict = {}
+    res: dict = dict(card=card)
+    d = tempfile.mkdtemp(prefix=".convert_drill_",
+                         dir=os.path.dirname(os.path.abspath(__file__)))
+    atexit.register(shutil.rmtree, d, True)
+    try:
+        gen = torch.Generator(device=dev).manual_seed(DRILL_SEED)
+        lm = init_lm_params(gen, config.llm, dtype_of(config.llm.dtype), dev)
+        codec = init_codec_params(gen, config.codec,
+                                  dtype_of(config.codec.dtype), dev,
+                                  semantic_head=True)
+        write_serving_dir(d, config)
+        _sync()
+        paths, res["pickle_write_s"] = timed(write_reference_pickles, d, lm,
+                                             codec)
+        res["pickle_gb"] = sum(os.path.getsize(p_) for p_ in paths) / 1e9
+        del lm, codec
+        torch.cuda.empty_cache()
+
+        # (a) in process, with the fidelity report
+        timer = StageTimer(
+            (conv, "_golden_codec_tokens", "golden_codec"),
+            (conv, "_golden_lm_frames", "golden_lm"),
+            (FireRedTTS2Engine, "generate", "fidelity_generate"),
+            (qa.FidelityHarness, "evaluate_utterance", "fidelity_harness"))
+        reset_counts()
+        t0 = time.perf_counter()
+        with timer:
+            summary = conv.run_convert(d, fidelity=True, device=dev)
+        _sync()
+        total = time.perf_counter() - t0
+        launches = read_counts()
+        st = timer.s
+        goldens_s = st.get("golden_codec", 0.0) + st.get("golden_lm", 0.0)
+        res["convert_s"] = timer.first.get("golden_codec", t0) - t0
+        res["goldens_s"] = goldens_s
+        res["golden_codec_s"] = st.get("golden_codec")
+        res["golden_lm_s"] = st.get("golden_lm")
+        res["fidelity_s"] = total - res["convert_s"] - goldens_s
+        res["fidelity_generate_s"] = st.get("fidelity_generate")
+        res["fidelity_transcribe_s"] = (st.get("fidelity_harness", 0.0)
+                                        - st.get("fidelity_generate", 0.0))
+        res["in_process_s"] = total
+        res["launches"] = launches
+        res["summary"] = summary
+        fid = summary.get("fidelity", {})
+        checks["drill_goldens_recorded"] = (
+            summary["parity_ok"] and set(summary["parity"].values())
+            == {"recorded"} and len(summary["parity"]) == 2)
+        checks["drill_launches_a_and_c_not_b"] = (
+            all(launches[k] > 0 for k in DRILL_KERNELS)
+            and launches["fused_depth_decode"] == 0)
+        checks["drill_fidelity_finite"] = all(
+            isinstance(fid.get(k), float) and math.isfinite(fid[k])
+            for k in ("wer", "cer")) and fid.get("speaker_sim", 0) is None
+        torch.cuda.empty_cache()
+
+        # (b) the CLI as a subprocess: every golden validates
+        cmd = [sys.executable, "-m", "fireredtts2_tpu_torch",
+               "--pretrained-dir", d, "convert"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=DRILL_CLI_TIMEOUT_S,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        res["cli_s"] = time.perf_counter() - t0
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "phase14_convert_cli.log"), "w") as f:
+            f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+        try:
+            cli = json.loads(proc.stdout[proc.stdout.index("{"):])
+        except ValueError:
+            cli = {}
+        res["cli"] = dict(cmd=" ".join(cmd[1:]), exit_code=proc.returncode,
+                          parity=cli.get("parity"))
+        checks["drill_cli_exit_0_all_ok"] = (
+            proc.returncode == 0 and bool(cli.get("parity"))
+            and set(cli["parity"].values()) == {"ok"})
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
     res.update(checks=checks, ok=all(checks.values()),
                phase_s=time.perf_counter() - t_phase)
     return res
@@ -3696,6 +4211,37 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     mark("11b")
+    # 11c. beam search, best-of, words, streaming and realtime on 11b's model
+    se = run_asr_search(dev, card, keep)
+    bm, bo, sv_ = se["beam"], se["best_of"], se["service"]
+    log(f"[asr search] beam W={bm['W']}: {bm['tokens']} tokens, "
+        f"{bm['n_finished']} finished, sum {bm['sum_logprob']:.4f} (teacher-"
+        f"forced {bm['forced_sum']:.4f}), {se['beam_loop_ms_per_token']:.2f} "
+        f"ms per token (host loop wall); best-of N={bo['N']} at T="
+        f"{bo['temperature']}: {se['best_of_loop_ms_per_token']:.2f} ms per "
+        f"token, winner row {bo['winner_row']}; a decoder step at {bm['W']} "
+        f"rows {se['step_ms_w_rows']:.2f} ms (CUDA events, steps queued); "
+        f"slab gather {se['slab_gather_mb_per_token']:.1f} MB a token  [{card}]")
+    log(f"[asr search] service (beam T=0, best-of T={ASR_BEST_T}) on the "
+        f"{se['clip_s']:.0f} s clip: wall {sv_['wall_s']:.3f} s, RTF "
+        f"{sv_['rtf']:.3f}, {sv_['decode_calls']} decodes; words "
+        f"{se['words']['n_words']} for {se['words']['tokens']} tokens; "
+        f"alignment forward ({se['align_heads']} heads, maps "
+        f"{se['align_maps_mb']:.1f} MB) {se['align_ms']:.2f} ms, DTW "
+        f"{se['dtw_ms']:.2f} ms over {se['dtw_cells']}  [{card}]")
+    st_, rt_ = se["streaming"], se["realtime"]
+    log(f"[asr search] {ASR_NARROW}+{ASR_NARROW} layers beam W="
+        f"{ASR_NARROW_BEAM} card vs CPU: n_tokens {se['narrow_beam']['n_tokens']}"
+        f", n_finished {se['narrow_beam']['n_finished']}; streaming "
+        f"{st_['results']} of {st_['expected']} results, push to result s "
+        f"{[round(x, 3) for x in st_['push_to_result_s']]}; realtime "
+        f"({rt_['route']}) end_session to final {rt_['end_to_final_s']} s; "
+        f"peak memory {se['peak_gb']:.2f} GB  [{card}]")
+    log(f"[asr search] checks: {se['checks']}; phase {se['phase_s']:.1f} s")
+    ok &= se["ok"]
+    report["asr_search"] = se
+
+    mark("11c")
     # 12. the serving front end over sockets on phase 11's loaded engine
     pool8 = sv["pools"].get(SERVER_MAX_STREAMS, {})
     srv = run_server(dev, card, keep,
@@ -3796,6 +4342,26 @@ def main() -> int:
     report["training"] = tr
 
     mark("13")
+    # 14. the convert drill at the flagship's widths (kernels A and C)
+    dr = run_convert_drill(dev, card)
+    fid = dr["summary"].get("fidelity", {})
+    log(f"[drill] reference pickles {dr['pickle_gb']:.2f} GB written in "
+        f"{dr['pickle_write_s']:.1f} s; run_convert: conversion "
+        f"{dr['convert_s']:.1f} s, goldens {dr['goldens_s']:.1f} s (codec "
+        f"{dr['golden_codec_s']:.2f}, LM {dr['golden_lm_s']:.2f}), fidelity "
+        f"{dr['fidelity_s']:.1f} s (generate {dr['fidelity_generate_s']:.1f}, "
+        f"transcribe {dr['fidelity_transcribe_s']:.2f}); wer {fid.get('wer')} "
+        f"cer {fid.get('cer')}; parity {dr['summary']['parity']}; launches "
+        f"{dr['launches']}; CLI `{dr['cli']['cmd']}` exit "
+        f"{dr['cli']['exit_code']} in {dr['cli_s']:.1f} s, parity "
+        f"{dr['cli']['parity']}  [{card}]")
+    log(f"[drill] checks: {dr['checks']}; phase {dr['phase_s']:.1f} s")
+    for k, n in dr["launches"].items():
+        main_launches[k] = main_launches.get(k, 0) + n
+    ok &= dr["ok"]
+    report["drill"] = dr
+
+    mark("14")
     report["phase_s"] = phase_s
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

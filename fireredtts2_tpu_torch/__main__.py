@@ -11,6 +11,7 @@ Counterpart of ``fireredtts2_tpu/__main__.py``:
   python -m fireredtts2_tpu_torch train     --model lm --steps 100 --ckpt-dir ckpts
   python -m fireredtts2_tpu_torch export    --out DIR --config-dir CFG \\
                                             --lm-ckpt ckpts/step_00000100
+  python -m fireredtts2_tpu_torch --pretrained-dir DIR convert [--fidelity]
 
 The engine and training run on the card (``--device cuda``, the default);
 a CPU run asks for it with ``--device cpu``. Without --pretrained-dir a tiny
@@ -35,7 +36,6 @@ NOT_PORTED = {
     "--zero1": "item 13 (multi-GPU)",
     "--profiler-port": "the tracing item (a live profiler endpoint)",
     "bench": "item 1 (bench harness)",
-    "convert": "item 20 (the convert drill and its fidelity report)",
 }
 
 
@@ -243,6 +243,14 @@ def _cmd_export(args):
     sys.exit(export_main(args))
 
 
+def _cmd_convert(args):
+    if not args.pretrained_dir:
+        sys.exit("convert requires --pretrained-dir")
+    from fireredtts2_tpu_torch.runtime.convert import main as convert_main
+
+    sys.exit(convert_main(args))
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="fireredtts2_tpu_torch")
     p.add_argument("--pretrained-dir", default=None,
@@ -377,9 +385,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="train.codec_loop step dir")
     x.set_defaults(fn=_cmd_export)
 
-    for name in ("bench", "convert"):
-        sub.add_parser(name, help=f"not ported ({NOT_PORTED[name]})",
-                       add_help=False)
+    c = sub.add_parser(
+        "convert",
+        help="reference checkpoint dir -> DIR/torch/ trees + golden parity "
+             "smoke on the card (the real-checkpoint bring-up drill)")
+    c.add_argument("--out", default=None,
+                   help="output dir of the converted trees (default "
+                        "<pretrained-dir>/torch)")
+    c.add_argument("--fidelity", action="store_true",
+                   help="also run the WER/CER fidelity harness on an "
+                        "engine loaded from the dir")
+    c.set_defaults(fn=_cmd_convert)
+
+    sub.add_parser("bench", help=f"not ported ({NOT_PORTED['bench']})",
+                   add_help=False)
     return p
 
 

@@ -1,11 +1,14 @@
-"""Whisper ASR service: transcription and language detection.
+"""Whisper ASR service: transcription, language detection and streaming.
 
-Counterpart of ``fireredtts2_tpu/asr/asr.py`` (its ``WhisperASR``):
-preprocessing (mono, float32, 16 kHz, peak-normalised), the 30 s static
-mel window, greedy decoding with the temperature-fallback ladder and the
-no-speech gate, long audio in fixed 30 s windows with rolling
-``<|startofprev|>`` conditioning, language detection, performance stats
-and the ``serve/s2s.py`` transcriber adapter. The model is
+Counterpart of ``fireredtts2_tpu/asr/asr.py``: ``WhisperASR``
+(preprocessing to mono float32 16 kHz, peak-normalised; the 30 s static
+mel window; the temperature-fallback ladder with beam search on its T = 0
+rung when beam_size > 1 and best-of-N on its T > 0 rungs when best_of >
+1; the no-speech gate; long audio in fixed 30 s windows with rolling
+``<|startofprev|>`` conditioning; word timestamps from the alignment
+heads; language detection; performance stats; the ``serve/s2s.py``
+transcriber adapter), ``StreamingWhisperASR`` (a background thread over
+overlapping chunks) and ``create_asr_interface``. The model is
 ``asr/model.py``, on the card unless the caller asks for the CPU.
 
 Differences from the JAX service, none of which changes a result:
@@ -15,18 +18,25 @@ Differences from the JAX service, none of which changes a result:
   (ASRConfig.seed, attempt, step) (JAX: ``fold_in(fold_in(key(seed),
   attempt), step)``); ``noise_fn`` is the one place that draws it;
 - a device fault is logged and raised, not turned into an empty result;
-- ``detect_language`` reads the first 30 s window of longer audio.
-
-Beam search, best-of-N sampling and word timestamps are not ported yet:
-asking for them raises ``NotImplementedError`` naming their ROADMAP item.
+- ``detect_language`` reads the first 30 s window of longer audio;
+- word timestamps run the alignment forward over the window's encoder
+  context and over the prompt and the tokens alone (JAX re-encodes and
+  pads the row with EOT to a static length; the attention is causal, so
+  the rows the words read do not depend on the padding);
+- the streaming thread keeps the exception that stops it, logs it once
+  and re-raises it from ``get_transcription_result`` and
+  ``stop_streaming`` (JAX's thread has no handler).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import queue
+import threading
 import time
 import zlib
+from collections import deque
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
 
@@ -34,9 +44,12 @@ import numpy as np
 import torch
 
 from fireredtts2_tpu_torch.asr.model import (
-    TINY_ASR, WhisperASRModelConfig, _sample_loop, asr_detect_language,
-    encoder_context, init_asr_decode_state, init_asr_params,
-    quantize_asr_params_int8,
+    TINY_ASR, WhisperASRModelConfig, _alignment_loop, _beam_loop,
+    _best_of_loop, _sample_loop, asr_detect_language, encoder_context,
+    init_asr_decode_state, init_asr_params, quantize_asr_params_int8,
+)
+from fireredtts2_tpu_torch.asr.timestamps import (
+    default_alignment_heads, word_timestamps_from_alignment,
 )
 from fireredtts2_tpu_torch.ops.audio import log_mel_spectrogram, whisper_mel_filters
 from fireredtts2_tpu_torch.runtime.checkpoint import _to
@@ -59,14 +72,6 @@ LANGUAGES: List[str] = [
     "ba", "jw", "su", "yue",
 ]
 
-# what ASRConfig can ask for that has no port yet -> its ROADMAP item
-NOT_PORTED = {
-    "beam_size": "item 18 (ASR search: beam search)",
-    "best_of": "item 18 (ASR search: best-of-N sampling)",
-    "word_timestamps": "item 18 (ASR search: word timestamps)",
-}
-
-
 @dataclass
 class TranscriptionResult:
     text: str
@@ -82,15 +87,17 @@ class TranscriptionResult:
 
 @dataclass
 class ASRConfig:
-    """Decoding knobs, as the JAX package's ASRConfig. Greedy decoding
-    with the temperature-fallback ladder: a window whose transcript is
-    weak (mean logprob below logprob_threshold) or repetitive (compression
-    ratio above its threshold), and not silence, is decoded again at each
-    higher temperature in turn. Long audio is cut into 30 s windows (at
-    most max_windows); once prev_window tokens of context exist, the next
-    window's prompt carries the last prev_window of them after
-    <|startofprev|>. beam_size > 1, best_of > 1 and word_timestamps are
-    not ported (NOT_PORTED)."""
+    """Decoding knobs, as the JAX package's ASRConfig. The
+    temperature-fallback ladder: a window whose transcript is weak (mean
+    logprob below logprob_threshold) or repetitive (compression ratio
+    above its threshold), and not silence, is decoded again at each higher
+    temperature in turn. beam_size > 1: beam search on the T = 0 rung;
+    best_of > 1: that many samples on each T > 0 rung, the best kept.
+    word_timestamps: a "words" list in each segment (cross-attention
+    alignment and DTW, one teacher-forced forward a window). Long audio is
+    cut into 30 s windows (at most max_windows); once prev_window tokens
+    of context exist, the next window's prompt carries the last
+    prev_window of them after <|startofprev|>."""
     model_size: str = "large-v3"
     language: Optional[str] = None       # None = no language token
     task: str = "transcribe"
@@ -126,6 +133,15 @@ def _default_detokenizer(ids: List[int]) -> str:
     return " ".join(str(i) for i in ids)
 
 
+def load_hf_detokenizer(tokenizer_dir: str) -> Detokenizer:
+    """A local HF tokenizer dir's decode (``transformers``, local files
+    only; imported when called)."""
+    from transformers import AutoTokenizer
+
+    tok = AutoTokenizer.from_pretrained(tokenizer_dir, local_files_only=True)
+    return lambda ids: tok.decode(ids, skip_special_tokens=True)
+
+
 def _step_seed(seed: int, attempt: int, t: int) -> int:
     return ((seed * 1_000_003 + attempt) * 1_000_003 + t) & ((1 << 63) - 1)
 
@@ -144,24 +160,18 @@ class WhisperASR:
     another). Without `params` the weights are random, drawn at
     `model_cfg`'s widths (TINY_ASR by default: dev mode) from a generator
     seeded with `seed`; ``asr.convert.load_hf_whisper`` reads a checkpoint.
-    quantize_int8: weight-only int8 on the encoder stack and the decoder's
-    per-token matmuls."""
+    alignment_heads: the (layer, head) pairs word timestamps read (default:
+    every head of the decoder's top half). quantize_int8: weight-only int8
+    on the encoder stack and the decoder's per-token matmuls."""
 
     def __init__(self, config: Optional[ASRConfig] = None,
                  params: Optional[dict] = None,
                  model_cfg: Optional[WhisperASRModelConfig] = None,
                  detokenizer: Optional[Detokenizer] = None,
+                 alignment_heads: Optional[tuple] = None,
                  seed: int = 0, warmup: bool = True,
                  quantize_int8: bool = False, device=None):
         self.config = config or ASRConfig()
-        asked = {"beam_size": self.config.beam_size > 1,
-                 "best_of": self.config.best_of > 1,
-                 "word_timestamps": bool(self.config.word_timestamps)}
-        for name, on in asked.items():
-            if on:
-                raise NotImplementedError(
-                    f"ASRConfig.{name} has no port yet: ROADMAP.md queue 1, "
-                    f"{NOT_PORTED[name]}")
         self.model_cfg = model_cfg or TINY_ASR
         # The default budget is whisper-large-v3's (448 target positions);
         # smaller models get what fits after the longest plain prompt
@@ -170,6 +180,10 @@ class WhisperASR:
         if self.config.max_new_tokens > cap:
             self.config = dataclasses.replace(self.config,
                                               max_new_tokens=max(cap, 1))
+        self.alignment_heads = tuple(
+            alignment_heads if alignment_heads is not None
+            else default_alignment_heads(self.model_cfg.decoder_layers,
+                                         self.model_cfg.num_heads))
         self.device = resolve_device(device)
         if params is None:
             gen = torch.Generator(device=self.device)
@@ -199,11 +213,12 @@ class WhisperASR:
 
     # ------------------------------------------------------------ internals
 
-    def noise_fn(self, attempt: int) -> Callable[[int], torch.Tensor]:
-        """Step t's sampling noise of ladder attempt `attempt`: (1, V)
-        standard Gumbel draws from a generator seeded by (ASRConfig.seed,
-        attempt, t)."""
-        shape = (1, self.model_cfg.vocab_size)
+    def noise_fn(self, attempt: int, rows: int = 1
+                 ) -> Callable[[int], torch.Tensor]:
+        """Step t's sampling noise of ladder attempt `attempt`: (rows, V)
+        standard Gumbel draws (a row per decoded candidate) from a
+        generator seeded by (ASRConfig.seed, attempt, t)."""
+        shape = (rows, self.model_cfg.vocab_size)
 
         def fn(t: int) -> torch.Tensor:
             gen = torch.Generator(device=self.device)
@@ -277,14 +292,25 @@ class WhisperASR:
     def _decode_once(self, context, prompt: torch.Tensor, temperature: float,
                      attempt: int, sot_index: int = 0
                      ) -> tuple[list, float, float]:
-        """One ladder rung -> (ids, mean logprob, p(no speech))."""
-        noise = self.noise_fn(attempt) if temperature > 0.0 else None
+        """One ladder rung -> (ids, mean logprob, p(no speech)): beam
+        search on a T = 0 rung when beam_size > 1, best-of-N on a T > 0
+        rung when best_of > 1, else one greedy or sampled decode."""
+        cfg, p, n_new = self.model_cfg, self.params, self.config.max_new_tokens
         cross, enc_len = context
-        state = init_asr_decode_state(self.model_cfg, 1, cross["k"].dtype,
-                                      self.device)
-        res = _sample_loop(self.params, self.model_cfg, cross, enc_len, state,
-                           prompt, self.config.max_new_tokens, temperature,
-                           noise, sot_index)
+        if temperature <= 0.0 and self.config.beam_size > 1:
+            res = _beam_loop(p, cfg, cross, enc_len, prompt, n_new,
+                             self.config.beam_size, sot_index)
+        elif temperature > 0.0 and self.config.best_of > 1:
+            res = _best_of_loop(p, cfg, cross, enc_len, prompt, n_new,
+                                self.config.best_of, temperature,
+                                self.noise_fn(attempt, self.config.best_of),
+                                sot_index)
+        else:
+            noise = self.noise_fn(attempt) if temperature > 0.0 else None
+            state = init_asr_decode_state(cfg, 1, cross["k"].dtype,
+                                          self.device)
+            res = _sample_loop(p, cfg, cross, enc_len, state, prompt, n_new,
+                               temperature, noise, sot_index)
         self.decode_calls += 1
         n = int(res.n_tokens[0])
         ids = [int(t) for t in res.tokens[0, :n].tolist()]
@@ -297,7 +323,8 @@ class WhisperASR:
         transcript is weak or repetitive, and the window not silence,
         again at each higher temperature; the first decode that clears the
         gates is kept. -> (ids, text, mean logprob, p(no speech), the
-        temperature used)."""
+        temperature used, (the encoder context, the prompt's ids) for the
+        word timestamps)."""
         prompt_np, sot_index = self._prompt_ids(lang, prev_ids)
         self._check_fits(prompt_np.shape[1])
         mel, mel_len = self._mel(win)
@@ -323,7 +350,8 @@ class WhisperASR:
         if (no_speech > self.config.no_speech_threshold
                 and avg_lp < self.config.logprob_threshold):
             text, ids = "", []
-        return ids, text, avg_lp, no_speech, used_temp
+        return (ids, text, avg_lp, no_speech, used_temp,
+                (context, prompt_np[0].tolist()))
 
     # ------------------------------------------------------------------ API
 
@@ -353,19 +381,25 @@ class WhisperASR:
                 off = wi * W
                 win = audio[off: off + W]
                 cond = prev if self.config.condition_on_previous_text else None
-                ids, text, avg_lp, no_speech, used_temp = \
+                ids, text, avg_lp, no_speech, used_temp, align_ctx = \
                     self._transcribe_window(win, lang, cond,
                                             attempt_base=wi * 1000)
                 if not ids:
                     continue
                 t_off = off / 16_000
-                segments.append({
-                    "id": len(segments), "start": t_off,
-                    "end": t_off + len(win) / 16_000, "text": text,
-                    "tokens": ids, "temperature": used_temp,
-                    "avg_logprob": avg_lp,
-                    "compression_ratio": _compression_ratio(text),
-                    "no_speech_prob": no_speech})
+                seg = {"id": len(segments), "start": t_off,
+                       "end": t_off + len(win) / 16_000, "text": text,
+                       "tokens": ids, "temperature": used_temp,
+                       "avg_logprob": avg_lp,
+                       "compression_ratio": _compression_ratio(text),
+                       "no_speech_prob": no_speech}
+                if self.config.word_timestamps:
+                    words = self._word_timestamps(*align_ctx, ids, len(win))
+                    for w in words:
+                        w["start"] += t_off
+                        w["end"] += t_off
+                    seg["words"] = words
+                segments.append(seg)
                 texts.append(text.strip())
                 lp_num += avg_lp * (len(ids) + 1)
                 lp_den += len(ids) + 1
@@ -398,6 +432,21 @@ class WhisperASR:
                 end_time=0.0, segments=[],
                 processing_time_ms=(time.time() - t0) * 1000.0,
                 model_name=self.model_name)
+
+    def _word_timestamps(self, context, prompt_row: list, ids: list,
+                         n_samples: int) -> list:
+        """A window's word dicts (word, start, end, probability; seconds
+        from the window's start): the alignment heads' teacher-forced maps
+        over prompt + ids, then DTW (``asr.timestamps``)."""
+        tokens = torch.tensor([prompt_row + ids], dtype=torch.int64,
+                              device=self.device)
+        probs, tok_lp = _alignment_loop(self.params, self.model_cfg, *context,
+                                        tokens, self.alignment_heads)
+        n_frames = max(n_samples // 320, 1)   # 16 kHz -> 50 Hz encoder frames
+        return word_timestamps_from_alignment(
+            probs[0].cpu().numpy(), tok_lp[0].cpu().numpy(),
+            text_start=len(prompt_row), n_text=len(ids), ids=ids,
+            detokenize=self.detokenize, n_frames=n_frames)
 
     def detect_language(self, audio_data: np.ndarray,
                         sample_rate: int = 16_000) -> Dict[str, Any]:
@@ -432,3 +481,131 @@ class WhisperASR:
     def as_transcriber(self) -> Callable[[np.ndarray], str]:
         """Adapter to the serve/s2s.py Transcriber protocol."""
         return lambda audio16k: self.transcribe(audio16k, 16_000).text
+
+
+class StreamingWhisperASR:
+    """Background transcription of a stream of chunks: a thread gathers
+    chunk_duration of audio, transcribes it (conditioned on the rolling
+    transcript's tokens when condition_on_previous_text is on), keeps
+    overlap_duration of it for the next chunk, and queues each non-empty
+    result (is_final False). An exception that stops the thread is kept,
+    logged once, and raised again by get_transcription_result and
+    stop_streaming."""
+
+    def __init__(self, asr: WhisperASR, chunk_duration: float = 2.0,
+                 overlap_duration: float = 0.5, sample_rate: int = 16_000):
+        self.asr = asr
+        self.sample_rate = sample_rate
+        self.chunk_size = int(chunk_duration * sample_rate)
+        self.overlap_size = int(overlap_duration * sample_rate)
+        self.audio_queue: "queue.Queue[np.ndarray]" = queue.Queue(maxsize=64)
+        self.result_queue: "queue.Queue[TranscriptionResult]" = \
+            queue.Queue(maxsize=16)
+        self.audio_buffer: deque = deque()
+        self.context_history: deque = deque(maxlen=5)
+        # the rolling transcript's tokens, the <|startofprev|> context
+        self.context_tokens: deque = deque(maxlen=4 * asr.config.prev_window)
+        self.is_streaming = False
+        self.error: Optional[BaseException] = None
+        self._thread: Optional[threading.Thread] = None
+
+    def start_streaming(self) -> None:
+        if self.is_streaming:
+            return
+        self.error = None
+        self.is_streaming = True
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def stop_streaming(self) -> None:
+        """Stop the thread; raise the exception that stopped it, if any."""
+        self.is_streaming = False
+        if self._thread:
+            self._thread.join(timeout=5.0)
+            self._thread = None
+        if self.error is not None:
+            err, self.error = self.error, None
+            raise err
+
+    def add_audio_chunk(self, audio_data: np.ndarray,
+                        sample_rate: int = 16_000) -> None:
+        if sample_rate != self.sample_rate:
+            audio_data = resample(audio_data.astype(np.float32),
+                                  sample_rate, self.sample_rate)
+        try:
+            self.audio_queue.put(audio_data.astype(np.float32), timeout=0.1)
+        except queue.Full:
+            pass        # dropped under backpressure, as the JAX service does
+
+    def get_transcription_result(self, timeout: float = 0.1
+                                 ) -> Optional[TranscriptionResult]:
+        """The next result, None after `timeout`; the kept exception of a
+        stopped thread is raised."""
+        if self.error is not None:
+            raise self.error
+        try:
+            return self.result_queue.get(timeout=timeout)
+        except queue.Empty:
+            return None
+
+    def _run(self) -> None:
+        try:
+            self._loop()
+        except Exception as e:
+            log.exception("streaming transcription stopped")
+            self.error = e
+            self.is_streaming = False
+
+    def _loop(self) -> None:
+        while self.is_streaming:
+            try:
+                chunk = self.audio_queue.get(timeout=0.5)
+            except queue.Empty:
+                continue
+            self.audio_buffer.extend(chunk.tolist())
+            if len(self.audio_buffer) < self.chunk_size:
+                continue
+            data = np.asarray(list(self.audio_buffer)[: self.chunk_size],
+                              np.float32)
+            for _ in range(self.chunk_size - self.overlap_size):
+                if self.audio_buffer:
+                    self.audio_buffer.popleft()
+            prev = (list(self.context_tokens)
+                    if self.asr.config.condition_on_previous_text else None)
+            res = self.asr.transcribe(data, self.sample_rate,
+                                      initial_prompt_ids=prev)
+            res.is_final = False
+            if res.text.strip():
+                self.context_history.append(res)
+                for seg in res.segments:
+                    self.context_tokens.extend(seg.get("tokens", ()))
+                try:
+                    self.result_queue.put(res, timeout=0.1)
+                except queue.Full:
+                    try:
+                        self.result_queue.get_nowait()
+                        self.result_queue.put_nowait(res)
+                    except queue.Empty:
+                        pass
+
+
+def create_asr_interface(asr: Optional[WhisperASR] = None
+                         ) -> tuple[WhisperASR, StreamingWhisperASR, dict]:
+    """-> (asr, its StreamingWhisperASR, a dict of callables over both).
+    Without `asr`, a WhisperASR() on the card (the tiny random-weight dev
+    model)."""
+    asr = asr or WhisperASR()
+    streaming = StreamingWhisperASR(asr)
+    interface = {
+        "transcribe": lambda audio, sr=16_000, language=None:
+            asr.transcribe(audio, sr, language),
+        "detect_language": lambda audio, sr=16_000:
+            asr.detect_language(audio, sr),
+        "start_streaming": streaming.start_streaming,
+        "stop_streaming": streaming.stop_streaming,
+        "add_audio_chunk": streaming.add_audio_chunk,
+        "get_result": streaming.get_transcription_result,
+        "get_performance_stats": asr.get_performance_stats,
+        "supported_languages": asr.get_supported_languages,
+    }
+    return asr, streaming, interface

@@ -19,7 +19,12 @@ call per token and one read of ``done`` per token, which waits for the
 card each time. It gives the same tokens, counts and log-probabilities.
 Sampling at T > 0 is a Gumbel-max over a noise tensor that the caller
 draws (``noise(t)``), as ``jax.random.categorical`` is a Gumbel-max over
-its own draws.
+its own draws. The searches follow JAX's: best-of-N
+(``asr_sample_best_of``) and beam search (``asr_beam_decode``) decode
+their candidates as rows of one batch against one encoder pass, beam
+search with the same float32 order of operations, tie rules and host
+read of its stop condition once a step; ``asr_alignment_probs`` gives the
+teacher-forced alignment maps of word timestamps.
 """
 
 from __future__ import annotations
@@ -205,7 +210,9 @@ def _decoder_layer(h: torch.Tensor, lp: Params, cfg: WhisperASRModelConfig,
                    self_mask: torch.Tensor, cross_k: torch.Tensor,
                    cross_v: torch.Tensor, cross_mask: Optional[torch.Tensor],
                    k_slab: torch.Tensor, v_slab: torch.Tensor, start: int
-                   ) -> torch.Tensor:
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (the layer's output, the state entering its cross-attention
+    block, before that block's layer norm)."""
     B, S, D = h.shape
     H, Dh = cfg.num_heads, cfg.head_dim
 
@@ -221,6 +228,7 @@ def _decoder_layer(h: torch.Tensor, lp: Params, cfg: WhisperASRModelConfig,
              + lp["self_bo"]).to(h.dtype)
 
     # cross-attention over the precomputed encoder K/V
+    cross_in = h
     x = layer_norm(h, lp["cross_ln_w"], lp["cross_ln_b"])
     q = (quantized_matmul(x, lp, "cross_wq") + lp["cross_bq"]).reshape(B, S, H, Dh)
     attn = mha_attention(q, cross_k.to(h.dtype), cross_v.to(h.dtype), cross_mask)
@@ -230,7 +238,7 @@ def _decoder_layer(h: torch.Tensor, lp: Params, cfg: WhisperASRModelConfig,
     # FFN
     x = layer_norm(h, lp["ffn_ln_w"], lp["ffn_ln_b"])
     x = torch.nn.functional.gelu(quantized_matmul(x, lp, "fc1_w") + lp["fc1_b"])
-    return h + (quantized_matmul(x, lp, "fc2_w") + lp["fc2_b"]).to(h.dtype)
+    return h + (quantized_matmul(x, lp, "fc2_w") + lp["fc2_b"]).to(h.dtype), cross_in
 
 
 def asr_decoder_forward(params: Params, cfg: WhisperASRModelConfig,
@@ -238,12 +246,15 @@ def asr_decoder_forward(params: Params, cfg: WhisperASRModelConfig,
                         cross_kv: dict[str, torch.Tensor],
                         enc_len: Optional[torch.Tensor] = None,
                         layers: Optional[list[Params]] = None,
-                        ) -> tuple[torch.Tensor, ASRDecodeState]:
+                        collect_cross_inputs: bool = False):
     """Decode a window of tokens (B, S) at positions [pos, pos + S): the
     prompt's prefill (S > 1) and the AR steps (S = 1) in one function.
     Returns (logits (B, S, V) float32, the state advanced by S; its slabs
     are the same tensors, written in place). `layers`: the per-layer views
-    of ``decoder_layer_views`` when the caller made them already.
+    of ``decoder_layer_views`` when the caller made them already. With
+    collect_cross_inputs a third output holds each layer's cross-attention
+    input states (L, B, S, D), from which ``asr_alignment_probs``
+    re-projects the alignment heads.
 
     As JAX's dynamic slices do, the position-table read and the slab write
     start at most at their table's length minus S."""
@@ -268,14 +279,20 @@ def asr_decoder_forward(params: Params, cfg: WhisperASRModelConfig,
                       < enc_len[:, None])[:, None, :].expand(B, S, T_enc)
 
     start = min(max(pos, 0), T_ctx - S)
+    cross_in = []
     for i, lp in enumerate(layers if layers is not None
                            else decoder_layer_views(params)):
-        h = _decoder_layer(h, lp, cfg, self_mask, cross_kv["k"][i],
-                           cross_kv["v"][i], cross_mask, state.cache_k[i],
-                           state.cache_v[i], start)
+        h, xin = _decoder_layer(h, lp, cfg, self_mask, cross_kv["k"][i],
+                                cross_kv["v"][i], cross_mask, state.cache_k[i],
+                                state.cache_v[i], start)
+        if collect_cross_inputs:
+            cross_in.append(xin)
     h = layer_norm(h, dec["ln_w"], dec["ln_b"])
     logits = pmatmul(h.to(torch.float32), dec["token_emb"].t().to(torch.float32))
-    return logits, dataclasses.replace(state, pos=pos + S)
+    state = dataclasses.replace(state, pos=pos + S)
+    if collect_cross_inputs:
+        return logits, state, torch.stack(cross_in)
+    return logits, state
 
 
 # ---------------------------------------------------------------------------
@@ -379,6 +396,246 @@ def asr_greedy_decode(params: Params, cfg: WhisperASRModelConfig,
                                   prompt.device)
     return _sample_loop(params, cfg, cross, enc_len, state, prompt, max_new,
                         temperature, noise, sot_index)
+
+
+def _tile_beams(cross: dict[str, torch.Tensor], enc_len: torch.Tensor, n: int
+                ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+    """The encoder context of each utterance repeated for n rows (row
+    r = b·n + j, JAX's ``jnp.repeat``): one encoder pass serves every
+    candidate or beam. The copies are fresh storage."""
+    return ({k: v.repeat_interleave(n, dim=1) for k, v in cross.items()},
+            enc_len.repeat_interleave(n, dim=0))
+
+
+def _best_of_loop(params: Params, cfg: WhisperASRModelConfig,
+                  cross: dict[str, torch.Tensor], enc_len: torch.Tensor,
+                  prompt: torch.Tensor, max_new: int, best_of: int,
+                  temperature: float, noise: Optional[Noise],
+                  sot_index: int = 0) -> GreedyResult:
+    """best-of-N against a prepared encoder context: N sampled rows an
+    utterance in one batch (noise(t): (B·N, V) draws), then the row with
+    the best sum/(n+1) wins (the first on a tie); p(no speech) is row
+    b·N's."""
+    B = prompt.shape[0]
+    cross, enc_len = _tile_beams(cross, enc_len, best_of)
+    state = init_asr_decode_state(cfg, B * best_of, cross["k"].dtype,
+                                  prompt.device)
+    res = _sample_loop(params, cfg, cross, enc_len, state,
+                       prompt.repeat_interleave(best_of, dim=0), max_new,
+                       temperature, noise, sot_index)
+    avg = (res.sum_logprob / (res.n_tokens.to(torch.float32) + 1.0)
+           ).reshape(B, best_of)
+    rows = torch.arange(B, device=prompt.device) * best_of + avg.argmax(dim=1)
+    return GreedyResult(tokens=res.tokens[rows], n_tokens=res.n_tokens[rows],
+                        sum_logprob=res.sum_logprob[rows],
+                        no_speech_prob=res.no_speech_prob[::best_of])
+
+
+def asr_sample_best_of(params: Params, cfg: WhisperASRModelConfig,
+                       mel: torch.Tensor, mel_len: torch.Tensor,
+                       prompt: torch.Tensor, max_new: int, best_of: int,
+                       temperature: float, noise: Optional[Noise] = None,
+                       sot_index: int = 0) -> GreedyResult:
+    """best-of-N sampled transcription: one encoder pass, N independent
+    samples an utterance decoded as rows of one batch, and per utterance
+    the candidate with the best length-normalised log-probability
+    sum/(n+1), the measure the service's confidence gate reads."""
+    cross, enc_len = encoder_context(params, cfg, mel, mel_len)
+    return _best_of_loop(params, cfg, cross, enc_len, prompt, max_new,
+                         best_of, temperature, noise, sot_index)
+
+
+class BeamResult(NamedTuple):
+    tokens: torch.Tensor          # (B, max_new) int32, the best hypothesis
+    n_tokens: torch.Tensor        # (B,) int32, tokens before EOT
+    sum_logprob: torch.Tensor     # (B,) float32, the closing EOT's included
+    no_speech_prob: torch.Tensor  # (B,) float32
+    n_finished: torch.Tensor      # (B,) int32, hypotheses closed by EOT
+
+
+def _pool_insert(pool: list, order: torch.Tensor, valid: torch.Tensor,
+                 score: torch.Tensor, seqs: torch.Tensor, length,
+                 W: int) -> None:
+    """Move candidates into each utterance's finished pool in `order`
+    (B, W): candidate j enters slot fin_cnt when valid[b, j] and the pool
+    has room. pool: [fin_tok (B, W, max_new), fin_sum (B, W), fin_n (B, W),
+    fin_cnt (B,)], updated in place."""
+    ft, fs, fn, fc = pool
+    b = torch.arange(order.shape[0], device=order.device)
+    for i in range(W):
+        j = order[:, i]
+        ok = valid[b, j] & (fc < W)
+        slot = fc.clamp(max=W - 1)
+        fs[b, slot] = torch.where(ok, score[b, j], fs[b, slot])
+        ft[b, slot] = torch.where(ok[:, None], seqs[b, j], ft[b, slot])
+        fn[b, slot] = torch.where(ok, torch.as_tensor(length, dtype=fn.dtype,
+                                                      device=fn.device),
+                                  fn[b, slot])
+        fc += ok.to(fc.dtype)
+
+
+def _beam_loop(params: Params, cfg: WhisperASRModelConfig,
+               cross: dict[str, torch.Tensor], enc_len: torch.Tensor,
+               prompt: torch.Tensor, max_new: int, beam_size: int,
+               sot_index: int = 0) -> BeamResult:
+    """Beam search against a prepared encoder context (see
+    ``asr_beam_decode``)."""
+    B = prompt.shape[0]
+    W, V, eot = beam_size, cfg.vocab_size, cfg.eot_id
+    R = B * W
+    NEG = -1e9
+    dev = prompt.device
+    f32 = torch.float32
+    cross, enc_lenR = _tile_beams(cross, enc_len, W)
+    state = init_asr_decode_state(cfg, R, cross["k"].dtype, dev)
+    layers = decoder_layer_views(params)
+    logits, state = asr_decoder_forward(params, cfg,
+                                        prompt.repeat_interleave(W, dim=0),
+                                        state, cross, enc_lenR, layers)
+    no_speech = torch.softmax(logits[::W, sot_index], dim=-1)[:, cfg.no_speech_id]
+    logp = torch.log_softmax(logits[:, -1], dim=-1).reshape(B, W, V)
+
+    barange = torch.arange(B, device=dev)
+    eot_onehot = torch.zeros(V, dtype=f32, device=dev)
+    eot_onehot[eot] = 1.0
+    beam_tok = torch.full((B, W, max_new), eot, dtype=torch.int64, device=dev)
+    beam_sum = torch.full((B, W), NEG, dtype=f32, device=dev)
+    beam_sum[:, 0] = 0.0
+    pool = [torch.full((B, W, max_new), eot, dtype=torch.int64, device=dev),
+            torch.full((B, W), NEG, dtype=f32, device=dev),
+            torch.zeros((B, W), dtype=torch.int32, device=dev),
+            torch.zeros((B,), dtype=torch.int32, device=dev)]
+
+    t = 0
+    while True:
+        # EOT proposals: one a beam, valid only inside that beam's own
+        # top-(W+1) and on a live beam; best first into the pool
+        live = beam_sum > NEG / 2
+        kth = torch.topk(logp, min(W + 1, V), dim=-1, sorted=True).values[..., -1]
+        eot_lp = logp[..., eot]
+        eot_valid = (eot_lp >= kth) & live
+        eot_score = beam_sum + eot_lp
+        order = torch.argsort(-torch.where(eot_valid, eot_score,
+                                           torch.full_like(eot_score, NEG)),
+                              dim=1, stable=True)
+        _pool_insert(pool, order, eot_valid, eot_score, beam_tok, t, W)
+
+        # continuations: the top W of the W·V non-EOT candidates. A stable
+        # descending sort takes the lower index first on a tie, as
+        # lax.top_k does (torch.topk leaves the order of ties open).
+        cand = beam_sum[..., None] + logp - eot_onehot * 1e9
+        top_s, top_i = torch.sort(cand.reshape(B, W * V), dim=1,
+                                  descending=True, stable=True)
+        top_s, top_i = top_s[:, :W], top_i[:, :W]
+        parent = top_i // V
+        tok = top_i % V
+        beam_tok = beam_tok[barange[:, None], parent]
+        beam_tok[:, :, t] = tok
+        beam_sum = top_s
+        # reorder the slabs: the parents' rows gathered into fresh storage
+        # (the next decoder call writes the slabs in place)
+        rows = (barange[:, None] * W + parent).reshape(R)
+        state = ASRDecodeState(state.cache_k.index_select(1, rows),
+                               state.cache_v.index_select(1, rows), state.pos)
+        t += 1
+        # JAX's loop condition, read on the host once a step
+        if t >= max_new or bool((pool[3] >= W).all()):
+            break
+        logits, state = asr_decoder_forward(params, cfg, tok.reshape(R, 1),
+                                            state, cross, enc_lenR, layers)
+        logp = torch.log_softmax(logits[:, -1], dim=-1).reshape(B, W, V)
+
+    n_finished = pool[3].clamp(max=W)
+    # finalize: a pool not full is padded with the running beams, best
+    # score first, each of length t
+    order = torch.argsort(-beam_sum, dim=1, stable=True)
+    _pool_insert(pool, order, torch.ones_like(beam_sum, dtype=torch.bool),
+                 beam_sum, beam_tok, t, W)
+    fin_tok, fin_sum, fin_n, _ = pool
+    best = (fin_sum / (fin_n.to(f32) + 1.0)).argmax(dim=1)
+    return BeamResult(tokens=fin_tok[barange, best].to(torch.int32),
+                      n_tokens=fin_n[barange, best],
+                      sum_logprob=fin_sum[barange, best],
+                      no_speech_prob=no_speech, n_finished=n_finished)
+
+
+def asr_beam_decode(params: Params, cfg: WhisperASRModelConfig,
+                    mel: torch.Tensor, mel_len: torch.Tensor,
+                    prompt: torch.Tensor, max_new: int, beam_size: int,
+                    sot_index: int = 0) -> BeamResult:
+    """Beam-search transcription (openai whisper's BeamSearchDecoder with
+    patience 1, as JAX's ``asr_beam_decode`` runs it):
+
+    - beams are rows of the decode batch (row r = b·W + w); reordering the
+      beams gathers their slab rows;
+    - every step each live beam proposes EOT when EOT is inside its own
+      top-(W+1); proposals enter the utterance's finished pool best first,
+      at most W hypotheses; the best W non-EOT continuations of all beams
+      become the next beams;
+    - the search ends when every pool is full or the token budget is
+      spent; a pool not full is then padded with the running beams;
+    - the hypothesis with the best sum/(n+1) wins.
+    """
+    cross, enc_len = encoder_context(params, cfg, mel, mel_len)
+    return _beam_loop(params, cfg, cross, enc_len, prompt, max_new,
+                      beam_size, sot_index)
+
+
+def asr_alignment_probs(params: Params, cfg: WhisperASRModelConfig,
+                        mel: torch.Tensor, mel_len: torch.Tensor,
+                        tokens: torch.Tensor,
+                        heads: tuple[tuple[int, int], ...]
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced cross-attention maps of the alignment heads, for
+    word timestamps (openai whisper's timing.find_alignment). One forward
+    over `tokens` (B, S) keeps each layer's cross-attention input; only
+    the selected (layer, head) pairs are re-projected, so K maps of
+    (S, T_enc) exist rather than every head's.
+
+    Returns (probs (B, K, S, T_enc) float32, each head's softmax masked to
+    the real encoder frames; token_logprob (B, S) float32, log p(tokens[i]
+    | tokens[<i]) under teacher forcing, 0 at position 0)."""
+    cross, enc_len = encoder_context(params, cfg, mel, mel_len)
+    return _alignment_loop(params, cfg, cross, enc_len, tokens, heads)
+
+
+def _alignment_loop(params: Params, cfg: WhisperASRModelConfig,
+                    cross: dict[str, torch.Tensor], enc_len: torch.Tensor,
+                    tokens: torch.Tensor, heads: tuple[tuple[int, int], ...]
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``asr_alignment_probs`` against a prepared encoder context."""
+    B, S = tokens.shape
+    state = init_asr_decode_state(cfg, B, cross["k"].dtype, tokens.device)
+    layers = decoder_layer_views(params)
+    logits, _, xin = asr_decoder_forward(params, cfg, tokens, state, cross,
+                                         enc_len, layers,
+                                         collect_cross_inputs=True)
+    lp_all = torch.log_softmax(logits, dim=-1)
+    tok_lp = lp_all[:, :-1].gather(2, tokens[:, 1:, None].long())[:, :, 0]
+    token_logprob = torch.cat(
+        [torch.zeros((B, 1), dtype=torch.float32, device=tokens.device),
+         tok_lp], dim=1)
+
+    H, Dh = cfg.num_heads, cfg.head_dim
+    T = cross["k"].shape[2]
+    frame_ok = (torch.arange(T, device=tokens.device)[None, None, :]
+                < enc_len[:, None, None])
+    scale = torch.sqrt(torch.tensor(Dh, dtype=torch.float32))
+    q_of: dict[int, torch.Tensor] = {}
+    maps = []
+    for l, h in heads:
+        if l not in q_of:          # one projection a layer, for all its heads
+            lp = layers[l]
+            x = layer_norm(xin[l], lp["cross_ln_w"], lp["cross_ln_b"])
+            q_of[l] = (quantized_matmul(x, lp, "cross_wq")
+                       + lp["cross_bq"]).reshape(B, S, H, Dh)
+        q = q_of[l][:, :, h].to(torch.float32)
+        k = cross["k"][l][:, :, h].to(torch.float32)          # (B, T, Dh)
+        scores = pmatmul(q, k.transpose(1, 2)) / scale.to(q.device)
+        scores = torch.where(frame_ok, scores,
+                             torch.full_like(scores, -1e30))
+        maps.append(torch.softmax(scores, dim=-1))
+    return torch.stack(maps, dim=1), token_logprob
 
 
 def asr_detect_language(params: Params, cfg: WhisperASRModelConfig,

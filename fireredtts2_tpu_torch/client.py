@@ -252,7 +252,12 @@ class FireRedTTSClient:
         must run with ``serve --asr`` (503 otherwise): ``--asr-dir DIR``
         names a local HF whisper checkpoint (config.json and
         model.safetensors or pytorch_model.bin); without it the server
-        transcribes with a tiny random-weight dev model."""
+        transcribes with a tiny random-weight dev model. The server's
+        decoding is its WhisperASR's ASRConfig: greedy with the
+        temperature-fallback ladder by default; beam_size (beam search on
+        the T = 0 rung), best_of (best-of-N on the T > 0 rungs) and
+        word_timestamps all work there, and the route answers the text
+        alone."""
         out = self._post("/v1/audio/transcriptions", {
             "data": _f32_to_pcm16_hex(audio), "sample_rate": sample_rate})
         return out["text"]

@@ -53,11 +53,13 @@ def _t(x) -> np.ndarray:
 
 
 def _arr(a: np.ndarray, dtype) -> torch.Tensor:
-    """numpy -> a tensor of `dtype`; float64 goes through float32 first, as
-    the JAX package's jnp.asarray takes it (64-bit off)."""
+    """numpy -> a contiguous tensor of `dtype`; float64 goes through
+    float32 first, as the JAX package's jnp.asarray takes it (64-bit off).
+    A transposed view is cast first and laid out by torch's copy, which
+    is several times faster than numpy's for large matrices."""
     if a.dtype == np.float64:
         a = a.astype(np.float32)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+    return torch.from_numpy(a).to(dtype).contiguous()
 
 
 def _leaf(sd: Mapping, key: str, dtype) -> torch.Tensor:
@@ -88,7 +90,7 @@ def _wn_conv1x1(sd: Mapping, name: str) -> tuple[np.ndarray, np.ndarray]:
 
 
 def _stack(arrs: list[np.ndarray], dtype) -> torch.Tensor:
-    return _arr(np.stack(arrs), dtype)
+    return torch.stack([_arr(a, dtype) for a in arrs])
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Quality assurance: audio validation, latency gates, automated test
 pipeline.
 
-Counterpart of ``fireredtts2_tpu/serve/qa.py`` (all but its
-``FidelityHarness``, which needs an ASR the port does not have yet).
+Counterpart of ``fireredtts2_tpu/serve/qa.py``, its fidelity harness
+(synthesize, transcribe, score) included.
 Capability parity with the reference `quality_assurance_system.py`
 (1256 LoC): AudioQualityValidator with threshold gates (:90-383),
 SystemValidator (:729-1018), AutomatedTestingPipeline (:1019-1218), facade
@@ -223,3 +223,44 @@ def speaker_similarity(a: np.ndarray, b: np.ndarray,
     ea, eb = emb(a, sample_rate), emb(b, sample_rate)
     return float(np.dot(ea, eb) /
                  ((np.linalg.norm(ea) * np.linalg.norm(eb)) + 1e-8))
+
+
+@dataclass
+class FidelityReport:
+    wer: float
+    cer: float
+    transcript: str
+    speaker_sim: Optional[float] = None
+
+
+class FidelityHarness:
+    """Synthesize -> transcribe -> score: WER and CER of the transcript
+    against the text, and the speaker similarity to a prompt when one is
+    given. transcriber: 16 kHz audio -> text (``WhisperASR.as_transcriber``
+    or any callable)."""
+
+    def __init__(self, engine, transcriber: Callable[[np.ndarray], str],
+                 embedder: Optional[Callable] = None):
+        self.engine = engine
+        self.transcriber = transcriber
+        self.embedder = embedder
+
+    def evaluate_utterance(self, text: str, speaker: str = "[S1]",
+                           prompt_audio_16k: Optional[np.ndarray] = None,
+                           audio: Optional[np.ndarray] = None) -> FidelityReport:
+        """audio: an already generated waveform at the engine's output
+        rate, scored without synthesis."""
+        from fireredtts2_tpu_torch.utils.audio_io import resample
+
+        if audio is None:
+            audio = self.engine.generate(text, speaker, [],
+                                         max_audio_length_ms=30_000)
+        audio16k = resample(audio.astype(np.float32),
+                            self.engine.output_sample_rate, 16_000)
+        hyp = self.transcriber(audio16k)
+        rep = FidelityReport(wer=word_error_rate(text, hyp),
+                             cer=char_error_rate(text, hyp), transcript=hyp)
+        if prompt_audio_16k is not None:
+            rep.speaker_sim = speaker_similarity(
+                audio16k, prompt_audio_16k, embedder=self.embedder)
+        return rep

@@ -1232,6 +1232,11 @@ def serve(engine, ws_port: int = 8765, http_port: int = 8080,
     secret is printed once at startup unless FRTTS2_TOKEN_SECRET is set.
     reload_root turns on /api/v1/admin/reload for the dirs under it (their
     converted ``DIR/torch/`` trees); without it the route answers 403.
+    transcriber (16 kHz audio -> text) backs /v1/audio/transcriptions,
+    e.g. ``asr.WhisperASR(...).as_transcriber()``, whose ASRConfig may ask
+    for beam search, best-of-N or word timestamps (the route answers the
+    text alone); the realtime streaming ASR server is
+    ``asr.realtime.RealtimeASRServer``.
 
     A CUDA engine is warmed up (``engine.warmup``) and the pool's warm-up
     ladder awaited before the sockets bind, so /health answers only once

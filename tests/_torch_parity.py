@@ -10,6 +10,7 @@ at each new shape (~23 s for the tiny LM and codec on this suite's CPU,
 against ~12 s). The values are the initialisers' own, as XLA compiles
 them as one program; both sides of a parity test take the same tree."""
 
+import dataclasses
 from functools import lru_cache
 
 import jax
@@ -48,10 +49,25 @@ def _jitted_init(fn, cfg, dtype):
     return jax.jit(lambda key: fn(key, cfg, dtype))
 
 
+# Config fields the JAX initialisers do not read (serving, decode and
+# training knobs; the dtype comes as an argument): configs that differ only
+# in them share one compiled initialiser.
+_INIT_IGNORES = ("quantize_backbone", "quantize_depth", "quantize_depth_bits",
+                 "fused_depth_plan", "quantize_vocoder", "max_seq_len",
+                 "max_batch_size", "dtype", "train_remat")
+
+
+def _init_cfg(cfg):
+    return dataclasses.replace(cfg, **{
+        f.name: f.default for f in dataclasses.fields(cfg)
+        if f.name in _INIT_IGNORES})
+
+
 def jax_init(fn, key, cfg, dtype=jnp.float32):
     """fn(key, cfg, dtype) for a JAX initialiser fn (init_lm_params,
-    init_codec_params), jitted once per (fn, cfg, dtype)."""
-    return _jitted_init(fn, cfg, dtype)(key)
+    init_codec_params), jitted once per (fn, the cfg's shape fields,
+    dtype)."""
+    return _jitted_init(fn, _init_cfg(cfg), dtype)(key)
 
 
 def jax_engine(**kw):

@@ -18,8 +18,9 @@ from JAX's init_asr_params bridged by weights.from_jax).
 - WhisperASR.transcribe: every TranscriptionResult field as JAX's service
   gives it, for one window, two windows with <|startofprev|>
   conditioning, the fallback ladder's T > 0 rungs and the no-speech gate;
-- the speech-to-speech pipeline with the real transcriber, and the
-  options not ported yet raising.
+- the speech-to-speech pipeline with the real transcriber.
+Beam search, best-of-N, word timestamps and streaming:
+tests/test_torch_asr_search.py.
 
 One JAX service (``jref``) holds every jitted JAX program the file runs:
 its decode program (asr_greedy_decode at max_new_tokens=6) and its
@@ -345,14 +346,6 @@ def test_s2s_pipeline_with_real_transcriber(jref, monkeypatch):
     assert res.transcript == jsvc.transcribe(audio).text != ""
     assert eng.texts == [res.response_text] and res.audio24k.size == 2400
     assert "asr_s" in res.timings
-
-
-@pytest.mark.parametrize("kw", [dict(beam_size=2), dict(best_of=3),
-                                dict(word_timestamps=True)])
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 18"):
-        t_asr.WhisperASR(config=t_asr.ASRConfig(**kw), warmup=False,
-                         device="cpu")
 
 
 def test_no_card_no_fallback():

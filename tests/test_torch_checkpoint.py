@@ -4,9 +4,9 @@ the JAX package on the CPU (tiny widths).
 
 - LM: a state dict of tests/test_parity_loss.py's TorchDualModel (torchtune
   qwen2 naming), with q/k/v biases and without them.
-- Codec: a random reference-layout state dict built here from a JAX tiny
-  codec tree by inverting convert_codec_state_dict's key map, the RVQ
-  projections in both weight-norm forms.
+- Codec: a random reference-layout state dict of a JAX tiny codec tree,
+  written by the port's inverse of convert_codec_state_dict
+  (tools/ref_checkpoint.py), the RVQ projections in both weight-norm forms.
 The JAX and port converters must give equal trees: exactly in float32, and
 bit for bit after the bfloat16 cast. Reload is held to what
 tests/test_reload.py holds the JAX engine to.
@@ -34,6 +34,7 @@ from fireredtts2_tpu_torch.config import tiny_engine_config as t_tiny
 from fireredtts2_tpu_torch.engine import FireRedTTS2Engine as TEngine
 from fireredtts2_tpu_torch.runtime import checkpoint as tck
 from fireredtts2_tpu_torch.runtime.batcher import ContinuousBatcher
+from fireredtts2_tpu_torch.tools.ref_checkpoint import codec_state_dict
 from fireredtts2_tpu_torch.weights import from_jax, init_random
 
 from _torch_parity import one_torch_thread  # noqa: F401  (autouse)
@@ -76,115 +77,6 @@ def lm_state_dict(seed: int, biases: bool) -> dict:
     return sd
 
 
-def _t(a):
-    return torch.from_numpy(np.array(a, order="C"))
-
-
-def _layers(sd, prefix, lp):
-    for i in range(lp["wq"].shape[0]):
-        p = f"{prefix}.{i}"
-        for name, key, tr in (
-                ("self_attn.q_proj.weight", "wq", 1), ("self_attn.q_proj.bias", "bq", 0),
-                ("self_attn.k_proj.weight", "wk", 1), ("self_attn.v_proj.weight", "wv", 1),
-                ("self_attn.v_proj.bias", "bv", 0), ("self_attn.out_proj.weight", "wo", 1),
-                ("self_attn.out_proj.bias", "bo", 0),
-                ("self_attn_layer_norm.weight", "attn_ln_w", 0),
-                ("self_attn_layer_norm.bias", "attn_ln_b", 0),
-                ("fc1.weight", "fc1_w", 1), ("fc1.bias", "fc1_b", 0),
-                ("fc2.weight", "fc2_w", 1), ("fc2.bias", "fc2_b", 0),
-                ("final_layer_norm.weight", "ffn_ln_w", 0),
-                ("final_layer_norm.bias", "ffn_ln_b", 0)):
-            a = np.asarray(lp[key][i])
-            sd[f"{p}.{name}"] = _t(a.T if tr else a)
-
-
-def _conv(sd, name, p):
-    sd[f"{name}.weight"] = _t(p["w"])
-    if "b" in p:
-        sd[f"{name}.bias"] = _t(p["b"])
-
-
-def _encoder(sd, prefix, t):
-    _conv(sd, f"{prefix}.conv1", t["conv1"])
-    _conv(sd, f"{prefix}.conv2", t["conv2"])
-    sd[f"{prefix}.embed_positions.weight"] = _t(t["pos"])
-    _layers(sd, f"{prefix}.layers", t["layers"])
-    sd[f"{prefix}.layer_norm.weight"] = _t(t["ln_w"])
-    sd[f"{prefix}.layer_norm.bias"] = _t(t["ln_b"])
-
-
-def _adaptor(sd, prefix, t):
-    sd[f"{prefix}.in_proj.weight"] = _t(np.asarray(t["in_proj_w"]).T)
-    sd[f"{prefix}.in_proj.bias"] = _t(t["in_proj_b"])
-    _layers(sd, f"{prefix}.layers", t["layers"])
-    sd[f"{prefix}.layer_norm.weight"] = _t(t["ln_w"])
-    sd[f"{prefix}.layer_norm.bias"] = _t(t["ln_b"])
-    sd[f"{prefix}.out_proj.weight"] = _t(np.asarray(t["out_proj_w"]).T)
-    sd[f"{prefix}.out_proj.bias"] = _t(t["out_proj_b"])
-
-
-def _causal_resnet(sd, prefix, t):
-    sd[f"{prefix}.block1.1.weight"] = _t(t["ln1_w"])
-    sd[f"{prefix}.block1.1.bias"] = _t(t["ln1_b"])
-    _conv(sd, f"{prefix}.block1.4", t["conv1"])
-    sd[f"{prefix}.block2.1.weight"] = _t(t["ln2_w"])
-    sd[f"{prefix}.block2.1.bias"] = _t(t["ln2_b"])
-    _conv(sd, f"{prefix}.block2.5", t["conv2"])
-
-
-def codec_state_dict(tree, form: str, rng) -> dict:
-    """The reference RedCodec layout of a codec tree; the RVQ projections
-    as plain weights ("weight") or as weight-norm parametrizations ("wn",
-    a random g and v whose fold the converters compute)."""
-    sd: dict = {}
-    _encoder(sd, "ssl", tree["ssl"])
-    _adaptor(sd, "ssl_adaptor", tree["ssl_adaptor"])
-    _encoder(sd, "acoustic_encoder", tree["acoustic_encoder"])
-    ds = tree["downsample"]
-    sd["downsample.gate_proj.weight"] = _t(ds["gate_w"])
-    sd["downsample.up_proj.weight"] = _t(ds["up_w"])
-    sd["downsample.down_proj.weight"] = _t(np.asarray(ds["down_w"]).T)
-    sd["downsample.layer_norm.weight"] = _t(ds["ln_w"])
-    sd["downsample.layer_norm.bias"] = _t(ds["ln_b"])
-    sd["downsample.out_proj.weight"] = _t(np.asarray(ds["out_w"]).T)
-    sd["downsample.out_proj.bias"] = _t(ds["out_b"])
-    rvq = tree["rvq"]
-    for i in range(rvq["codebook"].shape[0]):
-        q = f"rvq.quantizers.{i}"
-        sd[f"{q}.codebook"] = _t(rvq["codebook"][i])
-        for proj, w, b in (("in_project", "in_proj_w", "in_proj_b"),
-                           ("out_project", "out_proj_w", "out_proj_b")):
-            conv = np.asarray(rvq[w][i], np.float32).T[:, :, None]
-            if form == "weight":
-                sd[f"{q}.{proj}.weight"] = _t(conv)
-            else:
-                pre = f"{q}.{proj}.parametrizations.weight"
-                sd[f"{pre}.original0"] = _t(
-                    rng.uniform(0.5, 1.5, (conv.shape[0], 1, 1)).astype(np.float32))
-                sd[f"{pre}.original1"] = _t(conv)
-            sd[f"{q}.{proj}.bias"] = _t(rvq[b][i])
-    up = tree["upsample"]
-    sd["upsample.in_proj.weight"] = _t(np.asarray(up["in_proj_w"]).T)
-    sd["upsample.in_proj.bias"] = _t(up["in_proj_b"])
-    sd["upsample.up_conv.weight"] = _t(up["up_conv_w"])
-    _adaptor(sd, "semantic_decoder", tree["semantic_decoder"])
-    ad = tree["acoustic_decoder"]
-    for j, n in (("0", "up1"), ("2", "up2")):
-        sd[f"acoustic_decoder.upsample_conv.{j}.weight"] = _t(ad[f"{n}_w"])
-        sd[f"acoustic_decoder.upsample_conv.{j}.bias"] = _t(ad[f"{n}_b"])
-    bb = "acoustic_decoder.backbone"
-    _conv(sd, f"{bb}.in_proj", ad["in_proj"])
-    for name, key in (("prior_net.0", "prior0"), ("prior_net.1", "prior1"),
-                      ("post_net.0", "post0"), ("post_net.1", "post1")):
-        _causal_resnet(sd, f"{bb}.{name}", ad[key])
-    _layers(sd, f"{bb}.transformers", ad["layers"])
-    sd[f"{bb}.final_norm.weight"] = _t(ad["final_ln_w"])
-    sd[f"{bb}.final_norm.bias"] = _t(ad["final_ln_b"])
-    sd["acoustic_decoder.isift.out.weight"] = _t(np.asarray(ad["head_w"]).T)
-    sd["acoustic_decoder.isift.out.bias"] = _t(ad["head_b"])
-    return sd
-
-
 @pytest.fixture(scope="module")
 def jax_codec_tree():
     return jax.jit(j_init_codec, static_argnums=(1, 2))(
@@ -208,7 +100,8 @@ def test_lm_converter_matches_jax(biases):
 
 @pytest.mark.parametrize("form", ["weight", "wn"])
 def test_codec_converter_matches_jax(jax_codec_tree, form):
-    sd = codec_state_dict(jax_codec_tree, form, np.random.default_rng(1))
+    sd = codec_state_dict(from_jax(jax_codec_tree), form,
+                          np.random.default_rng(1))
     for jd, td in ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)):
         got = tck.convert_codec_state_dict(sd, TT.codec, td)
         _trees_equal(got, jck.convert_codec_state_dict(sd, JT.codec, jd))
@@ -229,7 +122,8 @@ def test_load_pickles_and_hf_whisper_dir(tmp_path, jax_codec_tree):
                                         torch.float32),
                  jck.load_lm_checkpoint(str(tmp_path / "llm.pt"), JT.llm,
                                         jnp.float32))
-    sd = codec_state_dict(jax_codec_tree, "wn", np.random.default_rng(2))
+    sd = codec_state_dict(from_jax(jax_codec_tree), "wn",
+                          np.random.default_rng(2))
     torch.save({"generator": sd}, tmp_path / "codec.pt")
     want = jck.load_codec_checkpoint(str(tmp_path / "codec.pt"), JT.codec)
     _trees_equal(tck.load_codec_checkpoint(str(tmp_path / "codec.pt"),
@@ -271,7 +165,8 @@ def test_converted_trees_round_trip_with_dtype_policy(tmp_path, jax_codec_tree):
     """save_params / load_converted_*: float leaves cast to the dtype, the
     codec's RVQ subtree and mel filters left as saved."""
     codec = tck.convert_codec_state_dict(
-        codec_state_dict(jax_codec_tree, "weight", np.random.default_rng(3)),
+        codec_state_dict(from_jax(jax_codec_tree), "weight",
+                         np.random.default_rng(3)),
         TT.codec)
     path = tck.converted_path(str(tmp_path), "codec")
     tck.save_params(path, codec)
@@ -320,7 +215,7 @@ def test_pretrained_dir_engine_matches_jax(tmp_path, jax_codec_tree):
     llm_over, codec_over = _write_configs(d)
     torch.save({"model": lm_state_dict(3, True)},
                os.path.join(d, "llm_posttrain.pt"))
-    torch.save({"generator": codec_state_dict(jax_codec_tree, "wn",
+    torch.save({"generator": codec_state_dict(from_jax(jax_codec_tree), "wn",
                                               np.random.default_rng(4))},
                os.path.join(d, "codec.pt"))
     jeng = JEngine(pretrained_dir=d, llm_overrides=llm_over,

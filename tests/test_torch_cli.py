@@ -184,7 +184,6 @@ def test_cli_serve_answers_over_sockets(tmp_path):
     (["bench"], "item 1 "),
     (["train", "--zero1"], "item 13"),
     (["train", "--tp", "2"], "item 13"),
-    (["convert"], "item 20"),
 ])
 def test_cli_unported_flags_exit_nonzero(argv, item):
     with pytest.raises(SystemExit) as e:

@@ -26,6 +26,13 @@ from fireredtts2_tpu_torch.ops import flash_decode as tfd
 from _torch_parity import one_torch_thread, tiny_params, to_t, wave_close  # noqa: F401
 
 
+def _j_decode(jcodec, cfg, toks):
+    """JAX's codec_decode_chunks as one program, traced afresh (the
+    FRTTS2_FLASH_VOC route is read while tracing)."""
+    return jax.jit(lambda t: jcm.codec_decode_chunks(jcodec, cfg, t))(
+        jnp.asarray(toks))
+
+
 def _tokens(cfg, B, L, rng):
     return rng.integers(0, cfg.codec.rvq.codebook_size,
                         (B, cfg.codec.rvq.num_quantizers, L)).astype(np.int32)
@@ -39,7 +46,7 @@ def test_codec_decode_chunks_matches_jax(rng, monkeypatch, voc_path):
     monkeypatch.setenv("FRTTS2_FLASH_VOC", voc_path)
     jcfg, tcfg, _, jcodec, _, tcodec = tiny_params()
     toks = _tokens(jcfg, 2, 16, rng)
-    jm, jt = jcm.codec_decode_chunks(jcodec, jcfg.codec, jnp.asarray(toks))
+    jm, jt = _j_decode(jcodec, jcfg.codec, toks)
     tm, tt = tcm.codec_decode_chunks(tcodec, tcfg.codec, to_t(toks))
     assert tm.shape == jm.shape and tt.shape == jt.shape
     wave_close(tm.numpy(), jm, "middles")
@@ -102,11 +109,11 @@ def test_codec_decode_chunks_past_the_slab_matches_jax_chip_route(rng,
     toks = _tokens(jcfg, 1, fit + 8, rng)
     tm, tt = tcm.codec_decode_chunks(tcodec, tcfg.codec, to_t(toks))
     monkeypatch.setenv("FRTTS2_FLASH_VOC", "interpret")
-    jm, jt = jcm.codec_decode_chunks(jcodec, jcfg.codec, jnp.asarray(toks))
+    jm, jt = _j_decode(jcodec, jcfg.codec, toks)
     wave_close(tm.numpy(), jm, "middles")
     wave_close(tt.numpy(), jt, "tails")
     monkeypatch.setenv("FRTTS2_FLASH_VOC", "0")
-    pm, _ = jcm.codec_decode_chunks(jcodec, jcfg.codec, jnp.asarray(toks))
+    pm, _ = _j_decode(jcodec, jcfg.codec, toks)
     pm, jm = np.asarray(pm), np.asarray(jm)
     wave_close(pm[:fit], jm[:fit], "plain route, tokens that fit")
     assert np.abs(pm[fit:] - jm[fit:]).max() > 1e-2 * np.abs(jm).max()
@@ -120,12 +127,12 @@ def test_stream_decode_block_batched_matches_jax(rng):
     B, D = 2, acfg_j.embed_dim
     js = jdec.stream_state_init(acfg_j, B, jnp.float32)
     ts = tdec.stream_state_init(acfg_t, B)
+    jblock = jax.jit(jdec.stream_decode_block_batched, static_argnums=(1,))
     for K, first in ((1, [True, False]), (4, [False, True])):
         x = rng.standard_normal((B, 4 * K, D)).astype(np.float32)
         f = np.array(first)
-        jm, jt, js = jdec.stream_decode_block_batched(
-            jcodec["acoustic_decoder"], acfg_j, jnp.asarray(x), js,
-            jnp.asarray(f))
+        jm, jt, js = jblock(jcodec["acoustic_decoder"], acfg_j, jnp.asarray(x),
+                            js, jnp.asarray(f))
         tm, tt, ts = tdec.stream_decode_block_batched(
             tcodec["acoustic_decoder"], acfg_t, to_t(x), ts, to_t(f))
         wave_close(tm.numpy(), jm, f"middle K={K}")

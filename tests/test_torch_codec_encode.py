@@ -36,6 +36,13 @@ from fireredtts2_tpu_torch.weights import from_jax
 from _torch_parity import one_torch_thread, to_t, voiced  # noqa: F401
 
 JCFG, TCFG = j_tiny().codec, t_tiny().codec
+# JAX's references, each one program (an eager op compiles at each new
+# shape and dtype)
+J_STFT = jax.jit(jstft.stft_power, static_argnums=(1, 2))
+J_LOGMEL = jax.jit(jaudio.log_mel_spectrogram, static_argnums=(2, 3))
+J_ENCODER = jax.jit(jw.whisper_encoder_forward, static_argnums=(1,))
+J_ADAPTOR = jax.jit(jenc.ssl_adaptor_forward, static_argnums=(1,))
+J_DOWN = jax.jit(jenc.down_conv_forward, static_argnums=(1,))
 
 
 def peak_close(got, want, rel, what=""):
@@ -67,13 +74,13 @@ def windows():
 def test_stft_power_and_log_mel_match_jax(windows, codec):
     jcodec, tcodec = codec
     m = TCFG.mel
-    jp = jstft.stft_power(jnp.asarray(windows), m.n_fft, m.hop_length)
+    jp = J_STFT(jnp.asarray(windows), m.n_fft, m.hop_length)
     tp = tstft.stft_power(to_t(windows), m.n_fft, m.hop_length)
     peak_close(tp.numpy(), jp, 1e-5, "stft power")
     np.testing.assert_allclose(taudio.whisper_mel_filters(m.num_mels),
                                jaudio.whisper_mel_filters(m.num_mels))
-    jm = jaudio.log_mel_spectrogram(jnp.asarray(windows), jcodec["mel_filters"],
-                                    m.n_fft, m.hop_length)
+    jm = J_LOGMEL(jnp.asarray(windows), jcodec["mel_filters"], m.n_fft,
+                  m.hop_length)
     tm = taudio.log_mel_spectrogram(to_t(windows), tcodec["mel_filters"],
                                     m.n_fft, m.hop_length)
     assert tm.shape == (2, m.num_mels, 600)
@@ -87,15 +94,15 @@ def test_encoders_adaptor_and_downsample_match_jax(rng, codec, dtype):
     weights the fp32 activations promote in both."""
     jcodec = codec[0]
     if dtype == "bfloat16":
-        jcodec = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16),
-                                        jcodec)
+        jcodec = jax.jit(lambda t: jax.tree_util.tree_map(
+            lambda a: a.astype(jnp.bfloat16), t))(jcodec)
     tcodec = from_jax(jcodec)
     c = JCFG
     mel = rng.standard_normal((2, 64, c.mel.num_mels)).astype(np.float32)
     mlen = np.array([64, 40], np.int32)
     for name, ecfg in (("ssl", c.ssl), ("acoustic_encoder", c.acoustic_encoder)):
-        jh, jl = jw.whisper_encoder_forward(jcodec[name], ecfg.num_heads,
-                                            jnp.asarray(mel), jnp.asarray(mlen))
+        jh, jl = J_ENCODER(jcodec[name], ecfg.num_heads, jnp.asarray(mel),
+                           jnp.asarray(mlen))
         th, tl = tw.whisper_encoder_forward(tcodec[name], ecfg.num_heads,
                                             to_t(mel), to_t(mlen))
         assert th.dtype == torch.float32
@@ -103,14 +110,14 @@ def test_encoders_adaptor_and_downsample_match_jax(rng, codec, dtype):
         np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
     x = rng.standard_normal((2, 32, c.ssl_adaptor.in_dim)).astype(np.float32)
     xlen = np.array([32, 20], np.int32)
-    ja, _ = jenc.ssl_adaptor_forward(jcodec["ssl_adaptor"], c.ssl_adaptor,
-                                     jnp.asarray(x), jnp.asarray(xlen))
+    ja, _ = J_ADAPTOR(jcodec["ssl_adaptor"], c.ssl_adaptor, jnp.asarray(x),
+                      jnp.asarray(xlen))
     ta, _ = tenc.ssl_adaptor_forward(tcodec["ssl_adaptor"], TCFG.ssl_adaptor,
                                      to_t(x), to_t(xlen))
     peak_close(ta.numpy(), ja, 1e-4, "ssl adaptor")
     f = rng.standard_normal((2, 32, c.downsample_embed_dim)).astype(np.float32)
-    jd_, jdl = jenc.down_conv_forward(jcodec["downsample"], c.downsample_factor,
-                                      jnp.asarray(f), jnp.asarray(xlen))
+    jd_, jdl = J_DOWN(jcodec["downsample"], c.downsample_factor,
+                      jnp.asarray(f), jnp.asarray(xlen))
     td_, tdl = tenc.down_conv_forward(tcodec["downsample"], c.downsample_factor,
                                       to_t(f), to_t(xlen))
     peak_close(td_.numpy(), jd_, 1e-4, "downsample")
@@ -219,7 +226,9 @@ def test_codec_encode_multiwindow_matches_jax(codec):
     audio[0] = voiced(118_400, 2)
     audio[1, :51_200] = voiced(51_200, 3)
     lengths = np.array([118_400, 51_200])
-    jcodes, jlen = jcm.codec_encode(jcodec, jc, audio, lengths)
+    jcodes, jlen = jcm.codec_encode(
+        jcodec, jc, audio, lengths,
+        encode_fn=jax.jit(lambda a, n: jcm.encode_window(jcodec, jc, a, n)))
     tcodes, tlen = tcm.codec_encode(tcodec, tc, audio, lengths)
     np.testing.assert_array_equal(tlen, jlen)
     assert list(tlen) == [93, 40]

@@ -261,7 +261,7 @@ def test_lm_generate_frame_routes_through_bundle(setup):
                                            (B, S, tcfg.num_columns), 1, 60))
     tmask, valid = np.ones((B, S, tcfg.num_columns), bool), np.ones((B, S), bool)
     kf = jax.random.PRNGKey(12)
-    _, want = jmodel.lm_generate_frame(
+    _, want = jax.jit(jmodel.lm_generate_frame, static_argnums=(1,))(
         jp, jcfg, jmodel.init_lm_state(jcfg, B, jnp.float32),
         jnp.asarray(tokens), jnp.asarray(tmask), jnp.asarray(valid), kf)
     k_c0, k_depth = jax.random.split(kf)

@@ -911,3 +911,29 @@ def test_asr_full_width_two_layers_on_card_matches_cpu(cuda):
     gap = (top2[:, 0] - top2[:, 1]).cpu()
     held = next((i for i in range(n) if gap[i] < 1e-3), n)
     assert pred.argmax(-1)[:held].tolist() == ids[cuda][:held]
+
+
+def test_asr_beam_search_two_layers_on_card_matches_cpu(cuda):
+    """Beam search (W=3) at whisper-large-v3's widths with 2 + 2 layers,
+    fp32, on the card and on the CPU: tokens, n_tokens and n_finished
+    equal; sum_logprob within 1e-4 relative."""
+    from fireredtts2_tpu_torch.asr import (
+        WhisperASR, WhisperASRModelConfig, asr_beam_decode, init_asr_params,
+    )
+
+    cfg = dataclasses.replace(WhisperASRModelConfig(), encoder_layers=2,
+                              decoder_layers=2)
+    params = init_asr_params(torch.Generator().manual_seed(5), cfg)
+    t = np.arange(48_000) / 16_000
+    audio = (0.3 * np.sin(2 * np.pi * (150 + 40 * t) * t)).astype(np.float32)
+    res = {}
+    for d in ("cpu", "cuda"):
+        asr = WhisperASR(params=params, model_cfg=cfg, warmup=False, device=d)
+        mel, mel_len = asr._mel(audio)
+        prompt = torch.from_numpy(asr._prompt_ids(None)[0]).to(d)
+        res[d] = asr_beam_decode(asr.params, cfg, mel, mel_len, prompt, 12, 3)
+    cpu, card = res["cpu"], res["cuda"]
+    for f in ("tokens", "n_tokens", "n_finished"):
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+    torch.testing.assert_close(card.sum_logprob.cpu(), cpu.sum_logprob,
+                               rtol=1e-4, atol=0)

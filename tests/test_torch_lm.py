@@ -46,7 +46,8 @@ def test_transformer_prefill_then_decode_matches_jax(rng, monkeypatch):
     h = rng.standard_normal((B, S, 64)).astype(np.float32)
     pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
     mask = (np.arange(T)[None, None] <= pos[:, :, None]) & valid[:, None]
-    jo, jcache = jtr.transformer_forward(
+    fwd = jax.jit(jtr.transformer_forward, static_argnums=(1,))
+    jo, jcache = fwd(
         jp, jc, jnp.asarray(h), jnp.asarray(pos), jnp.asarray(mask), jcache,
         jnp.zeros((B,), jnp.int32))
     to, _ = ttr.transformer_forward(tp, tc, to_t(h), to_t(pos), to_t(mask),
@@ -58,7 +59,7 @@ def test_transformer_prefill_then_decode_matches_jax(rng, monkeypatch):
         h = rng.standard_normal((B, 1, 64)).astype(np.float32)
         positions = p[:, None]
         mask = (np.arange(T)[None, None] <= positions[:, :, None]) & valid[:, None]
-        jo, jcache = jtr.transformer_forward(
+        jo, jcache = fwd(
             jp, jc, jnp.asarray(h), jnp.asarray(positions), jnp.asarray(mask),
             jcache, jnp.asarray(p),
             live_window=(jnp.asarray(start), jnp.asarray(p + 1)))
@@ -71,6 +72,13 @@ def test_transformer_prefill_then_decode_matches_jax(rng, monkeypatch):
     np.testing.assert_allclose(tcache["k"].numpy(), np.asarray(jcache["k"]),
                                rtol=0, atol=1e-5)
     assert tfd.flash_decode_gqa1.launches == 0     # CPU: plain version
+
+
+# JAX's whole-utterance loop as one program (cfg, max_frames and the
+# sampling knobs static)
+J_LOOP = jax.jit(jmodel.lm_generate_loop, static_argnums=(1, 7),
+                 static_argnames=("temperature", "topk", "depth_topk",
+                                  "depth_temperature"))
 
 
 def _prompt(cfg, B, bucket, rng, lengths):
@@ -98,7 +106,7 @@ def test_lm_generate_loop_matches_jax(rng, sampled):
             if sampled else
             dict(temperature=1.0, topk=1, depth_topk=1, depth_temperature=0.75))
     jstate = jmodel.init_lm_state(jcfg.llm, B, jnp.float32)
-    _, jbuf, jn = jmodel.lm_generate_loop(
+    _, jbuf, jn = J_LOOP(
         jlm, jcfg.llm, jstate, jnp.asarray(tokens), jnp.asarray(mask),
         jnp.asarray(valid), key, max_frames, jnp.int32(cap), **samp)
 
@@ -141,7 +149,7 @@ def test_append_prefill_and_rewind_match_jax(rng):
     for i, (tk, mk, vl, rl) in enumerate([(tokens, mask, valid, None),
                                           (*win, real)]):
         key = jax.random.PRNGKey(20 + i)
-        jstate, jbuf, jn = jmodel.lm_generate_loop(
+        jstate, jbuf, jn = J_LOOP(
             jlm, jcfg.llm, jstate, jnp.asarray(tk), jnp.asarray(mk),
             jnp.asarray(vl), key, 6, jnp.int32(6),
             real_len=None if rl is None else jnp.asarray(rl), **samp)
