@@ -33,7 +33,7 @@ Phases (any failure exits non-zero and prints no result line):
    then free sampling (equal up to a counted near-tie); each case's grid
    barriers a frame (counted in the barrier words, which must match
    ops/depth_chain.py: barriers_per_frame) and the ring's stages the
-   launch used;
+   launch used; the preset timed, the other two plans checked untimed;
 6. kernel E (int4_matmul) at every qwen-200m depth matrix, M in
    {1, 2, 8, 16, 32}, beside torch._weight_int4pack_mm on the same int4
    weights and a bf16 torch.matmul on the dequantised weight;
@@ -209,7 +209,39 @@ Phases (any failure exits non-zero and prints no result line):
    --pretrained-dir DIR convert` as a subprocess (log:
    chiprun_out/phase14_convert_cli.log): exit 0, every golden "ok"; (c)
    pickle write, conversion, goldens, fidelity (generate, transcribe) and
-   the CLI's wall seconds.
+   the CLI's wall seconds;
+15. speculative (Jacobi) depth and the one-token vocoder at EngineConfig()'s
+   widths and depth, random weights of seed 0 shared by every engine: (a)
+   the bf16 backbone and the int8 backbone with speculative_depth=True:
+   generate_stream (first packet) and generate of ~25 frames, launch and
+   round counts set to 0 just before each (LM ms/frame, rounds a frame mean
+   and max, kernels A and C launched, B not, one Jacobi call a frame), a
+   traced 6-frame generate (CUDA launches a frame, busy share), then the
+   same generate on the plain 15-step loop with every depth call recorded:
+   its frames against the speculative ones, and Jacobi run on each
+   recorded call's inputs, a row differing only at a near-tie of the two
+   forwards' logits (check_kernel_b's rule; counted); (b) kernel E at M in
+   {16, 128, 256} (16 rows a stream at B = 1, 8, 16) on every qwen-200m
+   matrix against its plain version (device ms, bound,
+   torch._weight_int4pack_mm), then int4 depth as in (a) (kernel E
+   launched); (c) a burst of 8 sampled requests of 16 frames through a
+   ContinuousBatcher pool with speculative depth (aggregate RTF, rounds a
+   pool step), then
+   the same burst on the plain loop, recorded and verified as in (a), each
+   stream's frames against it; each stream's common prefix with its lone
+   request at B=1 (printed, not bounded: bf16 routes of other B flip
+   near-ties, phase 11); (d) tools/spec_depth_rounds.py at B in {1, 8}
+   (Jacobi, the plain loop and kernel B's preset on the same inputs, 16
+   frames queued, CUDA events) and tools/trained_loop.py on its "kernel"
+   config (qwen-200m backbone and depth decoder, 4 codebooks; SPEC_LOOP_STEPS
+   training steps), its summary line; (e) stream_decode_step over 48 tokens
+   of the flagship codec in bf16 (kernel C at S=8, once a layer a token)
+   against codec_decode and codec_decode_chunks (the engine's grouped S=64
+   passes) of the same tokens, each pair's gap within STREAM_GAP_TOL of the
+   peak; kernel C fed the same 64 rows as one S=64 pass and as eight S=8
+   passes: rows identical, outputs within 4 x 2e-2 of the peak. Phase 9's
+   stream-vs-generate audio and phase 12's cold-vs-fitted request are held
+   to STREAM_GAP_TOL of the peak and STREAM_GAP_LSB, from these gaps.
 
 Bounds are the larger of the bytes a call must move (each input read once,
 each output written once) over 3.35 TB/s and its operations over the bf16
@@ -1236,12 +1268,15 @@ def check_small_model(dev):
 # ---------------------------------------------------------------------------
 
 
-def trace_call(fn, dev, top_n: int = 10) -> tuple[object, dict]:
-    """One call of fn under the profiler (``under_profiler``); -> (fn's
-    result, the trace: wall time, summed device kernel time (busy share =
-    device / wall), the largest kernels by device time (with their launch
-    counts); "by_name" holds every kernel's (us, launches)). The trace is
-    {} on the CPU or without a profiler."""
+def trace_call(fn, dev, top_n: int = 10, cpu: bool = True
+               ) -> tuple[object, dict]:
+    """One call of fn under the profiler (``under_profiler``; the CPU's
+    activity too unless `cpu` is False, which keeps a trace of tens of
+    thousands of launches cheap to read); -> (fn's result, the trace: wall
+    time, summed device kernel time (busy share = device / wall), the
+    largest kernels by device time (with their launch counts); "by_name"
+    holds every kernel's (us, launches)). The trace is {} on the CPU or
+    without a profiler."""
     import torch
 
     if torch.device(dev).type != "cuda":
@@ -1253,7 +1288,7 @@ def trace_call(fn, dev, top_n: int = 10) -> tuple[object, dict]:
         torch.cuda.synchronize()
         return res, time.perf_counter() - t0
 
-    (out, wall), events = under_profiler(timed, cpu=True)
+    (out, wall), events = under_profiler(timed, cpu=cpu)
     if events is None:
         return out, {}
     by_name: dict = {}
@@ -1397,6 +1432,9 @@ def run_engine(dev, card: str, config=None, max_ms: float = 4000.0,
         if len(stream_audio) == len(audio) > 0:
             wave_err = float(np.abs(stream_audio - audio).max()
                              / max(np.abs(audio).max(), 1e-9))
+        # the same frames through the vocoder's bf16 passes of other shapes
+        checks["stream_vs_generate_bounded"] = (
+            wave_err is not None and wave_err <= STREAM_GAP_TOL)
     result.update(
         frames=frames, profile=trace_generate(eng, dev) if trace else {},
         generate=dict(wall_s=gen_wall, audio_s=len(audio) / sr,
@@ -2533,10 +2571,14 @@ def run_server(dev, card: str, keep: dict, direct_rtf=None,
             res["generate_vs_submit_lsb"] is not None
             and res["generate_vs_submit_lsb"] <= 1)
         res["greedy_frames"] = len(h.tokens)
-        # readings, not checks: the cold request ran other block sizes (the
-        # vocoder's bf16 passes of other shapes), the burst's prefill 8 rows
-        # where a lone request's has 1 (a token may flip)
+        # the cold request ran other block sizes (the vocoder's bf16 passes
+        # of other shapes): a bound; the burst's prefill ran 8 rows where a
+        # lone request's has 1 (a token may flip): a reading
         res["cold_vs_warm_lsb"] = lsb_gap(cold_pcm, rest_pcm)
+        # the same greedy frames through other block sizes: bounded
+        checks["cold_vs_warm_bounded"] = (
+            res["cold_vs_warm_lsb"] is not None
+            and res["cold_vs_warm_lsb"] <= STREAM_GAP_LSB)
         res["burst_vs_generate_lsb"] = lsb_gap(
             np.frombuffer(datas[0], "<i2"), rest_pcm)
 
@@ -3839,6 +3881,515 @@ def run_convert_drill(dev, card: str, config=None) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: speculative (Jacobi) depth and the one-token vocoder
+# ---------------------------------------------------------------------------
+
+SPEC_MS = 2000.0                  # ~25 frames a generate
+SPEC_POOL = 8
+SPEC_POOL_MS = 1280.0             # 16 frames
+SPEC_LOOP_STEPS = (150, 10)       # trained loop: LM and codec steps
+ONE_TOKEN_TOKENS = 48             # (e): 6 of the grouped decode's S=64 passes
+E_SPEC_MS = (16, 128, 256)        # kernel E's rows: 16 x B at B = 1, 8, 16
+STREAM_GAP_TOL = 0.05             # stream vs generate audio, of peak (phase 9)
+STREAM_GAP_LSB = 200              # PCM16: the same frames, other block sizes
+
+
+def depth_logits(params, cfg, last_h, tok, parallel: bool):
+    """(B, ncb-1, V) fp32 logits of depth positions 1..ncb-1 with the chain
+    `tok` (B, ncb) forced: one stateless 16-position forward (a Jacobi
+    round), or the sequential loop's S=2 prefill and S=1 steps."""
+    import torch
+    from fireredtts2_tpu_torch.models.lm.model import embed_audio
+    from fireredtts2_tpu_torch.models.lm.transformer import (
+        init_kv_cache, transformer_forward,
+    )
+    from fireredtts2_tpu_torch.ops import masks as mask_ops
+
+    ncb, V = cfg.audio_num_codebooks, cfg.audio_vocab_size
+    B, dtype, dev = last_h.shape[0], last_h.dtype, last_h.device
+    proj, heads = params["projection"], params["audio_head"].to(torch.float32)
+    if parallel:
+        offs = torch.arange(ncb - 1, device=dev) * V
+        emb = params["audio_embeddings"][tok[:, :ncb - 1].long() + offs].to(dtype)
+        x = torch.cat([last_h[:, None], emb], dim=1) @ proj
+        pos = torch.arange(ncb, dtype=torch.int32, device=dev).expand(B, ncb)
+        h, _ = transformer_forward(params["decoder"], cfg.decoder, x, pos,
+                                   mask_ops.causal_mask(ncb, dev).expand(B, ncb, ncb))
+        return torch.einsum("nsd,sdv->nsv", h[:, 1:].to(torch.float32), heads)
+    cache = init_kv_cache(cfg.decoder, B, ncb, dtype, dev)
+    e0 = embed_audio(params, cfg, 0, tok[:, 0]).to(dtype)
+    pos = torch.arange(2, dtype=torch.int32, device=dev).expand(B, 2)
+    h, cache = transformer_forward(params["decoder"], cfg.decoder,
+                                   torch.stack([last_h, e0], 1) @ proj, pos,
+                                   mask_ops.decode_step_mask(pos, ncb), cache, 0)
+    out = [h[:, -1].to(torch.float32) @ heads[0]]
+    for i in range(2, ncb):
+        x = (embed_audio(params, cfg, i - 1, tok[:, i - 1]).to(dtype) @ proj)[:, None]
+        pos = torch.full((B, 1), i, dtype=torch.int32, device=dev)
+        h, cache = transformer_forward(params["decoder"], cfg.decoder, x, pos,
+                                       mask_ops.decode_step_mask(pos, ncb),
+                                       cache, i)
+        out.append(h[:, -1].to(torch.float32) @ heads[i - 1])
+    return torch.stack(out, dim=1)
+
+
+def flip_reason(lg, noise_row, err: float, got: int, want: int, topk: int,
+                temp: float) -> str:
+    """Why a sample may differ from the plain version's where the logits
+    (`lg`, the plain version's, V) move by up to `err`: "race" where its top
+    two race scores lie within a factor exp(2 err / T), "top-k" where `got`
+    could enter or `want` leave the top k (within 2 err of the k-th and
+    (k+1)-th logits), else "none" (check_kernel_b's rule)."""
+    import torch
+    gap = float(race_gap(lg[None, None], noise_row[None, None], topk, temp)[0, 0])
+    top = torch.topk(lg, topk + 1).values
+    rank_g, rank_w = (int((lg > lg[t]).sum()) for t in (got, want))
+    enters = rank_g >= topk and float(top[topk - 1] - lg[got]) <= 2 * err
+    leaves = rank_w < topk and float(lg[want] - top[topk]) <= 2 * err
+    if gap <= 1 - math.exp(-2 * err / temp):
+        return "race"
+    return "top-k" if enters or leaves else "none"
+
+
+class DepthRecorder:
+    """Records every ``_depth_decode`` call of ``lm_generate_frame`` in a
+    with-block: its params, config, inputs and sampled chain."""
+
+    def __enter__(self):
+        from fireredtts2_tpu_torch.models.lm import model as lm
+        self.calls, self._lm, self._orig = [], lm, lm._depth_decode
+
+        def rec(params, cfg, last_h, c0, noise, topk, temp, spec_init=None):
+            out = self._orig(params, cfg, last_h, c0, noise, topk, temp,
+                             spec_init=spec_init)
+            self.calls.append((params, cfg, last_h.clone(), c0.clone(),
+                               noise.clone(), topk, temp, out.clone()))
+            return out
+        lm._depth_decode = rec
+        return self
+
+    def __exit__(self, *exc):
+        self._lm._depth_decode = self._orig
+
+
+def verify_jacobi(calls) -> dict:
+    """Jacobi on every recorded plain-loop call's inputs against the chain
+    the plain loop sampled there: rows equal, or their first difference a
+    near-tie by ``flip_reason`` between the two forwards' logits (forced
+    to the plain chain). -> counts, flips, rounds."""
+    import dataclasses
+    from fireredtts2_tpu_torch.models.lm.model import depth_decode_jacobi
+
+    rows = differ = 0
+    flips, rounds = [], []
+    for i, (params, cfg, last_h, c0, noise, topk, temp, want) in enumerate(calls):
+        spec = dataclasses.replace(cfg, speculative_depth=True)
+        got, r = depth_decode_jacobi(params, spec, last_h, c0, noise, topk, temp)
+        rounds.append(r)
+        rows += got.shape[0]
+        bad = (got != want).any(dim=1).nonzero()[:, 0].tolist()
+        if not bad:
+            continue
+        differ += len(bad)
+        seq = depth_logits(params, cfg, last_h, want, parallel=False)
+        par = depth_logits(params, cfg, last_h, want, parallel=True)
+        for b in bad:
+            p = int((got[b] != want[b]).nonzero()[0])
+            err = float((par[b, p - 1] - seq[b, p - 1]).abs().max())
+            flips.append(dict(call=i, row=b, codebook=p, err=err, why=flip_reason(
+                seq[b, p - 1], noise[b, p], err, int(got[b, p]), int(want[b, p]),
+                topk, temp)))
+    return dict(calls=len(calls), rows=rows, rows_differing=differ,
+                flips=flips[:8], explained=all(f["why"] != "none" for f in flips),
+                rounds_mean=sum(rounds) / max(len(rounds), 1),
+                rounds_max=max(rounds, default=0))
+
+
+def _jacobi_counts() -> dict:
+    from fireredtts2_tpu_torch.models.lm.model import depth_decode_jacobi as j
+    return dict(frames=j.calls, rounds=j.rounds, max_rounds=j.max_rounds,
+                rounds_mean=j.rounds / max(j.calls, 1))
+
+
+def spec_engine_run(eng, dev, must_launch) -> tuple[dict, dict]:
+    """One engine with speculative depth on, after a short warm-up stream:
+    generate_stream (first packet), then generate (LM ms/frame, rounds a
+    frame), launch and round counts set to 0 just before each; a traced
+    6-frame generate (CUDA launches a frame); then the same generate with
+    the flag off (the plain 15-step loop, every depth call recorded): its
+    frames against the speculative ones, and Jacobi run on every recorded
+    call's inputs (``verify_jacobi``). -> (result, checks)."""
+    import dataclasses
+    from fireredtts2_tpu_torch.models.lm.model import reset_jacobi_counts
+
+    seed, cap = 2024, int(SPEC_MS / 80)
+    spec_cfg = eng.config
+    res, checks = {}, {}
+    list(eng.generate_stream("Warm up.", "[S1]", max_audio_length_ms=240,
+                             utt_seed=1))
+    reset_counts()
+    reset_jacobi_counts()
+    t0 = time.perf_counter()
+    audio = np.concatenate(list(eng.generate_stream(
+        TEXT, "[S1]", max_audio_length_ms=SPEC_MS, utt_seed=seed)))
+    _sync()
+    res["stream"] = dict(wall_s=time.perf_counter() - t0,
+                         first_packet_ms=eng._first_packet_s * 1e3,
+                         launches=read_counts(), jacobi=_jacobi_counts())
+    stream_tokens = eng.last_tokens
+    checks["stream_finite"] = bool(np.isfinite(audio).all())
+    reset_counts()
+    reset_jacobi_counts()
+    t0 = time.perf_counter()
+    audio = eng.generate(TEXT, "[S1]", max_audio_length_ms=SPEC_MS, utt_seed=seed)
+    _sync()
+    wall = time.perf_counter() - t0
+    counts, jac, stats = read_counts(), _jacobi_counts(), dict(eng.last_stats)
+    spec_tokens = eng.last_tokens
+    frames = stats["frames"]
+    res["generate"] = dict(
+        wall_s=wall, frames=frames, lm_ms_per_frame=stats["lm_s"] / max(frames, 1) * 1e3,
+        rtf=len(audio) / eng.output_sample_rate / wall, launches=counts, jacobi=jac)
+    checks["generate_finite"] = bool(np.isfinite(audio).all())
+    checks["generate_len"] = len(audio) == frames * 1920 > 0
+    checks["jacobi_once_per_frame"] = jac["frames"] == frames + (frames < cap)
+    checks["rounds_bounded"] = 1 <= jac["max_rounds"] <= \
+        eng.config.llm.audio_num_codebooks - 1
+    for k in must_launch:
+        checks[f"{k}_launched"] = counts[k] > 0
+    checks["fused_depth_decode_not_launched"] = counts["fused_depth_decode"] == 0
+    checks["stream_same_frames"] = bool(np.array_equal(stream_tokens, spec_tokens))
+    _, tr = trace_call(lambda: eng.generate("Profile this.", "[S1]",
+                                            max_audio_length_ms=480,
+                                            utt_seed=3), dev, cpu=False)
+    if tr:
+        tr.pop("by_name")
+        n = eng.last_stats.get("frames") or 1
+        res["trace"] = dict(tr, frames=n,
+                            cuda_launches_per_frame=tr["kernel_launches"] / n)
+    # the plain 15-step loop on the same engine and seed, recorded
+    eng.config = dataclasses.replace(
+        spec_cfg, llm=dataclasses.replace(spec_cfg.llm, speculative_depth=False))
+    try:
+        with DepthRecorder() as rec:
+            t0 = time.perf_counter()
+            eng.generate(TEXT, "[S1]", max_audio_length_ms=SPEC_MS, utt_seed=seed)
+            _sync()
+            plain_wall = time.perf_counter() - t0
+        plain_tokens, plain_stats = eng.last_tokens, dict(eng.last_stats)
+    finally:
+        eng.config = spec_cfg
+    ver = verify_jacobi(rec.calls)
+    res["plain"] = dict(wall_s=plain_wall, lm_ms_per_frame=plain_stats["lm_s"]
+                        / max(plain_stats["frames"], 1) * 1e3)
+    res["verify"] = ver
+    same = plain_tokens.shape == spec_tokens.shape and bool(
+        np.array_equal(plain_tokens, spec_tokens))
+    res["frames_equal_plain"] = same
+    res["common_prefix_with_plain"] = common_prefix(spec_tokens, plain_tokens)
+    checks["jacobi_flips_explained"] = ver["explained"]
+    # equal frames unless a counted near-tie flipped a token
+    checks["frames_equal_plain_or_near_tie"] = same or ver["rows_differing"] > 0
+    return res, checks
+
+
+def spec_pool_run(eng, dev) -> tuple[dict, dict]:
+    """A burst of SPEC_POOL requests (sampled, one utterance seed each)
+    through a ContinuousBatcher pool with speculative depth: aggregate RTF,
+    rounds a pool step, kernel launches; then the same burst through a
+    fresh pool on the plain loop (every depth call recorded): each
+    stream's frames against the speculative run's, Jacobi verified on
+    every recorded call; each stream's common prefix with its lone
+    request (generate_stream at B=1: printed, not bounded, as phase 11's:
+    bf16 routes of other B flip near-ties from the first frame)."""
+    import dataclasses
+    from fireredtts2_tpu_torch.models.lm.model import reset_jacobi_counts
+    from fireredtts2_tpu_torch.runtime.batcher import ContinuousBatcher
+
+    reqs = [(SERVE_TEXTS[i % len(SERVE_TEXTS)],
+             *SERVE_SAMPLING[i % len(SERVE_SAMPLING)], 500 + i)
+            for i in range(SPEC_POOL)]
+
+    def burst(record: bool):
+        b = ContinuousBatcher(eng, max_streams=SPEC_POOL, warmup_blocks=False)
+        rec = DepthRecorder() if record else None
+        try:
+            if rec:
+                rec.__enter__()
+            with b.burst():
+                hs = [b.submit(t, "[S1]", temperature=tp, topk=k,
+                               max_audio_length_ms=SPEC_POOL_MS, utt_seed=s)
+                      for t, tp, k, s in reqs]
+            reset_counts()
+            reset_jacobi_counts()
+            t0 = time.perf_counter()
+            b.start()
+            audios = _consume(hs)
+            _sync()
+            wall = time.perf_counter() - t0
+        finally:
+            if rec:
+                rec.__exit__()
+            b.stop()
+        return hs, audios, wall, read_counts(), _jacobi_counts(), rec
+
+    spec_cfg = eng.config
+    hs, audios, wall, counts, jac, _ = burst(False)
+    audio_s = sum(len(a) for a in audios) / eng.output_sample_rate
+    res = dict(B=SPEC_POOL, wall_s=wall, audio_s=audio_s,
+               aggregate_rtf=audio_s / wall, launches=counts, jacobi=jac,
+               frames=[len(h.tokens) for h in hs])
+    eng.config = dataclasses.replace(
+        spec_cfg, llm=dataclasses.replace(spec_cfg.llm, speculative_depth=False))
+    try:
+        phs, _, plain_wall, _, _, rec = burst(True)
+    finally:
+        eng.config = spec_cfg
+    ver = verify_jacobi(rec.calls)
+    prefixes = [common_prefix(h.tokens, p.tokens) for h, p in zip(hs, phs)]
+    same = [bool(np.array_equal(h.tokens, p.tokens)) for h, p in zip(hs, phs)]
+    lone = []
+    for (t, tp, k, s), h in zip(reqs[:1], hs[:1]):
+        list(eng.generate_stream(t, "[S1]", max_audio_length_ms=SPEC_POOL_MS,
+                                 temperature=tp, topk=k, utt_seed=s))
+        lone.append(common_prefix(h.tokens, eng.last_tokens))
+    res.update(plain_wall_s=plain_wall, verify=ver, streams_equal_plain=sum(same),
+               common_prefix_with_plain=prefixes,
+               lone_common_prefix=lone)
+    checks = {
+        "finite": all(np.isfinite(a).all() for a in audios),
+        "len": all(len(a) == len(h.tokens) * 1920 > 0 for a, h in zip(audios, hs)),
+        "jacobi_flips_explained": ver["explained"],
+        "streams_equal_plain_or_near_tie": all(same) or ver["rows_differing"] > 0,
+        "flash_decode_gqa1_launched": counts["flash_decode_gqa1"] > 0,
+        "flash_decode_update_bounded_launched":
+            counts["flash_decode_update_bounded"] > 0,
+        "rounds_counted": jac["frames"] > 0,
+    }
+    return res, checks
+
+
+def check_kernel_c_s8_vs_s64(dev, L=12, T=3008, H=16, Dh=64, live=200):
+    """Kernel C fed the same 64 rows as one S=64 pass and as eight S=8
+    passes (the grouped decode's and the one-token route's shapes) over
+    one copy of a slab each: the written rows, and each route's attention
+    against the other's and against the plain version's."""
+    import torch
+    from fireredtts2_tpu_torch.ops import flash_decode as fd
+
+    D = H * Dh
+    gen = torch.Generator(device=dev).manual_seed(15)
+    q = _rnd(gen, 1, 64, H, Dh)
+    nk, nv = _rnd(gen, 1, 64, D), _rnd(gen, 1, 64, D)
+    k4, v4 = _rnd(gen, L, 1, T, D), _rnd(gen, L, 1, T, D)
+    pos = (live // 8) * 8
+    ar = torch.arange(64, device=dev, dtype=torch.int32)
+    q_end = (pos + 8 * (ar // 8 + 1))[None]
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
+    layer = L // 2
+    ka, va = k4.clone(), v4.clone()
+    one = fd.flash_decode_update_bounded(q, nk, nv, ka, va, layer, pos_t, q_end,
+                                         pos + 64)
+    kb, vb = k4.clone(), v4.clone()
+    eight = torch.cat([fd.flash_decode_update_bounded(
+        q[:, 8 * j:8 * j + 8], nk[:, 8 * j:8 * j + 8], nv[:, 8 * j:8 * j + 8],
+        kb, vb, layer, pos_t + 8 * j, q_end[:, 8 * j:8 * j + 8], pos + 8 * j + 8)
+        for j in range(8)], dim=1)
+    plain = fd.flash_decode_update_bounded_plain(q, nk, nv, k4, v4, layer, pos_t,
+                                                 q_end, pos + 64)
+    peak = float(plain.float().abs().max())
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()) / peak
+
+    return dict(live=live, rows_identical=bool(torch.equal(ka, kb))
+                and bool(torch.equal(va, vb)),
+                s64_vs_s8=rel(one, eight), s64_vs_plain=rel(one, plain),
+                s8_vs_plain=rel(eight, plain),
+                bit_equal=bool(torch.equal(one, eight)))
+
+
+def one_token_vocoder(dev, codec_params, codec_cfg) -> tuple[dict, dict]:
+    """(e): stream_decode_step over ONE_TOKEN_TOKENS tokens (kernel C at
+    S=8) against codec_decode (the batch decoder) and the engine's grouped
+    route (codec_decode_chunks, S=64 passes, assembled) on the same
+    tokens, each pair's gap as a share of the peak; launch counts set to 0
+    just before the chain; kernel C at S=64 against eight S=8 passes."""
+    import torch
+    from fireredtts2_tpu_torch.models.codec.model import (
+        assemble_chunks, codec_decode, codec_decode_chunks, stream_decode_init,
+        stream_decode_step,
+    )
+    from fireredtts2_tpu_torch.weights import dtype_of
+
+    L = ONE_TOKEN_TOKENS
+    acfg = codec_cfg.acoustic_decoder
+    gen = torch.Generator(device=dev).manual_seed(15)
+    toks = torch.randint(0, codec_cfg.rvq.codebook_size,
+                         (1, codec_cfg.rvq.num_quantizers, L), generator=gen,
+                         device=dev, dtype=torch.int32)
+    with torch.inference_mode():
+        state = stream_decode_init(codec_cfg, 1, dtype_of(codec_cfg.dtype),
+                                   device=dev)
+        stream_decode_step(codec_params, codec_cfg, toks[:, :, :1],
+                           stream_decode_init(codec_cfg, 1,
+                                              dtype_of(codec_cfg.dtype),
+                                              device=dev), True, False)
+        _sync()
+        reset_counts()
+        pieces = []
+
+        def chain():
+            st = state
+            for t in range(L):
+                a, st = stream_decode_step(codec_params, codec_cfg,
+                                           toks[:, :, t:t + 1], st,
+                                           t == 0, t == L - 1)
+                pieces.append(a)
+
+        t0 = time.perf_counter()
+        chain()
+        _sync()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        ev_ms = None
+        if torch.device(dev).type == "cuda":   # the chain again, queued
+            state = stream_decode_init(codec_cfg, 1, dtype_of(codec_cfg.dtype),
+                                       device=dev)
+            pieces.clear()
+            ev_ms = queued_ms(chain, 1, warmup=0) / L
+        one = torch.cat(pieces, dim=1).float().cpu().numpy()[0]
+        batch = codec_decode(codec_params, codec_cfg, toks).float().cpu().numpy()[0]
+        mid, tails = codec_decode_chunks(codec_params, codec_cfg, toks)
+        grouped = assemble_chunks(mid.float().cpu().numpy(),
+                                  tails.float().cpu().numpy(), L,
+                                  acfg.hop_length, acfg.n_fft)[0]
+
+    def gap(a, b):
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-9))
+
+    kc = check_kernel_c_s8_vs_s64(dev)
+    res = dict(tokens=L, wall_s=wall, ms_per_token=wall / L * 1e3,
+               queued_ms_per_token=ev_ms, launches=counts,
+               one_token_vs_grouped=gap(one, grouped),
+               one_token_vs_batch=gap(one, batch),
+               grouped_vs_batch=gap(grouped, batch), kernel_c_s8_vs_s64=kc)
+    checks = {
+        "finite": bool(np.isfinite(one).all()),
+        "len": one.shape == grouped.shape == batch.shape == (L * 1920,),
+        "kernel_c_once_a_layer_a_token":
+            counts["flash_decode_update_bounded"] == L * acfg.num_layers,
+        "kernel_c_rows_identical": kc["rows_identical"],
+        "kernel_c_s8_vs_s64": kc["s64_vs_s8"] <= RTOL * 4,
+        "one_token_vs_grouped": res["one_token_vs_grouped"] <= STREAM_GAP_TOL,
+        "one_token_vs_batch": res["one_token_vs_batch"] <= STREAM_GAP_TOL,
+    }
+    return res, checks
+
+
+def run_speculative(dev, card: str, config=None, loop_steps=SPEC_LOOP_STEPS,
+                    depth_batches=(1, 8)) -> dict:
+    """Phase 15 at `config`'s widths (default EngineConfig(): full widths
+    and depth), random weights from seed 0 shared by every engine:
+    (a) the bf16 backbone and the int8 backbone with speculative depth
+    (``spec_engine_run``; kernels A and C launched, B not); (b) kernel E at
+    16 x B rows on every qwen-200m matrix, then int4 depth with speculative
+    depth (E launched); (c) a pool of SPEC_POOL (``spec_pool_run``); (d)
+    tools/spec_depth_rounds.py at `depth_batches` and tools/trained_loop.py
+    with `loop_steps`; (e) the one-token vocoder (``one_token_vocoder``)."""
+    import dataclasses
+
+    import torch
+    from fireredtts2_tpu_torch.config import EngineConfig
+    from fireredtts2_tpu_torch.engine import FireRedTTS2Engine
+    from fireredtts2_tpu_torch.tools import spec_depth_rounds, trained_loop
+    from fireredtts2_tpu_torch.weights import init_random
+
+    t_phase = time.perf_counter()
+    base = config or EngineConfig()
+    checks: dict = {}
+    res: dict = dict(card=card)
+    lm_raw, codec_raw = init_random(base, seed=0, device=dev)
+    variants = {
+        "bf16": dict(),
+        "int8_backbone": dict(quantize_backbone=True),
+        "int4_depth": dict(quantize_depth=True, quantize_depth_bits=4),
+    }
+    launches: dict = {}
+    part_s = res["part_s"] = {}
+    t_part = time.perf_counter()
+
+    def lap(name: str) -> None:
+        nonlocal t_part
+        part_s[name] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+    lap("init")
+    for label, over in variants.items():
+        cfg = dataclasses.replace(base, llm=dataclasses.replace(
+            base.llm, speculative_depth=True, **over))
+        must = ["flash_decode_gqa1", "flash_decode_update_bounded"]
+        if label == "int4_depth":
+            must.append("int4_matmul")
+            if torch.device(dev).type == "cuda":
+                res["kernel_e"] = check_kernel_e(dev, ms=E_SPEC_MS, reps=10)
+                checks["kernel_e"] = all(r["ok"] for r in res["kernel_e"])
+                lap("kernel_e")
+        eng = FireRedTTS2Engine(cfg, device=dev, lm_params=lm_raw,
+                                codec_params=codec_raw)
+        lap(f"{label}_init")
+        r, c = spec_engine_run(eng, dev, must)
+        lap(label)
+        res[label] = r
+        checks.update({f"{label}_{k}": v for k, v in c.items()})
+        for run in ("stream", "generate"):
+            for k, n in r.get(run, {}).get("launches", {}).items():
+                launches[k] = launches.get(k, 0) + n
+        if label == "bf16":
+            r, c = spec_pool_run(eng, dev)
+            lap("pool")
+            res["pool"] = r
+            checks.update({f"pool_{k}": v for k, v in c.items()})
+            for k, n in r["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+        del eng
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+    del lm_raw
+
+    # (d) the tools
+    with torch.inference_mode():
+        res["spec_depth_rounds"] = spec_depth_rounds.run(
+            batches=depth_batches, frames=16, device=dev, log=log,
+            tiny=torch.device(dev).type != "cuda")
+    lap("spec_depth_rounds")
+    checks["spec_depth_rounds_bounded"] = all(
+        1 <= r["rounds_max"] <= r["worst_case"] for r in res["spec_depth_rounds"])
+    t0 = time.perf_counter()
+    loop = trained_loop.run(steps_lm=loop_steps[0], steps_codec=loop_steps[1],
+                            device=dev, log=log)
+    res["trained_loop"] = dict(loop, secs=time.perf_counter() - t0)
+    checks["trained_loop_ran"] = loop["phase"] == "summary"
+    lap("trained_loop")
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (e) the one-token vocoder on the flagship codec
+    r, c = one_token_vocoder(dev, codec_raw, base.codec)
+    lap("one_token")
+    res["one_token"] = r
+    checks.update({f"one_token_{k}": v for k, v in c.items()})
+    for k, n in r["launches"].items():
+        launches[k] = launches.get(k, 0) + n
+    del codec_raw
+    res["launches"] = launches
+    res["checks"] = checks
+    res["ok"] = all(checks.values())
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -3945,7 +4496,12 @@ def main() -> int:
         f"plain version's top two race scores are within 1 - exp(-2 err / T) "
         f"of each other, or its k-th and (k+1)-th logits within 2 err (err: "
         f"that step's logit error, T: temperature, k: top-k)")
-    res_b = check_kernel_b(dev, reps=5)    # the plain version's trace is slow
+    # the serving preset checked and timed (the plain version's trace is
+    # slow); the r4 and a8 plans, off the main path, checked untimed (their
+    # times: PERF.md's kernel table, PR 6)
+    res_b = check_kernel_b(dev, plans=(PRESET,), reps=3) + check_kernel_b(
+        dev, plans=("gate=r4,up=s8,down=s8", "gate=r8a8,up=s8a8,down=s8"),
+        timed=False, wide=())
     for r in res_b:
         log(f"kernel B {r['plan']} B={r['B']}: logits max_abs_err "
             f"{r['max_abs_err']:.3e} (peak {r['peak']:.3f}), near-ties "
@@ -4040,8 +4596,8 @@ def main() -> int:
         log(f"[{label}] generate: {eng['frames']} frames, RTF {g['rtf']:.3f}, LM "
             f"{g['lm_ms_per_frame']:.2f} ms/frame, vocoder "
             f"{g['vocode_s'] * 1e3:.1f} ms, launches {g['launches']}  [{card}]")
-        log(f"[{label}] stream vs generate audio (of peak): "
-            f"{eng['stream_vs_generate_rel_err']}")
+        log(f"[{label}] stream vs generate audio (of peak, bound "
+            f"{STREAM_GAP_TOL}): {eng['stream_vs_generate_rel_err']}")
         pr = eng["profile"]
         if pr:
             log(f"[{label}] traced generate: {pr['frames']} frames, wall "
@@ -4362,6 +4918,63 @@ def main() -> int:
     report["drill"] = dr
 
     mark("14")
+    # 15. speculative depth and the one-token vocoder
+    sp = run_speculative(dev, card)
+    for label in ("bf16", "int8_backbone", "int4_depth"):
+        r = sp[label]
+        g, v, st = r["generate"], r["verify"], r.get("stream", {})
+        tr = r.get("trace", {})
+        log(f"[spec {label}] generate: {g['frames']} frames, LM "
+            f"{g['lm_ms_per_frame']:.2f} ms/frame (plain loop, recorded: "
+            f"{r['plain']['lm_ms_per_frame']:.2f}), RTF {g['rtf']:.3f}; rounds a "
+            f"frame mean {g['jacobi']['rounds_mean']:.2f} max "
+            f"{g['jacobi']['max_rounds']}; FPL {st.get('first_packet_ms', 0):.1f} "
+            f"ms; launches {g['launches']}; traced: "
+            f"{tr.get('cuda_launches_per_frame', float('nan')):.0f} CUDA launches "
+            f"a frame, busy {tr.get('busy_share', float('nan')):.3f}  [{card}]")
+        log(f"[spec {label}] frames equal the plain loop's: "
+            f"{r['frames_equal_plain']} (common prefix "
+            f"{r['common_prefix_with_plain']}); Jacobi on the plain loop's "
+            f"{v['calls']} depth calls: {v['rows_differing']} rows differ, "
+            f"flips {v['flips']}, explained {v['explained']}")
+    for row in sp.get("kernel_e", []):
+        log(f"kernel E {row['name']} {row['K']}x{row['O']} M={row['M']}: "
+            f"max_abs_err {row['max_abs_err']:.3e} ok={row['ok']}  "
+            f"{fmt_times(row)}  [{card}]")
+    po = sp["pool"]
+    log(f"[spec pool B={po['B']}] burst: {po['audio_s']:.2f} s audio in "
+        f"{po['wall_s']:.2f} s, aggregate RTF {po['aggregate_rtf']:.3f} (plain "
+        f"loop {po['plain_wall_s']:.2f} s); rounds a pool step mean "
+        f"{po['jacobi']['rounds_mean']:.2f} max {po['jacobi']['max_rounds']} "
+        f"over {po['jacobi']['frames']} steps; streams equal the plain pool's "
+        f"{po['streams_equal_plain']} of {po['B']} (common prefixes "
+        f"{po['common_prefix_with_plain']}); Jacobi on {po['verify']['calls']} "
+        f"recorded pool steps: {po['verify']['rows_differing']} rows differ, "
+        f"explained {po['verify']['explained']}; lone request (B=1) common "
+        f"prefix {po['lone_common_prefix']}  [{card}]")
+    tl = sp["trained_loop"]
+    log(f"[spec trained loop] {tl['config']} config, {tl['steps_lm']} + "
+        f"{tl['steps_codec']} steps, {tl['secs']:.1f} s: token accuracy "
+        f"{tl['token_acc_trained']}, rounds {tl['rounds']}, plan overlap "
+        f"trained {tl['kernel_overlap_trained']} random "
+        f"{tl['kernel_overlap_random']} ({tl['kernel_overlap_route']}), QA "
+        f"{tl['qa_pass']}/{tl['qa_total']}  [{card}]")
+    ot = sp["one_token"]
+    log(f"[spec one-token vocoder] {ot['tokens']} tokens: "
+        f"{ot['ms_per_token']:.2f} ms a token (host), queued "
+        f"{ot['queued_ms_per_token']} ms; gaps of peak: one-token vs grouped "
+        f"{ot['one_token_vs_grouped']:.4f}, one-token vs batch "
+        f"{ot['one_token_vs_batch']:.4f}, grouped vs batch "
+        f"{ot['grouped_vs_batch']:.4f}; kernel C S=64 vs 8 x S=8 on the same "
+        f"rows: {ot['kernel_c_s8_vs_s64']}; launches {ot['launches']}  [{card}]")
+    log(f"[spec] checks: {sp['checks']}; phase {sp['phase_s']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in sp["part_s"].items()) + ")")
+    for k, n in sp["launches"].items():
+        main_launches[k] = main_launches.get(k, 0) + n
+    ok &= sp["ok"]
+    report["speculative"] = sp
+
+    mark("15")
     report["phase_s"] = phase_s
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -4429,8 +5042,10 @@ def main() -> int:
               served_by="flash_decode_update_bounded"),
         entry("int4_matmul", csrc + "int4_matmul.cu",
               "fireredtts2_tpu/ops/pallas_int4.py:74",
-              main_launches["int4_matmul"], res_e,
-              pick(res_e, name="w_gate", M=1)),
+              main_launches["int4_matmul"], res_e + sp["kernel_e"],
+              pick(res_e, name="w_gate", M=1),
+              speculative_rows={m: at(pick(sp["kernel_e"], name="w_gate", M=m))
+                                for m in E_SPEC_MS}),
         entry("pallas_decode_attention", csrc + "flash_decode_gqa1.cu",
               "fireredtts2_tpu/ops/pallas_attention.py:176", f_launches, res_f,
               pick(res_f, B=1, live=3000), launched_in="check",

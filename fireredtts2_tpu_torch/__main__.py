@@ -16,7 +16,9 @@ Counterpart of ``fireredtts2_tpu/__main__.py``:
 The engine and training run on the card (``--device cuda``, the default);
 a CPU run asks for it with ``--device cpu``. Without --pretrained-dir a tiny
 random-weight config is used (dev mode). The serving preset on the card is
-``--quantize-backbone --fused-depth-plan gate=r8,up=s8,down=s8``.
+``--quantize-backbone --fused-depth-plan gate=r8,up=s8,down=s8``;
+``--speculative-depth`` runs the depth decoder's Jacobi rounds instead of
+its 15 steps (without a fused plan).
 
 The JAX CLI's flags and subcommands that have no port yet are accepted by
 the parser and exit non-zero, naming the ROADMAP item that ports them.
@@ -30,7 +32,6 @@ import sys
 
 # flag or subcommand -> the ROADMAP item (queue 1) that ports it
 NOT_PORTED = {
-    "--speculative-depth": "item 9 (speculative depth)",
     "--tp": "item 13 (multi-GPU)",
     "--dp": "item 13 (multi-GPU)",
     "--zero1": "item 13 (multi-GPU)",
@@ -46,8 +47,6 @@ def _not_ported(what: str):
 
 def _check_ported(args) -> None:
     """Exit non-zero on any flag of the JAX CLI the port lacks."""
-    if args.speculative_depth:
-        _not_ported("--speculative-depth")
     if args.tp is not None:
         _not_ported("--tp")
     if args.dp is not None:
@@ -65,6 +64,8 @@ def _build_engine(args):
         llm_overrides["quantize_backbone"] = True
     if args.fused_depth_plan:
         llm_overrides["fused_depth_plan"] = args.fused_depth_plan
+    if args.speculative_depth:
+        llm_overrides["speculative_depth"] = True
     if args.pretrained_dir:
         return FireRedTTS2Engine(pretrained_dir=args.pretrained_dir,
                                  gen_type=args.gen_type, device=args.device,
@@ -265,9 +266,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="weight-only int8 backbone")
     p.add_argument("--fused-depth-plan", default=None, metavar="PLAN",
                    help="kernel B's weight plan, e.g. gate=r8,up=s8,down=s8")
-    # the JAX CLI's flags without a port (NOT_PORTED): exit non-zero
     p.add_argument("--speculative-depth", action="store_true",
-                   help="not ported (ROADMAP item 9)")
+                   help="Jacobi speculative depth decode (the same tokens; "
+                        "rounds of a 16-position forward in place of 15 "
+                        "steps; off under a fused depth plan)")
+    # the JAX CLI's flags without a port (NOT_PORTED): exit non-zero
     p.add_argument("--tp", type=int, default=None, help="not ported (item 13)")
     p.add_argument("--dp", type=int, default=None, help="not ported (item 13)")
     sub = p.add_subparsers(dest="cmd", required=True)

@@ -146,11 +146,10 @@ class FireRedTTS2Engine:
                     codec=dataclasses.replace(config.codec,
                                               **(codec_overrides or {})))
         llm = config.llm
-        if ((llm.speculative_depth and not llm.fused_depth_plan)
-                or not config.codec.acoustic_decoder.causal):
+        if not config.codec.acoustic_decoder.causal:
             raise NotImplementedError(
                 "this configuration needs a path that is not ported yet "
-                "(speculative depth, or the non-causal vocoder)")
+                "(the non-causal vocoder's streaming decode)")
         self.config = config
         self.device = resolve_device(device)
         if pretrained_dir is not None:
@@ -333,7 +332,9 @@ class FireRedTTS2Engine:
         """Quantisation and the fused depth chain per the config, on copies
         of the trees (engine.py:_apply_serving_transforms of the JAX
         package). The fused plan takes precedence over quantize_depth, and
-        speculative depth is then ignored, as there."""
+        speculative depth is then ignored, as there; without a plan,
+        speculative depth runs on whatever depth decoder this leaves (bf16,
+        int8, or int4 through kernel E at 16 rows a stream)."""
         llm = self.config.llm
         if llm.fused_depth_plan or llm.quantize_depth or llm.quantize_backbone:
             lm_params = dict(lm_params)

@@ -6,8 +6,10 @@ decoder (``acoustic_decoder_forward``, causal and non-causal: whole
 utterances, training and offline decode, plain PyTorch as JAX runs it as
 plain XLA) and the causal streaming path. Every streaming cache has a
 fixed shape; the attention cache is a preallocated MERGED (L, B, T, H*Dh)
-slab that kernel C writes in place. The small conv and iSTFT caches are
-replaced by new tensors per chunk.
+slab that kernel C writes in place. Streaming decodes K tokens per backbone
+pass (``stream_decode_block_batched``, ``stream_decode_scan``) or one
+(``stream_decode_chunk``, the reference's one-token route). The small
+conv and iSTFT caches are replaced by new tensors per chunk.
 Layout: features (B, T, C); convs transpose internally; conv weights keep
 the torch (out, in, k) / transposed-conv (in, out, k) layouts the JAX
 package stores.
@@ -25,7 +27,8 @@ from fireredtts2_tpu_torch.config import AcousticDecoderConfig
 from fireredtts2_tpu_torch.weights import host_to_device
 from fireredtts2_tpu_torch.ops import masks as mask_ops
 from fireredtts2_tpu_torch.ops.stft import (
-    hann_tensor, irfft_frames, istft, overlap_add, window_envelope,
+    hann_tensor, irfft_frames, istft, istft_chunk, overlap_add,
+    window_envelope,
 )
 from fireredtts2_tpu_torch.models.codec.whisper_nn import (
     conv1d as wconv1d, init_kv_slab, init_whisper_layers, layer_norm,
@@ -342,12 +345,33 @@ def _upsample_chunk(params: Params, x: torch.Tensor, up1_cache, up2_cache):
     return z.transpose(1, 2), new_up1, new_up2
 
 
-def _vocoder_backbone_chunk(params: Params, cfg: AcousticDecoderConfig,
-                            x: torch.Tensor, state: VocoderStreamState
-                            ) -> tuple[torch.Tensor, VocoderStreamState]:
+def stream_decode_chunk(params: Params, cfg: AcousticDecoderConfig,
+                        x: torch.Tensor, state: VocoderStreamState,
+                        first: bool, last: bool
+                        ) -> tuple[torch.Tensor, VocoderStreamState]:
+    """Decode one token's latents to ~80 ms of audio: the reference's
+    one-token ``decode_one_token`` route.
+
+    x: (B, 4, D) 50 Hz latents of ONE 12.5 Hz token (from UpConv); first /
+    last: the chunk's place in the utterance, which only sets how much of
+    the fully overlapped iSTFT output is emitted (``ops.stft.istft_chunk``).
+    The 8 latents attend 8-block-causally through kernel C at S=8 (slab
+    rows written at min(pos, T - 8), as the other vocoder routes write).
+    Returns (audio (B, n), the new state); the chained outputs concatenate
+    to the batch decoder's waveform."""
+    (re, im), new_state = _vocoder_spectra(params, cfg, x, state)
+    audio, istft_cache = istft_chunk(
+        re, im, None if first else state.istft_cache.to(re.dtype),
+        cfg.n_fft, cfg.hop_length, last_chunk=last)
+    return audio, replace(new_state,
+                          istft_cache=istft_cache.to(state.istft_cache.dtype))
+
+
+def _vocoder_spectra(params: Params, cfg: AcousticDecoderConfig,
+                     x: torch.Tensor, state: VocoderStreamState):
     """Streaming front (upsample, convs, attention, head) for whole tokens:
-    x (B, 4G, D) -> windowed ifft frames (B, n_fft, 8G), and the new state
-    (istft_cache = the trailing frames). The attention is 8-block-causal:
+    x (B, 4G, D) -> the head's spectra ((B, F, 8G) re, im, float32), and
+    the new state but its istft_cache. The attention is 8-block-causal:
     latent q of the chunk sees slots < pos + 8*(q//8 + 1)."""
     h, up1, up2 = _upsample_chunk(params, x, state.up1_cache, state.up2_cache)
     S = h.shape[1]
@@ -367,18 +391,25 @@ def _vocoder_backbone_chunk(params: Params, cfg: AcousticDecoderConfig,
     hc, c2a, c2b = causal_resnet_chunk(params["post0"], hc, rb[2, 0], rb[2, 1])
     hc, c3a, c3b = causal_resnet_chunk(params["post1"], hc, rb[3, 0], rb[3, 1])
     hc = layer_norm(hc, params["final_ln_w"], params["final_ln_b"], eps=1e-6)
-    re, im = _head_spectrum(params, hc)
-    w = hann_tensor(cfg.n_fft, torch.float32, x.device)
-    frames = irfft_frames(re, im, cfg.n_fft) * w[None, :, None]
-    r_1 = cfg.n_fft // cfg.hop_length - 1
     rbc = torch.stack([torch.stack([c0a, c0b]), torch.stack([c1a, c1b]),
                        torch.stack([c2a, c2b]), torch.stack([c3a, c3b])])
     new_state = replace(
         state, up1_cache=up1, up2_cache=up2, in_proj_cache=in_cache,
-        rb_caches=rbc.to(state.rb_caches.dtype),
-        istft_cache=frames[..., -r_1:].to(state.istft_cache.dtype),
-        pos=state.pos + S)
-    return frames, new_state
+        rb_caches=rbc.to(state.rb_caches.dtype), pos=state.pos + S)
+    return _head_spectrum(params, hc), new_state
+
+
+def _vocoder_backbone_chunk(params: Params, cfg: AcousticDecoderConfig,
+                            x: torch.Tensor, state: VocoderStreamState
+                            ) -> tuple[torch.Tensor, VocoderStreamState]:
+    """:func:`_vocoder_spectra`, then the windowed ifft frames (B, n_fft,
+    8G), with the new state's istft_cache = the trailing frames."""
+    (re, im), new_state = _vocoder_spectra(params, cfg, x, state)
+    w = hann_tensor(cfg.n_fft, torch.float32, x.device)
+    frames = irfft_frames(re, im, cfg.n_fft) * w[None, :, None]
+    r_1 = cfg.n_fft // cfg.hop_length - 1
+    return frames, replace(
+        new_state, istft_cache=frames[..., -r_1:].to(state.istft_cache.dtype))
 
 
 def _norm_ola(frames: torch.Tensor, hop: int, n_fft: int) -> torch.Tensor:

@@ -6,8 +6,9 @@ Counterpart of ``fireredtts2_tpu/models/codec/model.py``:
   RVQ codes, in 6 s windows (``encode_window``, ``codec_encode``;
   token_length = ceil(samples / 1280));
 - decode: RVQ decode -> UpConv x4 -> streaming acoustic decoder
-  (``codec_decode_chunks``), or the batch decoder over the whole
-  utterance (``codec_decode``, offline).
+  (``codec_decode_chunks``; one token at a time, ``stream_decode_step``),
+  or the batch decoder over the whole utterance (``codec_decode``,
+  offline).
 The encode runs on fp32 log-mels, so its activations are fp32 whatever the
 weights' dtype, every fp32 product in full fp32 (``ops.precision``). The
 semantic decoder (the SSL reconstruction head) serves training only: it is
@@ -31,7 +32,8 @@ from fireredtts2_tpu_torch.models.codec.rvq import (
 )
 from fireredtts2_tpu_torch.models.codec.decoder import (
     VocoderStreamState, acoustic_decoder_forward, init_acoustic_decoder,
-    init_upconv, stream_decode_scan, stream_state_init, upconv_forward,
+    init_upconv, stream_decode_chunk, stream_decode_scan, stream_state_init,
+    upconv_forward,
 )
 from fireredtts2_tpu_torch.models.codec.whisper_nn import (
     init_whisper_encoder, whisper_encoder_forward,
@@ -217,3 +219,15 @@ def stream_decode_init(cfg: CodecConfig, batch: int, dtype=torch.float32,
                        ) -> VocoderStreamState:
     return stream_state_init(cfg.acoustic_decoder, batch, dtype, device=device,
                              latents=latents)
+
+
+def stream_decode_step(params: Params, cfg: CodecConfig, token: torch.Tensor,
+                       state: VocoderStreamState, first: bool, last: bool
+                       ) -> tuple[torch.Tensor, VocoderStreamState]:
+    """Decode ONE token (B, nq, 1) to ~80 ms of audio (the reference's
+    ``decode_one_token``): RVQ decode, UpConv, then
+    ``decoder.stream_decode_chunk``. first / last: the token's place in
+    the utterance. Returns (audio (B, n), the new state)."""
+    return stream_decode_chunk(params["acoustic_decoder"], cfg.acoustic_decoder,
+                               _upsampled(params, cfg, token), state, first,
+                               last)

@@ -2,10 +2,12 @@
 generation path.
 
 Counterpart of ``fireredtts2_tpu/models/lm/model.py`` (generation,
-append-prefill, rewind, the continuous batcher's slot admission and the
-training loss ``lm_loss``; no speculative depth). With a fused-depth plan and a ``depth_chain`` bundle
-in the tree the depth decode is one launch of kernel B per frame
-(``ops.depth_chain``).
+append-prefill, rewind, the continuous batcher's slot admission, the
+training loss ``lm_loss`` and speculative depth). With a fused-depth plan
+and a ``depth_chain`` bundle in the tree the depth decode is one launch of
+kernel B per frame (``ops.depth_chain``); else, with
+``cfg.speculative_depth``, Jacobi rounds (``depth_decode_jacobi``); else
+15 sequential steps.
 Frames interleave audio_num_codebooks audio columns and one text column;
 the backbone samples codebook 0, the depth decoder codebooks 1..N-1.
 
@@ -156,18 +158,126 @@ def frame_hidden(params: Params, cfg: LLMConfig, tokens: torch.Tensor,
     return (embeds * tokens_mask[..., None].to(embeds.dtype)).sum(-2).to(dtype)
 
 
+def draft_depth_tokens(params: Params, cfg: LLMConfig, last_h: torch.Tensor,
+                       c0: torch.Tensor) -> torch.Tensor:
+    """Greedy draft of codebooks 1..ncb-1 in one parallel shot from the
+    ``depth_draft`` head, (B, ncb-1) int32: the Jacobi init when the tree
+    has a trained head. The argmax is over fp32 logits, first index on
+    ties, as jnp.argmax takes it."""
+    dh = params["depth_draft"]
+    e0 = embed_audio(params, cfg, 0, c0).to(last_h.dtype)
+    h = torch.cat([last_h, e0], dim=-1) @ dh["trunk"]          # (B, D_dec)
+    hp = h[:, None, :] + dh["pos"][None]                       # (B, ncb-1, D)
+    logits = torch.einsum("nsd,sdv->nsv", hp.to(torch.float32),
+                          params["audio_head"].to(torch.float32))
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def depth_decode_jacobi(params: Params, cfg: LLMConfig, last_h: torch.Tensor,
+                        c0: torch.Tensor, noise: torch.Tensor, depth_topk: int,
+                        depth_temperature: float,
+                        init: torch.Tensor | None = None,
+                        ) -> tuple[torch.Tensor, int]:
+    """Speculative depth decode by Jacobi iteration: each round is one
+    stateless 16-position forward of the depth decoder over [last_h,
+    embed(guess[:, :15])] @ projection under a causal mask (lm_loss's depth
+    input), which re-samples every position 1..ncb-1 from the same noise
+    rows ``noise[:, i]`` the sequential loop uses; the longest
+    self-consistent prefix is kept. Each round verifies at least one more
+    token, so at most ncb-1 rounds run and the tokens are the sequential
+    chain's, wherever the parallel forward rounds as the S=1 steps do
+    (exact at f32; bf16 on the card may flip a near-tie).
+
+    The stop condition lives on the device in JAX (a while_loop); here it
+    is read on the host once a round. ``depth_decode_jacobi.calls`` /
+    ``.rounds`` / ``.max_rounds`` count frames and rounds in this process.
+
+    noise: (B, ncb, V) Exp(1) draws (column 0 unused); init: an optional
+    (B, ncb-1) first guess. Returns (samples (B, ncb) int32, rounds)."""
+    dec_cfg = cfg.decoder
+    ncb, V = cfg.audio_num_codebooks, cfg.audio_vocab_size
+    B = last_h.shape[0]
+    dtype, dev = last_h.dtype, last_h.device
+    proj = params["projection"]
+    heads = params["audio_head"].to(torch.float32)     # (ncb-1, D_dec, V)
+    offs = torch.arange(ncb - 1, device=dev) * V
+    pos = torch.arange(ncb, dtype=torch.int32, device=dev).expand(B, ncb)
+    attn = mask_ops.causal_mask(ncb, dev).expand(B, ncb, ncb)
+    ipos = torch.arange(1, ncb, dtype=torch.int32, device=dev)[None]
+    depth_noise = noise[:, 1:ncb]
+
+    def forward(tok):
+        """Every position 1..ncb-1 sampled, each conditioned on the current
+        guess of the positions before it."""
+        c_emb = params["audio_embeddings"][tok[:, :ncb - 1].to(torch.int64)
+                                           + offs].to(dtype)
+        dec_in = torch.cat([last_h[:, None, :], c_emb], dim=1) @ proj
+        dec_h, _ = transformer_forward(params["decoder"], dec_cfg, dec_in, pos,
+                                       attn)
+        logits = torch.einsum("nsd,sdv->nsv", dec_h[:, 1:].to(torch.float32),
+                              heads)
+        return sample_topk(logits, depth_topk, depth_temperature, depth_noise)
+
+    tok = torch.zeros((B, ncb), dtype=torch.int32, device=dev)
+    tok[:, 0] = c0
+    if init is not None:
+        tok[:, 1:] = init
+    p = torch.zeros((B,), dtype=torch.int32, device=dev)
+    rounds = 0
+    while True:
+        sampled = forward(tok)
+        # Positions <= p are verified: their inputs are true, so `sampled`
+        # reproduces them. The first later position where the old guess
+        # disagrees is corrected by this round's sample (its inputs all
+        # verified or matching) and becomes the new frontier.
+        match = tok[:, 1:] == sampled
+        blocked = ~match & (ipos > p[:, None])
+        first = torch.argmax(blocked.to(torch.int8), dim=1).to(torch.int32) + 1
+        new_p = torch.where(blocked.any(dim=1), first, ncb - 1)
+        tok[:, 1:] = torch.where(ipos <= p[:, None], tok[:, 1:], sampled)
+        p = torch.maximum(p, new_p)
+        rounds += 1
+        if rounds >= ncb or not bool((p < ncb - 1).any()):
+            break
+    depth_decode_jacobi.calls += 1
+    depth_decode_jacobi.rounds += rounds
+    depth_decode_jacobi.max_rounds = max(depth_decode_jacobi.max_rounds, rounds)
+    return tok, rounds
+
+
+def reset_jacobi_counts() -> None:
+    """Set depth_decode_jacobi's frame and round counts to 0."""
+    depth_decode_jacobi.calls = 0
+    depth_decode_jacobi.rounds = 0
+    depth_decode_jacobi.max_rounds = 0
+
+
+reset_jacobi_counts()
+
+
 def _depth_decode(params: Params, cfg: LLMConfig, last_h: torch.Tensor,
                   c0: torch.Tensor, noise: torch.Tensor, depth_topk: int,
-                  depth_temperature: float) -> torch.Tensor:
+                  depth_temperature: float,
+                  spec_init: torch.Tensor | None = None) -> torch.Tensor:
     """Sample codebooks 1..N-1 with the depth transformer over a fresh
     16-slot cache: an S=2 prefill of [last_h, embed(c0)], then single steps,
     in plain PyTorch (the JAX package's XLA loop). When the tree carries a
     ``depth_chain`` bundle for ``cfg.fused_depth_plan``, the whole chain is
-    kernel B instead, with the same noise. Returns (B, ncb) int32."""
+    kernel B instead, with the same noise; that takes precedence over
+    ``cfg.speculative_depth``, which otherwise runs the Jacobi rounds from
+    the draft head's guess when the tree has one, else from `spec_init`.
+    Returns (B, ncb) int32."""
     if cfg.fused_depth_plan and "depth_chain" in params:
         return fused_depth_decode(params["depth_chain"], cfg, last_h, c0, noise,
                                   depth_topk, depth_temperature,
                                   plan=cfg.fused_depth_plan)
+    if cfg.speculative_depth:
+        if "depth_draft" in params:
+            spec_init = draft_depth_tokens(params, cfg, last_h, c0)
+        samples, _ = depth_decode_jacobi(params, cfg, last_h, c0, noise,
+                                         depth_topk, depth_temperature,
+                                         init=spec_init)
+        return samples
     dec_cfg = cfg.decoder
     ncb = cfg.audio_num_codebooks
     B = last_h.shape[0]
@@ -247,15 +357,24 @@ def lm_generate_frame(params: Params, cfg: LLMConfig, state: LMState,
 
     if real_len is None:
         last_h = h_out[:, -1, :]     # right-aligned content: the newest
+        last_tok = tokens[:, -1]
     else:
         idx = (real_len.to(torch.int64) - 1)[:, None, None]
         last_h = torch.gather(
             h_out, 1, idx.expand(-1, 1, h_out.shape[-1]))[:, 0]
+        last_tok = torch.gather(
+            tokens, 1, idx.expand(-1, 1, tokens.shape[-1]))[:, 0]
     c0_logits = (last_h.to(torch.float32)
                  @ params["codebook0_head"].to(torch.float32))
     c0 = sample_topk(c0_logits, topk, temperature, noise[:, 0])
+    # The speculative init: the window's last frame's depth chain. RVQ codes
+    # are correlated in time, so it is a free draft; it changes only the
+    # Jacobi rounds, never the tokens.
+    ncb = cfg.audio_num_codebooks
+    spec_init = (last_tok[:, 1:ncb].clamp(0, cfg.audio_vocab_size - 1)
+                 .to(torch.int32) if cfg.speculative_depth else None)
     samples = _depth_decode(params, cfg, last_h, c0, noise, depth_topk,
-                            depth_temperature)
+                            depth_temperature, spec_init=spec_init)
     step = S if real_len is None else real_len.to(torch.int32)
     new_state = LMState(cache_k=state.cache_k, cache_v=state.cache_v,
                         slot_valid=state.slot_valid, pos=state.pos + step)

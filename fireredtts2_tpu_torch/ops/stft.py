@@ -4,8 +4,8 @@ convolutions, no FFT primitive.
 Counterpart of ``fireredtts2_tpu/ops/stft.py``: the mel frontend's forward
 STFT (``stft_power``: reflect pad, then the windowed DFT as one strided
 conv over the basis), what the streaming vocoder uses (a matmul inverse
-DFT, overlap-add and the window envelope) and the batch decoder's
-``istft``. The bases are built once in
+DFT, overlap-add and the window envelope), the batch decoder's ``istft``
+and the one-token vocoder's ``istft_chunk``. The bases are built once in
 float64 numpy, exactly as the JAX package builds them, and cached per
 device; the products follow ``ops.precision`` (full fp32 for fp32
 operands), as JAX runs them at ``Precision.HIGHEST``.
@@ -146,3 +146,34 @@ def istft(spec_re: torch.Tensor, spec_im: torch.Tensor, n_fft: int,
     y = y / torch.clamp(env[None, :], min=1e-11)
     pad = (n_fft - hop_length) // 2
     return y[:, pad:-pad]
+
+
+def istft_chunk(spec_re: torch.Tensor, spec_im: torch.Tensor,
+                cache: torch.Tensor | None, n_fft: int, hop_length: int,
+                last_chunk: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Streaming iSTFT over one chunk of frames with a windowed-frame cache.
+
+    spec_*: (B, F, Tc) chunk spectra; cache: (B, n_fft, n_fft//hop - 1)
+    the previous chunk's trailing windowed frames, or None on the first
+    chunk. Returns (audio, new cache). Only the fully overlapped region is
+    emitted: the first chunk drops (n_fft - hop)//2 leading samples and
+    later ones n_fft - hop; every chunk holds back its trailing n_fft - hop
+    samples for the next one, unless `last_chunk`, which keeps all but the
+    last (n_fft - hop)//2. The chained outputs concatenate to the batch
+    :func:`istft` of the whole sequence."""
+    assert n_fft % hop_length == 0
+    r = n_fft // hop_length
+    pad = (n_fft - hop_length) // 2
+    w = hann_tensor(n_fft, spec_re.dtype, spec_re.device)
+    frames = irfft_frames(spec_re, spec_im, n_fft) * w[None, :, None]
+    first = cache is None
+    if not first:
+        frames = torch.cat([cache.to(frames.dtype), frames], dim=-1)
+    new_cache = frames[..., -(r - 1):]
+    y = overlap_add(frames, hop_length)
+    env = window_envelope(n_fft, hop_length, frames.shape[-1], dtype=y.dtype,
+                          device=y.device)
+    y = y / torch.clamp(env[None, :], min=1e-11)
+    y = y[:, pad:] if first else y[:, n_fft - hop_length:]
+    y = y[:, :-pad] if last_chunk else y[:, :-(n_fft - hop_length)]
+    return y, new_cache

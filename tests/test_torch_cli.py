@@ -9,6 +9,8 @@
 - serve --asr / --asr-dir (a tiny HF whisper dir) / --asr-int8 /
   --asr-max-new-tokens build the transcriber, and /v1/audio/transcriptions answers with it, in process
   and from the serve subprocess;
+- ``--speculative-depth qa`` on an engine whose depth decoder runs Jacobi
+  rounds;
 - the entry point's defaults: the card unless --device cpu is given, and
   every flag or subcommand of the JAX CLI without a port exits non-zero
   naming its ROADMAP item.
@@ -179,7 +181,6 @@ def test_cli_serve_answers_over_sockets(tmp_path):
 @pytest.mark.parametrize("argv,item", [
     (["--tp", "2", "qa"], "item 13"),
     (["--dp", "2", "qa"], "item 13"),
-    (["--speculative-depth", "qa"], "item 9"),
     (["serve", "--profiler-port", "9999"], "tracing item"),
     (["bench"], "item 1 "),
     (["train", "--zero1"], "item 13"),
@@ -300,6 +301,27 @@ def test_cli_train_and_export(tmp_path, capsys):
     saved = torch.load(os.path.join(steps["lm"], "params.pt"),
                        weights_only=True)
     assert torch.equal(lm["backbone"]["wq"], saved["backbone"]["wq"])
+
+
+def test_cli_speculative_depth_qa(monkeypatch, capsys):
+    """--speculative-depth reaches the engine's config, and the QA
+    scenarios pass on it (tiny, CPU), its depth decode in Jacobi rounds."""
+    from fireredtts2_tpu_torch.models.lm import model as lm_model
+
+    built = []
+    build = cli._build_engine
+    monkeypatch.setattr(cli, "_build_engine",
+                        lambda args: built.append(build(args)) or built[-1])
+    lm_model.reset_jacobi_counts()
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--device", "cpu", "--speculative-depth", "qa"])
+    assert e.value.code == 0
+    assert built[0].config.llm.speculative_depth is True
+    assert lm_model.depth_decode_jacobi.calls > 0
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("[")]
+    assert len(lines) == 5 and all(ln.startswith("[PASS]") for ln in lines)
+    assert "--speculative-depth" not in cli.NOT_PORTED
 
 
 def test_cli_runs_on_the_card_unless_asked():

@@ -937,3 +937,102 @@ def test_asr_beam_search_two_layers_on_card_matches_cpu(cuda):
         assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
     torch.testing.assert_close(card.sum_logprob.cpu(), cpu.sum_logprob,
                                rtol=1e-4, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# Speculative (Jacobi) depth and the one-token vocoder
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("M", [128, 256])
+@pytest.mark.parametrize("K,O", [(1536, 8960), (8960, 1536)])
+def test_kernel_e_at_speculative_rows(cuda, M, K, O):
+    """Kernel E at the rows speculative depth gives it (16 a stream, B = 8
+    and 16): the grid-y blocks past 32 rows, against the plain version."""
+    from fireredtts2_tpu_torch.models.lm.transformer import (
+        quantize_transformer_int4,
+    )
+    from fireredtts2_tpu_torch.ops import int4 as i4
+
+    gen = torch.Generator(device=cuda).manual_seed(M + K)
+    w = torch.randn((1, K, O), generator=gen, device=cuda) * 0.02
+    q = quantize_transformer_int4({"w_gate": w})
+    packed, scales = q["w_gate"][0], q["w_gate_scale4"][0]
+    x = _rnd(gen, M, K)
+    before = i4.int4_matmul.launches
+    out = i4.int4_matmul(x, packed, scales)
+    torch.cuda.synchronize()
+    assert i4.int4_matmul.launches == before + 1
+    _close(out, i4.int4_matmul_plain(x, packed, scales))
+
+
+@pytest.mark.parametrize("quant", ["bf16", "int4"])
+def test_jacobi_on_card_equals_sequential_up_to_near_ties(cuda, quant):
+    """The flagship depth decoder (random bf16 weights; int4 through kernel
+    E at 16 rows a stream): Jacobi on each of 6 frames at B=8 against the
+    sequential loop's chain on the same inputs. A row may differ only at a
+    near-tie of the two forwards' logits (chip_smoke.verify_jacobi)."""
+    import chip_smoke
+    from fireredtts2_tpu_torch.config import LLMConfig
+    from fireredtts2_tpu_torch.models.lm import model as lm
+    from fireredtts2_tpu_torch.models.lm.transformer import (
+        quantize_transformer_int4,
+    )
+    from fireredtts2_tpu_torch.ops import int4 as i4
+    from fireredtts2_tpu_torch.tools.spec_depth_rounds import depth_params
+
+    cfg = LLMConfig()
+    params = depth_params(cfg, torch.bfloat16, cuda)
+    if quant == "int4":
+        params["decoder"] = i4.prepare_int4_layout(
+            quantize_transformer_int4(params["decoder"]))
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    ncb, V = cfg.audio_num_codebooks, cfg.audio_vocab_size
+    calls = []
+    for _ in range(6):
+        last_h = _rnd(gen, 8, cfg.backbone.embed_dim)
+        c0 = torch.randint(0, V, (8,), generator=gen, device=cuda,
+                           dtype=torch.int32)
+        noise = torch.empty((8, ncb, V), device=cuda).exponential_(generator=gen)
+        seq = lm._depth_decode(params, cfg, last_h, c0, noise, 10, 0.75)
+        calls.append((params, cfg, last_h, c0, noise, 10, 0.75, seq))
+    before = i4.int4_matmul.launches
+    ver = chip_smoke.verify_jacobi(calls)
+    assert ver["explained"], ver["flips"]
+    assert 1 <= ver["rounds_max"] <= ncb - 1
+    assert (i4.int4_matmul.launches > before) == (quant == "int4")
+
+
+def test_one_token_chain_on_card_matches_codec_decode(cuda):
+    """stream_decode_step over 24 tokens on the small card codec (kernel C
+    at S=8, once a layer a token) against codec_decode of the same tokens:
+    within chip_smoke.py's stream-vs-generate bound, as a share of the
+    peak."""
+    import chip_smoke
+    from fireredtts2_tpu_torch.models.codec import (
+        codec_decode, init_codec_params, stream_decode_init,
+        stream_decode_step,
+    )
+
+    cfg = _small_gpu_config().codec
+    params = init_codec_params(torch.Generator(device=cuda).manual_seed(0),
+                               cfg, torch.bfloat16, cuda)
+    L = 24
+    toks = torch.randint(0, cfg.rvq.codebook_size,
+                         (1, cfg.rvq.num_quantizers, L), device=cuda)
+    fd.reset_launch_counts()
+    with torch.inference_mode():
+        state = stream_decode_init(cfg, 1, torch.bfloat16, device=cuda)
+        pieces = []
+        for t in range(L):
+            a, state = stream_decode_step(params, cfg, toks[:, :, t:t + 1],
+                                          state, t == 0, t == L - 1)
+            pieces.append(a)
+        one = torch.cat(pieces, dim=1).float().cpu().numpy()
+        batch = codec_decode(params, cfg, toks).float().cpu().numpy()
+    assert fd.launch_counts()["flash_decode_update_bounded"] == \
+        L * cfg.acoustic_decoder.num_layers
+    assert one.shape == batch.shape == (1, L * 1920)
+    assert np.isfinite(one).all()
+    gap = np.abs(one - batch).max() / np.abs(batch).max()
+    assert gap <= chip_smoke.STREAM_GAP_TOL, gap
