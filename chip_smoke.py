@@ -213,7 +213,7 @@ Phases (any failure exits non-zero and prints no result line):
 15. speculative (Jacobi) depth and the one-token vocoder at EngineConfig()'s
    widths and depth, random weights of seed 0 shared by every engine: (a)
    the bf16 backbone and the int8 backbone with speculative_depth=True:
-   generate_stream (first packet) and generate of ~25 frames, launch and
+   generate_stream (first packet) and generate of ~12 frames, launch and
    round counts set to 0 just before each (LM ms/frame, rounds a frame mean
    and max, kernels A and C launched, B not, one Jacobi call a frame), a
    traced 6-frame generate (CUDA launches a frame, busy share), then the
@@ -224,7 +224,7 @@ Phases (any failure exits non-zero and prints no result line):
    {16, 128, 256} (16 rows a stream at B = 1, 8, 16) on every qwen-200m
    matrix against its plain version (device ms, bound,
    torch._weight_int4pack_mm), then int4 depth as in (a) (kernel E
-   launched); (c) a burst of 8 sampled requests of 16 frames through a
+   launched); (c) a burst of 8 sampled requests of 10 frames through a
    ContinuousBatcher pool with speculative depth (aggregate RTF, rounds a
    pool step), then
    the same burst on the plain loop, recorded and verified as in (a), each
@@ -242,6 +242,31 @@ Phases (any failure exits non-zero and prints no result line):
    passes: rows identical, outputs within 4 x 2e-2 of the peak. Phase 9's
    stream-vs-generate audio and phase 12's cold-vs-fitted request are held
    to STREAM_GAP_TOL of the peak and STREAM_GAP_LSB, from these gaps.
+16. serving on a (dp, tp) mesh (parallel/mesh.py): (a) kernel A's kv-head
+   window at the flagship LM slab, tp 2 and 4 (6 and 3 query heads a rank),
+   B in {1, 8}, live ~200 and ~3000: every rank's flash_decode_gqa1_shard
+   against its plain version with the same window, the ranks' outputs
+   concatenated against the unsharded kernel A; (b) kernel C's tp route at
+   the flagship vocoder slab, tp=2 (8 heads, 512 columns a rank), B in
+   {1, 8}, S in {32, 64}: each rank against its plain version, outputs and
+   written columns against the unsharded call; (c) two gloo ranks on the
+   one card (parallel.mesh.Ranks) build the preset at full width and depth
+   at tp=2 and generate MESH_FRAMES frames, their launches counted from 0
+   around the call; their tokens must equal each other, the first frame's
+   codebook-0 logits lie within MESH_LOGIT_TOL of the peak of the one-rank
+   engine's (same seeds), and the tokens equal its or part at a near-tie
+   explained as in phase 5 (codebook 0 from the recorded logits, a depth
+   codebook from the plain chain's logits of both runs' last_h plus B_TOL);
+   no collective moves a quarter of the LM slab; (d) the same ranks at
+   dp=2: a burst of MESH_POOL through a pool of blocks of 4 (4 slots a
+   rank), each stream against the one-rank pool's, flips explained alike;
+   (e) `torchrun --nproc-per-node 2 -m fireredtts2_tpu_torch
+   --pretrained-dir DIR --tp 2 ... serve` (booting while (c) and (d) run)
+   answers one request of MESH_CLI_FRAMES through the client (log:
+   chiprun_out/phase16_serve_tp2.log); DIR (stash_mesh_dir,
+   write_mesh_dir): phase 11's flagship codec, the flagship depth decoder
+   and a 4-layer qwen-200m backbone of the flagship's width, random
+   weights of MESH_SEED.
 
 Bounds are the larger of the bytes a call must move (each input read once,
 each output written once) over 3.35 TB/s and its operations over the bf16
@@ -3885,9 +3910,9 @@ def run_convert_drill(dev, card: str, config=None) -> dict:
 # Phase 15: speculative (Jacobi) depth and the one-token vocoder
 # ---------------------------------------------------------------------------
 
-SPEC_MS = 2000.0                  # ~25 frames a generate
+SPEC_MS = 960.0                   # ~12 frames a generate
 SPEC_POOL = 8
-SPEC_POOL_MS = 1280.0             # 16 frames
+SPEC_POOL_MS = 800.0              # 10 frames
 SPEC_LOOP_STEPS = (150, 10)       # trained loop: LM and codec steps
 ONE_TOKEN_TOKENS = 48             # (e): 6 of the grouped decode's S=64 passes
 E_SPEC_MS = (16, 128, 256)        # kernel E's rows: 16 x B at B = 1, 8, 16
@@ -4390,6 +4415,593 @@ def run_speculative(dev, card: str, config=None, loop_steps=SPEC_LOOP_STEPS,
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: serving on a (dp, tp) mesh (parallel/mesh.py): kernel A's
+# kv-head window and the tp routes of kernels A and C, two gloo ranks on
+# the one card at tp=2 and at dp=2, and `serve --tp 2` under torchrun
+# ---------------------------------------------------------------------------
+
+MESH_SEED = 23
+MESH_FRAMES = 20                  # (c): generate of 20 frames
+MESH_POOL = 8                     # (d): a burst of 8 split 4/4 over dp=2
+MESH_LOGIT_TOL = 5e-2             # (c): first frame's logits, of the peak
+MESH_TIMEOUT_S = 420
+MESH_CLI_FRAMES = 10              # (e): the served request
+
+
+def _window_bound(B, hql, hkv, Dh, live_slots) -> tuple[float, str]:
+    """Kernel A on one rank: q and out (B, hql, Dh), the window's K and V
+    over the live slots; 4 Dh operations a query head a slot."""
+    return bound_ms(4 * B * hql * Dh + live_slots * hkv * Dh * 4,
+                    4 * hql * Dh * live_slots)
+
+
+def check_kernel_a_window(dev, L, T, Hkv, G, Dh, reps, tps=(2, 4),
+                          cases=((1, 200), (1, 3000), (8, 200), (8, 3000)),
+                          timed=((2, 1, 3000), (4, 1, 3000), (4, 8, 3000))):
+    """(a) Kernel A's tp route at the flagship's shapes: each tp rank's
+    call (its Hq/tp query heads over its kv-head window of the whole slab,
+    flash_decode_gqa1_shard) against the plain version with the same
+    window, and the ranks' outputs concatenated over heads against the
+    unsharded kernel A. In the `timed` (tp, B, live) cases the last rank (a
+    window at a non-zero column) is timed against its plain version and
+    SDPA over its heads."""
+    import torch
+    from fireredtts2_tpu_torch.ops import flash_decode as fd
+    from fireredtts2_tpu_torch.parallel.mesh import Mesh
+
+    Hq = Hkv * G
+    rng = np.random.default_rng(16)
+    results = []
+    for tp in tps:
+        hql = Hq // tp
+        for B, live in cases:
+            gen = torch.Generator(device=dev).manual_seed(tp * 131 + B * 7 + live)
+            q = _rnd(gen, B, Hq, Dh)
+            k4, v4 = _rnd(gen, L, B, T, Hkv * Dh), _rnd(gen, L, B, T, Hkv * Dh)
+            pad = min(40, max(live // 4, 1))
+            q_start = rng.integers(0, pad, B)
+            q_end = np.minimum(live + rng.integers(-min(20, pad), min(20, pad), B), T)
+            qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
+            qe = torch.tensor(q_end, dtype=torch.int32, device=dev)
+            lo = torch.tensor(int(q_start.min()), dtype=torch.int32, device=dev)
+            hi = torch.tensor(int(q_end.max()), dtype=torch.int32, device=dev)
+            layer = L - 1
+            whole = fd.flash_decode_gqa1(q, k4, v4, layer, qs, qe, lo, hi)
+            parts, rank_err, rank_ok = [], 0.0, True
+            for t in range(tp):
+                mesh = Mesh(dp=1, tp=tp, rank=t)
+                ql = q[:, t * hql:(t + 1) * hql].contiguous()
+                kv0, hkv = fd.gqa1_window(Hq, Hkv, tp, t)
+                out = fd.flash_decode_gqa1_shard(mesh, ql, k4, v4, layer, qs,
+                                                 qe, lo, hi)
+                ref = fd.flash_decode_gqa1_plain(ql, k4, v4, layer, qs, qe,
+                                                 lo, hi, kv_base=kv0, hkv=hkv)
+                err, ok = _compare(out, ref)
+                rank_err, rank_ok = max(rank_err, err), rank_ok and ok
+                parts.append(out)
+            cat_err, cat_ok = _compare(torch.cat(parts, dim=1), whole)
+            t = tp - 1
+            mesh = Mesh(dp=1, tp=tp, rank=t)
+            ql = q[:, t * hql:(t + 1) * hql].contiguous()
+            kv0, hkv = fd.gqa1_window(Hq, Hkv, tp, t)
+            live_slots = int((q_end - q_start).sum())
+            bnd, by = _window_bound(B, hql, hkv, Dh, live_slots)
+            launches = None
+            if torch.device(dev).type == "cuda":
+                launches = cuda_launches(lambda: fd.flash_decode_gqa1_shard(
+                    mesh, ql, k4, v4, layer, qs, qe, lo, hi))
+            times = {}
+            if (tp, B, live) in timed:
+                step = itertools.count()
+                times = time_pair(
+                    lambda: fd.flash_decode_gqa1_shard(
+                        mesh, ql, k4, v4, next(step) % L, qs, qe, lo, hi),
+                    lambda: fd.flash_decode_gqa1_plain(
+                        ql, k4, v4, next(step) % L, qs, qe, lo, hi,
+                        kv_base=kv0, hkv=hkv), reps)
+                w0, w1 = int(q_start.min()), int(q_end.max())
+                kv = [x[layer, :, w0:w1].view(B, w1 - w0, Hkv, Dh)
+                      [:, :, kv0:kv0 + hkv].transpose(1, 2) for x in (k4, v4)]
+                slot = torch.arange(w0, w1, device=dev)
+                mask = ((slot >= qs[:, None]) & (slot < qe[:, None]))[:, None, None]
+                times["library_ms"] = library_ms(
+                    sdpa_call(ql[:, :, None], kv[0], kv[1], mask), reps)
+            results.append(dict(
+                tp=tp, B=B, live=live, heads_a_rank=hql, kv_window=(kv0, hkv),
+                max_abs_err=max(rank_err, cat_err), rank_max_abs_err=rank_err,
+                concat_max_abs_err=cat_err, ok=rank_ok and cat_ok,
+                bound_ms=bnd, bound_by=by, cuda_launches_per_call=launches,
+                **times))
+            del q, k4, v4
+    return results
+
+
+def check_kernel_c_shard(dev, L, T, H, Dh, reps, tp=2,
+                         cases=((1, 32, 200), (1, 64, 2900), (8, 32, 200),
+                                (8, 64, 2900)),
+                         timed=((1, 64, 2900), (8, 64, 2900))):
+    """(b) Kernel C's tp route at the flagship vocoder (H 16, Dh 64): each
+    rank's call on its H/tp heads, fresh-row columns and slab columns
+    (flash_decode_update_bounded_shard) against the plain version on copies
+    of the same, and the ranks' outputs and slab columns assembled against
+    the unsharded kernel C. In the `timed` (B, S, live) cases rank 0 is
+    timed against its plain version and SDPA over its heads."""
+    import torch
+    from fireredtts2_tpu_torch.ops import flash_decode as fd
+    from fireredtts2_tpu_torch.parallel.mesh import Mesh
+
+    D, Hl = H * Dh, H // tp
+    Dl = Hl * Dh
+    results = []
+    for B, S, live in cases:
+        gen = torch.Generator(device=dev).manual_seed(B * 37 + S + live)
+        q = _rnd(gen, B, S, H, Dh)
+        nk, nv = _rnd(gen, B, S, D), _rnd(gen, B, S, D)
+        k4, v4 = _rnd(gen, L, B, T, D), _rnd(gen, L, B, T, D)
+        pos = torch.tensor(np.maximum((live - S) // 8 * 8 - 8 * np.arange(B), 0),
+                           dtype=torch.int32, device=dev)
+        q_end = pos[:, None] + 8 * (torch.arange(S, device=dev,
+                                                 dtype=torch.int32)[None] // 8 + 1)
+        live_hi = pos.max() + S
+        layer = L // 2
+        kk, vk = k4.clone(), v4.clone()
+        whole = fd.flash_decode_update_bounded(q, nk, nv, kk, vk, layer, pos,
+                                               q_end, live_hi)
+        parts, rank_err, ok, rows_ok = [], 0.0, True, True
+        shards = []
+        for t in range(tp):
+            c = slice(t * Dl, (t + 1) * Dl)
+            args = (q[:, :, t * Hl:(t + 1) * Hl].contiguous(),
+                    nk[..., c].contiguous(), nv[..., c].contiguous())
+            kl, vl = k4[..., c].contiguous(), v4[..., c].contiguous()
+            kp, vp = kl.clone(), vl.clone()
+            out = fd.flash_decode_update_bounded_shard(
+                Mesh(dp=1, tp=tp, rank=t), *args, kl, vl, layer, pos, q_end,
+                live_hi)
+            ref = fd.flash_decode_update_bounded_plain(*args, kp, vp, layer,
+                                                       pos, q_end, live_hi)
+            err, o = _compare(out, ref)
+            rank_err, ok = max(rank_err, err), ok and o
+            rows_ok &= (bool(torch.equal(kl, kp)) and bool(torch.equal(vl, vp))
+                        and bool(torch.equal(kl, kk[..., c]))
+                        and bool(torch.equal(vl, vk[..., c])))
+            parts.append(out)
+            shards.append((args, kl, vl, kp, vp))
+        cat_err, cat_ok = _compare(torch.cat(parts, dim=2), whole)
+        args, kl, vl, kp, vp = shards[0]
+        mesh = Mesh(dp=1, tp=tp, rank=0)
+        qe = q_end.clamp(max=T)
+        read = int(qe.max(dim=1).values.sum())
+        bnd, by = bound_ms(2 * (2 * B * S * Dl) + 2 * 2 * B * S * Dl
+                           + read * Dl * 4, 4 * Dl * int(qe.sum()))
+        launches = None
+        if torch.device(dev).type == "cuda":
+            launches = cuda_launches(lambda: fd.flash_decode_update_bounded_shard(
+                mesh, *args, kl, vl, layer, pos, q_end, live_hi))
+        times = {}
+        if (B, S, live) in timed:
+            step = itertools.count()
+            times = time_pair(
+                lambda: fd.flash_decode_update_bounded_shard(
+                    mesh, *args, kl, vl, next(step) % L, pos, q_end, live_hi),
+                lambda: fd.flash_decode_update_bounded_plain(
+                    *args, kp, vp, next(step) % L, pos, q_end, live_hi), reps)
+            hi = min(int(live_hi), T)
+            kv = [x[layer, :, :hi].view(B, hi, Hl, Dh).transpose(1, 2)
+                  for x in (kl, vl)]
+            slot = torch.arange(hi, device=dev)
+            mask = (slot[None, None] < q_end[:, :, None])[:, None]
+            times["library_ms"] = library_ms(
+                sdpa_call(args[0].transpose(1, 2), kv[0], kv[1], mask), reps)
+        results.append(dict(
+            tp=tp, B=B, S=S, live=live, heads_a_rank=Hl,
+            max_abs_err=max(rank_err, cat_err), rank_max_abs_err=rank_err,
+            concat_max_abs_err=cat_err, ok=ok and cat_ok and rows_ok,
+            rows_identical=rows_ok, bound_ms=bnd, bound_by=by,
+            cuda_launches_per_call=launches, **times))
+        del q, nk, nv, k4, v4, kk, vk, shards, parts
+    return results
+
+
+class FrameRecorder:
+    """In a with-block: every codebook-0 logits call of lm_generate_frame
+    ((N, V) fp32, models/lm/model.py: _audio_logits) and every depth
+    decode's last_h, in order, on the host."""
+
+    def __enter__(self):
+        from fireredtts2_tpu_torch.models.lm import model as lm
+        self.logits, self.last_h = [], []
+        self._lm = lm
+        self._orig = (lm._audio_logits, lm._depth_decode)
+        orig_logits, orig_depth = self._orig
+
+        def logits(h, w, V):
+            out = orig_logits(h, w, V)
+            self.logits.append(out.float().cpu())
+            return out
+
+        def depth(params, cfg, last_h, *a, **k):
+            self.last_h.append(last_h.float().cpu())
+            return orig_depth(params, cfg, last_h, *a, **k)
+        lm._audio_logits, lm._depth_decode = logits, depth
+        return self
+
+    def __exit__(self, *exc):
+        self._lm._audio_logits, self._lm._depth_decode = self._orig
+
+
+def _mesh_engine(mesh):
+    from fireredtts2_tpu_torch.config import EngineConfig
+    from fireredtts2_tpu_torch.engine import FireRedTTS2Engine
+    return FireRedTTS2Engine(
+        EngineConfig(), seed=MESH_SEED, device="cuda", mesh=mesh,
+        llm_overrides={"quantize_backbone": True, "fused_depth_plan": PRESET})
+
+
+def _fixed_pool(eng, B):
+    """A pool whose blocks are always 4 frames (the policy's ladder held to
+    one rung), so the one-rank and dp=2 pools step alike."""
+    from fireredtts2_tpu_torch.runtime.batcher import ContinuousBatcher
+    from fireredtts2_tpu_torch.runtime.policy import (
+        AdaptiveBlockPolicy, BlockPolicyConfig,
+    )
+    return ContinuousBatcher(eng, max_streams=B, warmup_blocks=False,
+                             policy=AdaptiveBlockPolicy(BlockPolicyConfig(
+                                 ladder=(4,), start_block=4)))
+
+
+def pool_row(s: int, t: int, B: int, rows: tuple[int, int]) -> int:
+    """The row of request s (submit order) of one burst into an idle
+    B-slot pool in the logits of its frame t, on a rank holding slots
+    [r0, r1): admission gives request s slot B - 1 - s; the burst's prefill
+    (t = 0) has the rank's requests in submit order, blocks (t >= 1) its
+    slots in order."""
+    r0, r1 = rows
+    return s - (B - r1) if t == 0 else B - 1 - s - r0
+
+
+def _pool_burst(b, eng) -> dict:
+    """MESH_POOL requests as one burst; the recorder covers the burst's
+    prefill and blocks (not the warm-up ladder)."""
+    b.start()
+    try:
+        with FrameRecorder() as rec:
+            with b.burst():
+                hs = [b.submit(SERVE_TEXTS[i], "[S1]", utt_seed=MESH_SEED + i,
+                               max_audio_length_ms=MESH_FRAMES * 80)
+                      for i in range(MESH_POOL)]
+            audio = _consume(hs)
+    finally:
+        b.stop()
+    return dict(tokens=[h.tokens for h in hs], samples=[len(a) for a in audio],
+                finite=all(bool(np.isfinite(a).all()) for a in audio),
+                logits=rec.logits, last_h=rec.last_h)
+
+
+def mesh_rank(rank: int, world: int) -> dict:
+    """One of two gloo ranks on the one card: (c) the preset at tp=2,
+    generate of MESH_FRAMES frames with its kernel launches counted from 0
+    just before and read just after; (d) the preset at dp=2, a pool burst
+    of MESH_POOL split 4/4 (rank 0 admits, rank 1 follows)."""
+    import torch
+    from fireredtts2_tpu_torch.parallel import mesh as pm
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out: dict = {}
+    t0 = time.perf_counter()
+    eng = _mesh_engine(pm.make_mesh(dp=1, tp=2))
+    out["build_s"] = time.perf_counter() - t0
+    out["wq_shape"] = tuple(eng.lm_params["backbone"]["wq"].shape)
+    out["voc_slab_cols"] = eng._new_vstate(1).kv_k.shape[-1]
+    with FrameRecorder() as rec:
+        torch.cuda.synchronize()
+        reset_counts()
+        pm.reset_collective_stats()
+        t0 = time.perf_counter()
+        audio = eng.generate(TEXT, "[S1]", max_audio_length_ms=MESH_FRAMES * 80,
+                             utt_seed=MESH_SEED)
+        torch.cuda.synchronize()
+        out["generate_s"] = time.perf_counter() - t0
+        out["launches"] = read_counts()
+    out.update(tokens=eng.last_tokens, audio_n=len(audio),
+               finite=bool(np.isfinite(audio).all()), logits=rec.logits,
+               last_h=rec.last_h, comm=pm.collective_stats(),
+               lm_slab_bytes=eng._new_lm_state(1).cache_k.nbytes)
+    del eng
+    torch.cuda.empty_cache()
+
+    eng = _mesh_engine(pm.make_mesh(dp=2, tp=1))
+    b = _fixed_pool(eng, MESH_POOL)
+    out["pool_rows"] = (b._r0, b._r1)
+    if rank == 0:
+        t0 = time.perf_counter()
+        out["pool"] = _pool_burst(b, eng)
+        out["pool"]["wall_s"] = time.perf_counter() - t0
+    else:
+        with FrameRecorder() as rec:
+            b.follow()
+        out["pool"] = dict(logits=rec.logits, last_h=rec.last_h)
+    return out
+
+
+_RAW_LM: dict = {}
+
+
+def _raw_lm(eng):
+    """The preset engine's LM tree before its serving transforms (the
+    plain depth decoder, which kernel B's bundle replaces), drawn again
+    from MESH_SEED."""
+    if "lm" not in _RAW_LM:
+        from fireredtts2_tpu_torch.weights import init_random
+        _RAW_LM["lm"] = init_random(eng.config, MESH_SEED, eng.device)[0]
+    return _RAW_LM["lm"]
+
+
+def explain_flip(eng, lg_a, lg_b, lh_a, lh_b, frame_a, noise, i: int,
+                 got: int, want: int, topk: int, temp: float,
+                 depth_topk: int, depth_temp: float) -> str:
+    """Why the mesh run sampled `got` where the one-rank run sampled `want`
+    at codebook i of a frame both reached alike: codebook 0 from the two
+    runs' recorded logits (the one-rank's, V, and their gap); a depth
+    codebook from the plain depth chain's logits of the two runs' last_h
+    (their gap plus kernel B's tolerance). "race", "top-k" or "none"
+    (flip_reason)."""
+    import torch
+    if i == 0:
+        err = float((lg_a - lg_b).abs().max())
+        return flip_reason(lg_a, noise[0], err, got, want, topk, temp)
+    dev = eng.device
+    cfg = eng.config.llm
+    params = _raw_lm(eng)
+    dt = params["projection"].dtype
+    tok = torch.as_tensor(frame_a, device=dev)[None].long()
+    with torch.inference_mode():
+        pa = depth_logits(params, cfg, lh_a.to(dev, dt)[None], tok,
+                          False)[0, i - 1].float()
+        pb = depth_logits(params, cfg, lh_b.to(dev, dt)[None], tok,
+                          False)[0, i - 1].float()
+    err = float((pa - pb).abs().max()) + B_TOL * float(pa.abs().max())
+    return flip_reason(pa.cpu(), noise[i], err, got, want, depth_topk,
+                       depth_temp)
+
+
+def first_flip(a: np.ndarray, b: np.ndarray):
+    """(frame, codebook) of the first token where two (T, ncb) streams
+    differ, in sampling order, or None."""
+    n = min(len(a), len(b))
+    d = np.argwhere(a[:n] != b[:n])
+    if len(d) == 0:
+        return None if len(a) == len(b) else (n, 0)
+    return int(d[0][0]), int(d[0][1])
+
+
+def run_mesh(dev, card: str) -> dict:
+    """(c) and (d): the two gloo ranks (mesh_rank) while this process runs
+    the one-rank references: the preset's generate with the same seed and
+    utterance seed, and the one-rank pool of MESH_POOL with the same
+    requests. The ranks' tokens must equal each other's; against the
+    one-rank runs every stream must equal or part at a near-tie that
+    explain_flip explains; the first frame's logits within MESH_LOGIT_TOL
+    of the peak."""
+    import torch
+    from fireredtts2_tpu_torch.parallel.mesh import Ranks
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    checks: dict = {}
+    ranks = Ranks(mesh_rank, 2, timeout_s=MESH_TIMEOUT_S, threads=4)
+    try:
+        eng = _mesh_engine(None)
+        with FrameRecorder() as rec:
+            audio = eng.generate(TEXT, "[S1]", max_audio_length_ms=MESH_FRAMES * 80,
+                                 utt_seed=MESH_SEED)
+        one = dict(tokens=eng.last_tokens, logits=rec.logits, last_h=rec.last_h,
+                   audio_n=len(audio))
+        one_pool = _pool_burst(_fixed_pool(eng, MESH_POOL), eng)
+    finally:
+        got = ranks.join()
+    out["rank_build_s"] = [g["build_s"] for g in got]
+    out["rank_generate_s"] = [g["generate_s"] for g in got]
+    out["launches"] = [g["launches"] for g in got]
+    out["comm"] = [g["comm"] for g in got]
+    r0, r1 = got
+    cfg = eng.config
+    checks["tp_weights_split"] = (r0["wq_shape"][-1] * 2
+                                  == eng.lm_params["backbone"]["wq"].shape[-1])
+    checks["tp_voc_slab_split"] = r0["voc_slab_cols"] * 2 == \
+        cfg.codec.acoustic_decoder.embed_dim
+    checks["tp_ranks_equal"] = bool(np.array_equal(r0["tokens"], r1["tokens"]))
+    checks["tp_finite"] = r0["finite"] and r1["finite"]
+    lg0, lg1 = one["logits"][0], r0["logits"][0]
+    gap = float((lg0 - lg1).abs().max() / lg0.abs().max())
+    out["first_logits_gap_of_peak"] = gap
+    checks["tp_first_logits"] = gap <= MESH_LOGIT_TOL
+    for k in ("flash_decode_gqa1_shard", "flash_decode_update_bounded_shard",
+              "flash_decode_gqa1", "flash_decode_update_bounded",
+              "fused_depth_decode"):
+        checks[f"tp_{k}_launched"] = all(g["launches"][k] > 0 for g in got)
+    checks["tp_no_slab_collective"] = all(
+        g["comm"]["max_bytes"] < g["lm_slab_bytes"] // 4 for g in got)
+    noise_fn = eng.noise_fn
+    flip = first_flip(one["tokens"], r0["tokens"])
+    out["tp_common_prefix"] = common_prefix(one["tokens"], r0["tokens"])
+    out["tp_first_flip"] = flip
+    if flip is None:
+        checks["tp_tokens_vs_one_rank"] = True
+    else:
+        t, i = flip
+        why = explain_flip(eng, one["logits"][t][0], r0["logits"][t][0],
+                           one["last_h"][t][0], r0["last_h"][t][0],
+                           one["tokens"][t], noise_fn(MESH_SEED, 1)(t)[0].cpu(),
+                           i, int(r0["tokens"][t][i]), int(one["tokens"][t][i]),
+                           20, 0.9, cfg.depth_topk, cfg.depth_temperature)
+        out["tp_flip_reason"] = why
+        checks["tp_tokens_vs_one_rank"] = why != "none"
+
+    # (d) dp=2 pool, slots [0, 4) on rank 0 and [4, 8) on rank 1
+    pool = r0["pool"]
+    checks["dp_rows"] = r0["pool_rows"] == (0, 4) and r1["pool_rows"] == (4, 8)
+    checks["dp_finite"] = pool["finite"]
+    reasons, prefixes = [], []
+    for s in range(MESH_POOL):
+        a, b = one_pool["tokens"][s], pool["tokens"][s]
+        prefixes.append(common_prefix(a, b))
+        f = first_flip(a, b)
+        if f is None:
+            reasons.append("equal")
+            continue
+        t, i = f
+        # call 0 is the burst's prefill (frame 0), call t frame t; slots
+        # [0, 4) are rank 0's, [4, 8) rank 1's
+        half = MESH_POOL // 2
+        rows = (0, half) if MESH_POOL - 1 - s < half else (half, MESH_POOL)
+        rec = (r0 if rows[0] == 0 else r1)["pool"]
+        ra = pool_row(s, t, MESH_POOL, (0, MESH_POOL))
+        rb = pool_row(s, t, MESH_POOL, rows)
+        if t >= len(rec["logits"]) or t >= len(one_pool["logits"]):
+            reasons.append("none")
+            continue
+        reasons.append(explain_flip(
+            eng, one_pool["logits"][t][ra], rec["logits"][t][rb],
+            one_pool["last_h"][t][ra], rec["last_h"][t][rb], a[t],
+            noise_fn(MESH_SEED + s, 1)(t)[0].cpu(), i, int(b[t][i]),
+            int(a[t][i]), 20, cfg.default_temperature, cfg.depth_topk,
+            cfg.depth_temperature))
+    out["dp_streams"] = reasons
+    out["dp_common_prefix"] = prefixes
+    out["dp_pool_wall_s"] = pool["wall_s"]
+    checks["dp_tokens_vs_one_rank"] = "none" not in reasons
+    out["checks"] = checks
+    out["ok"] = all(checks.values())
+    out["phase_s"] = time.perf_counter() - t_phase
+    del eng
+    _RAW_LM.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def stash_mesh_dir(src: str) -> str:
+    """(e)'s serving dir under the checkout (git-ignored, removed at exit
+    at the latest), begun while phase 11's dir `src` exists: its flagship
+    codec tree, hard-linked (no copy), for write_mesh_dir to complete."""
+    import tempfile
+
+    from fireredtts2_tpu_torch.runtime import checkpoint as ckpt
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    d = tempfile.mkdtemp(prefix=".serving_ckpt_", dir=root)
+    atexit.register(shutil.rmtree, d, ignore_errors=True)
+    dst = ckpt.converted_path(d, "codec")
+    os.makedirs(os.path.dirname(dst), exist_ok=True)
+    os.link(ckpt.converted_path(src, "codec"), dst)
+    return d
+
+
+def write_mesh_dir(d: str) -> str:
+    """(e)'s serving dir completed (stash_mesh_dir began it with phase
+    11's flagship codec): the flagship depth decoder with a qwen-200m
+    backbone (4 layers of the flagship's width: the heads, head dims and
+    vocabularies every kernel takes, a quarter of the loading and of the
+    collectives a frame), random weights of MESH_SEED, as a DIR/torch/
+    tree, and the JSON configs."""
+    import dataclasses
+
+    import torch
+    from fireredtts2_tpu_torch.config import EngineConfig
+    from fireredtts2_tpu_torch.models.lm.model import init_lm_params
+    from fireredtts2_tpu_torch.runtime import checkpoint as ckpt
+    from fireredtts2_tpu_torch.weights import dtype_of
+
+    cfg = EngineConfig()
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, backbone_flavor="qwen-200m"))
+    lm = init_lm_params(torch.Generator(device="cuda").manual_seed(MESH_SEED),
+                        cfg.llm, dtype_of(cfg.llm.dtype), "cuda")
+    ckpt.save_params(ckpt.converted_path(d, "llm_posttrain"), lm)
+    write_serving_dir(d, cfg)
+    del lm
+    torch.cuda.empty_cache()
+    return d
+
+
+def start_mesh_cli(d: str) -> dict:
+    """(e), started: `torchrun --nproc-per-node 2 -m fireredtts2_tpu_torch
+    --pretrained-dir DIR --tp 2 ... serve` (python -m
+    torch.distributed.run; log: chiprun_out/phase16_serve_tp2.log), two
+    gloo ranks on the one card, in a session of its own. It boots while
+    (c) and (d) run; finish_mesh_cli asks and stops it."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    http_port, ws_port = free_port(), free_port()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+           "2", "--master-port", str(free_port()), "-m",
+           "fireredtts2_tpu_torch", "--pretrained-dir", d, "--tp", "2",
+           "--quantize-backbone", "--fused-depth-plan", PRESET, "serve",
+           "--max-streams", "2", "--http-port", str(http_port), "--ws-port",
+           str(ws_port)]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    logf = open(os.path.join(OUT_DIR, "phase16_serve_tp2.log"), "w")
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=logf,
+                            stderr=subprocess.STDOUT, start_new_session=True)
+    return dict(cmd=" ".join(cmd[1:]), proc=proc, logf=logf, port=http_port,
+                t0=time.perf_counter())
+
+
+def finish_mesh_cli(run: dict) -> dict:
+    """(e), finished: /health within 420 s of the start, then one request of
+    MESH_CLI_FRAMES frames through the port's client (finite audio); the
+    session's processes are then stopped (SIGTERM, SIGKILL after 60 s)."""
+    import signal
+
+    from fireredtts2_tpu_torch.client import FireRedTTSClient
+
+    proc, t0 = run["proc"], run["t0"]
+    out: dict = dict(cmd=run["cmd"])
+    try:
+        c = FireRedTTSClient(f"http://127.0.0.1:{run['port']}",
+                             timeout=SERVER_TIMEOUT_S)
+        healthy = False
+        while time.perf_counter() - t0 < 420 and proc.poll() is None:
+            try:
+                healthy = c.health().get("status") == "healthy"
+                break
+            except OSError:
+                time.sleep(0.5)
+        out["ready_s"] = time.perf_counter() - t0
+        out["healthy"] = healthy
+        if healthy:
+            (a, sr), out["request_s"] = timed(
+                c.synthesize, SERVE_TEXTS[0], temperature=1.0, top_k=1,
+                max_audio_length_ms=MESH_CLI_FRAMES * 80)
+            a = np.asarray(a)
+            out["samples"], out["sample_rate"] = int(a.size), sr
+            out["answered"] = bool(a.size > 0 and np.isfinite(a).all())
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGTERM)
+            proc.wait(timeout=60)
+        except (subprocess.TimeoutExpired, ProcessLookupError):
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait(timeout=60)
+        run["logf"].close()
+    out["exit_code"] = proc.returncode
+    text = open(os.path.join(OUT_DIR, "phase16_serve_tp2.log")).read()
+    out["mesh_line"] = "[mesh] serving sharded: dp=1 tp=2" in text
+    out["gloo_shared"] = "gloo (ranks share cuda:0)" in text
+    m = re.search(r"serve: engine warm-up ([\d.]+) s", text)
+    out["warmup_s"] = float(m[1]) if m else None
+    out["log_tail"] = text[-2000:]
+    out["ok"] = bool(out.get("answered")) and out["mesh_line"]
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4857,6 +5469,8 @@ def main() -> int:
 
     mark("12")
     # 13. training at flagship width, then train -> export -> serve
+    # phase 16(e)'s dir keeps phase 11's codec tree (a hard link)
+    mesh_dir = stash_mesh_dir(keep["dir"])
     try:
         tr = run_training(dev, card, keep["dir"])
     finally:
@@ -4975,6 +5589,59 @@ def main() -> int:
     report["speculative"] = sp
 
     mark("15")
+    # 16. serving on a (dp, tp) mesh: (a) kernel A's kv-head window and tp
+    # route, (b) kernel C's tp route, (c) tp=2 and (d) dp=2 over two gloo
+    # ranks on the one card, (e) `serve --tp 2` under torchrun
+    lm = FLAGSHIP["lm"]
+    res_aw = check_kernel_a_window(dev, lm["L"], lm["T"], lm["Hkv"], lm["G"],
+                                   lm["Dh"], lm["reps"])
+    for r in res_aw:
+        log(f"kernel A tp={r['tp']} ({r['heads_a_rank']} query heads a rank, "
+            f"window {r['kv_window']}) B={r['B']} live~{r['live']}: max_abs_err "
+            f"rank vs plain {r['rank_max_abs_err']:.3e}, ranks' concat vs "
+            f"unsharded {r['concat_max_abs_err']:.3e} ok={r['ok']}  "
+            f"{fmt_times(r)}  [{card}]")
+        ok &= r["ok"]
+    voc = FLAGSHIP["voc"]
+    res_cs = check_kernel_c_shard(dev, voc["L"], voc["T"], voc["H"], voc["Dh"],
+                                  voc["reps"])
+    for r in res_cs:
+        log(f"kernel C tp={r['tp']} ({r['heads_a_rank']} heads a rank) "
+            f"B={r['B']} S={r['S']} live~{r['live']}: max_abs_err rank vs "
+            f"plain {r['rank_max_abs_err']:.3e}, concat vs unsharded "
+            f"{r['concat_max_abs_err']:.3e}, rows identical "
+            f"{r['rows_identical']} ok={r['ok']}  {fmt_times(r)}  [{card}]")
+        ok &= r["ok"]
+    # (e) boots while (c) and (d) run
+    mesh_cli = start_mesh_cli(write_mesh_dir(mesh_dir))
+    try:
+        ms_ = run_mesh(dev, card)
+    finally:
+        mc = finish_mesh_cli(mesh_cli)
+        shutil.rmtree(mesh_dir, ignore_errors=True)
+    log(f"[mesh 16c] tp=2, two gloo ranks on one card: engines built in "
+        f"{ms_['rank_build_s']} s; generate of {MESH_FRAMES} frames "
+        f"{ms_['rank_generate_s']} s; launches a rank {ms_['launches']}; "
+        f"first frame's logits gap {ms_['first_logits_gap_of_peak']:.3e} of "
+        f"the peak; common prefix with one rank {ms_['tp_common_prefix']} "
+        f"frames, first flip {ms_['tp_first_flip']} "
+        f"({ms_.get('tp_flip_reason', 'none: equal')}); collectives "
+        f"{[(c['calls'], c['max_bytes']) for c in ms_['comm']]}  [{card}]")
+    log(f"[mesh 16d] dp=2 pool of {MESH_POOL} (4 + 4): "
+        f"{ms_['dp_pool_wall_s']:.2f} s; streams vs the one-rank pool "
+        f"{ms_['dp_streams']}, common prefixes {ms_['dp_common_prefix']}  "
+        f"[{card}]")
+    log(f"[mesh 16e] `{mc['cmd']}`: healthy {mc.get('healthy')} in "
+        f"{mc['ready_s']:.1f} s (engine warm-up {mc['warmup_s']} s); one "
+        f"request {mc.get('request_s', 0):.2f} s, {mc.get('samples')} samples, "
+        f"answered {mc.get('answered')}; mesh line {mc['mesh_line']}, gloo on "
+        f"the shared card {mc['gloo_shared']}; exit {mc['exit_code']}  [{card}]")
+    log(f"[mesh] checks: {ms_['checks']}; phase {ms_['phase_s']:.1f} s")
+    ok &= ms_["ok"] and mc["ok"]
+    report["mesh_cli"] = mc
+    report["mesh"] = dict(kernel_a_window=res_aw, kernel_c_shard=res_cs, **ms_)
+
+    mark("16")
     report["phase_s"] = phase_s
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -5050,6 +5717,21 @@ def main() -> int:
               "fireredtts2_tpu/ops/pallas_attention.py:176", f_launches, res_f,
               pick(res_f, B=1, live=3000), launched_in="check",
               served_by="flash_decode_gqa1"),
+        # a rank's launches in phase 16(c)'s generate at tp=2
+        entry("flash_decode_gqa1_shard", csrc + "flash_decode_gqa1.cu",
+              "fireredtts2_tpu/ops/pallas_flash.py:700",
+              ms_["launches"][0]["flash_decode_gqa1_shard"], res_aw,
+              pick(res_aw, tp=4, B=1, live=3000), launched_in="16c",
+              shape="tp=4: 3 query heads over kv head 1 of the (28, B, 3584, "
+                    "256) slab, B=1, live ~3000",
+              tp2=at(pick(res_aw, tp=2, B=1, live=3000)),
+              b8=at(pick(res_aw, tp=4, B=8, live=3000))),
+        entry("flash_decode_update_bounded_shard", csrc + "flash_decode_update.cu",
+              "fireredtts2_tpu/ops/pallas_flash.py:406",
+              ms_["launches"][0]["flash_decode_update_bounded_shard"], res_cs,
+              pick(res_cs, B=1, S=64, live=2900), launched_in="16c",
+              shape="tp=2: 8 heads, (12, B, 3008, 512) slab columns, B=1, S=64",
+              b8=at(pick(res_cs, B=8, S=64, live=2900))),
     ]
 
     def p_entry(name, replaces, row, rows, **extra):

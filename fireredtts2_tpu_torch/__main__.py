@@ -13,6 +13,14 @@ Counterpart of ``fireredtts2_tpu/__main__.py``:
                                             --lm-ckpt ckpts/step_00000100
   python -m fireredtts2_tpu_torch --pretrained-dir DIR convert [--fidelity]
 
+  torchrun --nproc-per-node 2 -m fireredtts2_tpu_torch --tp 2 serve ...
+
+Sharded serving (``--tp``/``--dp``): one process per rank under torchrun
+(``python -m torch.distributed.run``), every rank running the same command;
+NCCL when every rank has a card of its own, gloo when ranks share one (or
+on the CPU). generate/monologue/qa run on every rank and rank 0 writes and
+prints; serve listens on rank 0 while the other ranks follow its pool.
+
 The engine and training run on the card (``--device cuda``, the default);
 a CPU run asks for it with ``--device cpu``. Without --pretrained-dir a tiny
 random-weight config is used (dev mode). The serving preset on the card is
@@ -32,10 +40,11 @@ import sys
 
 # flag or subcommand -> the ROADMAP item (queue 1) that ports it
 NOT_PORTED = {
-    "--tp": "item 13 (multi-GPU)",
-    "--dp": "item 13 (multi-GPU)",
-    "--zero1": "item 13 (multi-GPU)",
+    "--tp": "item 13 (sharded training)",
+    "--dp": "item 13 (sharded training)",
+    "--zero1": "item 13 (sharded training)",
     "--profiler-port": "the tracing item (a live profiler endpoint)",
+    "--asr with --tp > 1": "item 13 (ASR on a mesh)",
     "bench": "item 1 (bench harness)",
 }
 
@@ -47,12 +56,61 @@ def _not_ported(what: str):
 
 def _check_ported(args) -> None:
     """Exit non-zero on any flag of the JAX CLI the port lacks."""
-    if args.tp is not None:
-        _not_ported("--tp")
-    if args.dp is not None:
-        _not_ported("--dp")
     if getattr(args, "profiler_port", None):
         _not_ported("--profiler-port")
+    if getattr(args, "asr", False) and getattr(args, "tp", 1) > 1:
+        _not_ported("--asr with --tp > 1")
+
+
+def _init_mesh(args):
+    """The (dp, tp) serving mesh of --tp/--dp (None without them), with
+    JAX's checks and messages, over the ranks torchrun launched (or a
+    process group already made). Sets args.device to this rank's card."""
+    tp, dp = args.tp, args.dp
+    if tp <= 1 and (dp or 1) <= 1:
+        return None
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from fireredtts2_tpu_torch.parallel.mesh import env_world, make_mesh
+
+    if dist.is_initialized():
+        n, rank, local = dist.get_world_size(), dist.get_rank(), None
+    else:
+        w = env_world()
+        n, rank, local = w if w is not None else (1, 0, 0)
+    if tp * (dp or 1) > n:
+        sys.exit(f"--tp {tp} x --dp {dp or 1} needs more than the {n} "
+                 f"visible rank(s): launch one rank per GPU with torchrun "
+                 f"--nproc-per-node {tp * (dp or 1)} -m fireredtts2_tpu_torch")
+    if tp * (dp or n // tp) != n:
+        sys.exit(f"--tp {tp} x --dp {dp} uses {tp * (dp or 1)} of the {n} "
+                 f"ranks: launch exactly that many")
+    if not dist.is_initialized():
+        cuda = args.device != "cpu" and torch.cuda.is_available()
+        per_node = int(os.environ.get("LOCAL_WORLD_SIZE", n))
+        own = cuda and torch.cuda.device_count() >= per_node
+        backend = "nccl" if own else "gloo"
+        if cuda:
+            args.device = f"cuda:{local % torch.cuda.device_count()}"
+            torch.cuda.set_device(args.device)
+        dist.init_process_group(backend, init_method="env://",
+                                timeout=datetime.timedelta(minutes=30))
+        print(f"[mesh] rank {rank}/{n}: {backend} "
+              f"({'a card a rank' if own else 'ranks share ' + args.device if cuda else 'CPU'})",
+              file=sys.stderr, flush=True)
+    mesh = make_mesh(dp=dp, tp=tp)
+    if rank == 0:
+        print(f"[mesh] serving sharded: dp={mesh.shape['dp']} "
+              f"tp={mesh.shape['tp']}", file=sys.stderr, flush=True)
+    return mesh
+
+
+def _rank0(engine) -> bool:
+    return engine.mesh is None or engine.mesh.is_leader
 
 
 def _build_engine(args):
@@ -66,15 +124,17 @@ def _build_engine(args):
         llm_overrides["fused_depth_plan"] = args.fused_depth_plan
     if args.speculative_depth:
         llm_overrides["speculative_depth"] = True
+    mesh = _init_mesh(args)
     if args.pretrained_dir:
         return FireRedTTS2Engine(pretrained_dir=args.pretrained_dir,
                                  gen_type=args.gen_type, device=args.device,
-                                 llm_overrides=llm_overrides or None)
+                                 llm_overrides=llm_overrides or None,
+                                 mesh=mesh)
     print("[warn] no --pretrained-dir: using tiny random-weight dev config",
           file=sys.stderr)
     return FireRedTTS2Engine(config=tiny_engine_config(),
                              gen_type=args.gen_type, device=args.device,
-                             llm_overrides=llm_overrides or None)
+                             llm_overrides=llm_overrides or None, mesh=mesh)
 
 
 def _cmd_generate(args):
@@ -97,8 +157,9 @@ def _cmd_generate(args):
         prompt_text_list=args.prompt_text or None,
         temperature=args.temperature, topk=args.topk,
         max_utterance_ms=max_utt)
-    save_wav(args.out, audio, engine.output_sample_rate)
-    print(f"wrote {args.out}: {len(audio)/engine.output_sample_rate:.2f}s")
+    if _rank0(engine):
+        save_wav(args.out, audio, engine.output_sample_rate)
+        print(f"wrote {args.out}: {len(audio)/engine.output_sample_rate:.2f}s")
 
 
 def _cmd_monologue(args):
@@ -109,8 +170,9 @@ def _cmd_monologue(args):
         args.text, prompt_wav=args.prompt_wav_single,
         prompt_text=args.prompt_text_single,
         temperature=args.temperature, topk=args.topk)
-    save_wav(args.out, audio, engine.output_sample_rate)
-    print(f"wrote {args.out}: {len(audio)/engine.output_sample_rate:.2f}s")
+    if _rank0(engine):
+        save_wav(args.out, audio, engine.output_sample_rate)
+        print(f"wrote {args.out}: {len(audio)/engine.output_sample_rate:.2f}s")
 
 
 def _build_asr(args):
@@ -153,9 +215,12 @@ def _cmd_serve(args):
     import os
 
     from fireredtts2_tpu_torch.serve.llm import build_responder_chain
-    from fireredtts2_tpu_torch.serve.server import serve
+    from fireredtts2_tpu_torch.serve.server import serve, serve_follower
 
     engine = _build_engine(args)
+    if not _rank0(engine):
+        serve_follower(engine, max_streams=args.max_streams)
+        return
     responder = build_responder_chain(
         primary=args.llm_primary, hf_model_dir=args.llm_model_dir,
         openai_base_url=args.openai_base_url, openai_model=args.openai_model,
@@ -181,6 +246,8 @@ def _cmd_qa(args):
                                   min_rms=0.0)
     results = QAPipeline(engine, thresholds).run_all()
     ok = all(r.passed for r in results)
+    if not _rank0(engine):
+        sys.exit(0 if ok else 1)
     for r in results:
         mark = "PASS" if r.passed else "FAIL"
         print(f"[{mark}] {r.name} ({r.duration_s:.1f}s) {r.detail}")
@@ -270,9 +337,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Jacobi speculative depth decode (the same tokens; "
                         "rounds of a 16-position forward in place of 15 "
                         "steps; off under a fused depth plan)")
-    # the JAX CLI's flags without a port (NOT_PORTED): exit non-zero
-    p.add_argument("--tp", type=int, default=None, help="not ported (item 13)")
-    p.add_argument("--dp", type=int, default=None, help="not ported (item 13)")
+    p.add_argument("--tp", type=int, default=1, metavar="N",
+                   help="tensor-parallel ways: shard the LM and vocoder "
+                        "projections over N ranks (one a GPU, torchrun)")
+    p.add_argument("--dp", type=int, default=None, metavar="N",
+                   help="data-parallel ways for batched streams (default "
+                        "ranks // tp)")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     g = sub.add_parser("generate", help="dialogue synthesis to a wav")
@@ -413,7 +483,28 @@ def main(argv=None):
     if unknown:
         p.error(f"unrecognized arguments: {' '.join(unknown)}")
     _check_ported(args)
-    args.fn(args)
+    if args.cmd not in ("generate", "monologue", "qa"):
+        args.fn(args)
+        return
+    try:
+        args.fn(args)
+    except SystemExit as e:
+        if e.code in (0, None):
+            _close_mesh()
+        raise
+    _close_mesh()
+
+
+def _close_mesh() -> None:
+    """After a command that every rank runs to the same end and that ended
+    well, leave the process group together: a rank that exits while
+    another's gloo threads still read its socket can abort that one at its
+    exit. (A serve follower ends when rank 0's pool stops, whatever rank 0
+    does next.)"""
+    dist = sys.modules.get("torch.distributed")
+    if dist is not None and dist.is_available() and dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

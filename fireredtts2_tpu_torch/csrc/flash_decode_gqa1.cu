@@ -68,6 +68,17 @@
 // FRT_GQA1_SPLIT=<slots> builds a variant with a fixed split,
 // FRT_GQA1_NOGROW one whose shared memory never grows, both for sweeps.
 //
+// The kv-head window (tensor-parallel serving): a call may compute only kv
+// heads [kv0, kv0 + Hkv) of a wider slab of W columns, with q holding just
+// those heads' Hkv*G query heads -- one tp rank's share, as
+// pallas_flash.py:flash_decode_gqa1(kv_base, hkv) reads its DMA column
+// window. The tensor maps cover the whole slab row (W columns, the stride
+// of a slot); only the boxes' column coordinates move by kv0*Dh, so a
+// window costs nothing over a slab that holds just those heads. At the
+// flagship (Hq 12, Hkv 2) tp=2 gives a rank one kv head and its G=6 query
+// heads, tp=4 one kv head and G=3 (half of its group): the mma's 8 columns
+// take any G <= 8, zeros past G.
+//
 // A stream whose window is empty (q_end <= q_start) gets zeros here, where
 // the TPU kernel would return the mean of V over the visited chunks; the LM
 // never sends one (every stream attends at least to its own fresh slot).
@@ -140,6 +151,7 @@ struct Args {
   int* counters;              // (B * Hkv), zero between calls
   __nv_bfloat16* out;         // (B, Hkv*G, Dh)
   int Hkv, G, T, C, SP, NS;
+  int kv0;                    // first kv head of the slab this call reads
   int merge_cap;              // splits a merge chunk holds
   float scale_log2;           // log2(e) / sqrt(Dh)
 };
@@ -297,7 +309,7 @@ gqa1_kernel(const __grid_constant__ CUtensorMap tk,
       const bool isv = i >= nk;
       const int h = (isv ? i - nk : i) / nbox, x = (isv ? i - nk : i) % nbox;
       frt_tma_load_2d((isv ? vs_a : ks_a) + (h * SP + x * kBoxRows) * 128,
-                      isv ? &tv : &tk, kh * DH + h * kBoxCols,
+                      isv ? &tv : &tk, (a.kv0 + kh) * DH + h * kBoxCols,
                       row + x * kBoxRows, isv ? vbar : kbar);
     }
     FRT_STAMP(1);
@@ -649,8 +661,9 @@ extern "C" int frt_gqa1_plan(int B, int Hkv, int G, int T, int Dh, int* split,
   return 0;
 }
 
-// q (B, Hkv*G, Dh) bf16; k, v: one layer of the slab, (B, T, Hkv*Dh) bf16,
-// 16-byte aligned; q_start/q_end (B,) int32; live_lo/live_hi () int32
+// q (B, Hkv*G, Dh) bf16; k, v: one layer of the slab, (B, T, W) bf16 with
+// W >= (kv0 + Hkv)*Dh columns (a multiple of 8), 16-byte aligned; the call
+// reads kv heads [kv0, kv0 + Hkv); q_start/q_end (B,) int32; live_lo/live_hi () int32
 // (batch min start, max end); split, NS and smem from frt_gqa1_plan; part:
 // its fp32 scratch; counters (B * Hkv) int32, zero before the call and left
 // zero after it; out (B, Hkv*G, Dh) bf16. One launch.
@@ -660,9 +673,10 @@ extern "C" int frt_flash_decode_gqa1(const void* q, const void* k, const void* v
                                      const int* live_lo, const int* live_hi,
                                      float* part, int* counters, void* out,
                                      int B, int Hkv, int G, int Dh, int T, int C,
-                                     int split, int NS, int smem, float scale,
-                                     void* stream) {
+                                     int W, int kv0, int split, int NS, int smem,
+                                     float scale, void* stream) {
   if (B < 1 || Hkv < 1 || G < 1 || G > kMaxG || C < 1 || T % C != 0 ||
+      kv0 < 0 || W % 8 != 0 || (long long)(kv0 + Hkv) * Dh > W ||
       (Dh != 64 && Dh != 128) || split < kBoxRows || split % kBoxRows != 0 ||
       split > kMaxSplit || NS != (T + split - 1) / split ||
       smem < compute_smem(Dh, split) || smem > kMaxDynSmem || part == nullptr ||
@@ -673,8 +687,8 @@ extern "C" int frt_flash_decode_gqa1(const void* q, const void* k, const void* v
   cudaError_t e = Dh == 128 ? prepare<128>() : prepare<64>();
   if (e != cudaSuccess) return (int)e;
   CUtensorMap tk, tv;
-  int err = tensor_map(k, (long long)B * T, Hkv * Dh, &tk);
-  if (err == 0) err = tensor_map(v, (long long)B * T, Hkv * Dh, &tv);
+  int err = tensor_map(k, (long long)B * T, W, &tk);
+  if (err == 0) err = tensor_map(v, (long long)B * T, W, &tv);
   if (err != 0) return err;
   const size_t n = partial_count(B, Hkv, NS);
   Args a;
@@ -694,6 +708,7 @@ extern "C" int frt_flash_decode_gqa1(const void* q, const void* k, const void* v
   a.C = C;
   a.SP = split;
   a.NS = NS;
+  a.kv0 = kv0;
   a.scale_log2 = scale * kLog2e;
   a.merge_cap = (smem - 1024) / split_bytes(Dh, G);
   const dim3 grid(NS, Hkv, B);

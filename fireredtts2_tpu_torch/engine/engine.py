@@ -27,12 +27,27 @@ seeded by (utterance seed, t), so ``generate`` and ``generate_stream``
 sample the same tokens for one utterance seed -- the counterpart of the
 JAX package's fold_in(key, t) -- and so do ``generate_dialogue`` and
 ``generate_dialogue_stream`` turn by turn (turn i's seed: utt_seed + i).
+
+Serving on a (dp, tp) mesh (``mesh=``, ``parallel.mesh``): every rank of
+the process group builds the engine from the same whole trees and keeps its
+shard (``lm_param_pspecs``, ``codec_param_pspecs``); every rank then calls
+the same methods in the same order (SPMD), and each returns the whole
+result. A batch's rows split over dp (replicated over every rank when dp
+does not divide them, as ``sanitize_pspecs`` leaves them); each dp row
+draws its rows of the whole batch's noise, so tokens equal one rank's.
+Each device call makes the engine's own mesh current for the model code
+(``_on_mesh``), so engines on different meshes, or none, live side by side
+in one process. While a tp > 1 engine serves through its lockstep pool, a
+device call from any other thread raises NotImplementedError: the other
+ranks step only the pool.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
+import inspect
 import itertools
 import logging
 import os
@@ -55,7 +70,7 @@ from fireredtts2_tpu_torch.models.codec.whisper_nn import (
     quantize_whisper_layers_int8,
 )
 from fireredtts2_tpu_torch.models.lm.model import (
-    LMState, clone_lm_state, init_lm_state, lm_generate_frame,
+    LMState, clone_lm_state, init_lm_state, kv_capacity, lm_generate_frame,
     lm_generate_loop, rewind_lm_state,
 )
 from fireredtts2_tpu_torch.models.lm.transformer import (
@@ -63,7 +78,11 @@ from fireredtts2_tpu_torch.models.lm.transformer import (
 )
 from fireredtts2_tpu_torch.models.pipeline import stream_block
 from fireredtts2_tpu_torch.ops.depth_chain import enable_fused_depth
+from fireredtts2_tpu_torch.ops.flash_decode import (
+    flash_lm_tp_ok, flash_voc_tp_ok,
+)
 from fireredtts2_tpu_torch.ops.int4 import prepare_int4_layout
+from fireredtts2_tpu_torch.parallel import mesh as pmesh
 from fireredtts2_tpu_torch.utils.audio_io import load_prompt_audio_16k, resample
 from fireredtts2_tpu_torch.utils.text import (
     SPEAKER_TAGS, clean_text, process_text_list, split_text,
@@ -94,6 +113,40 @@ class Segment:
     audio_tokens_mask: Optional[np.ndarray] = None
 
 
+def _on_mesh(fn):
+    """An engine method run with the engine's mesh current
+    (``parallel.mesh.use_mesh``: its model code reads that mesh and no
+    other engine's), a generator's body one step at a time. While a
+    tensor-parallel engine serves through its lockstep pool, a call from
+    any thread but the pool's worker raises NotImplementedError (see
+    :meth:`FireRedTTS2Engine._check_lockstep`)."""
+    name = fn.__name__
+    if inspect.isgeneratorfunction(fn):
+        @functools.wraps(fn)
+        def steps(self, *args, **kwargs):
+            it = fn(self, *args, **kwargs)
+            try:
+                while True:
+                    self._check_lockstep(name)
+                    with pmesh.use_mesh(self.mesh):
+                        try:
+                            item = next(it)
+                        except StopIteration as stop:
+                            return stop.value
+                    yield item
+            finally:
+                with pmesh.use_mesh(self.mesh):
+                    it.close()
+        return steps
+
+    @functools.wraps(fn)
+    def call(self, *args, **kwargs):
+        self._check_lockstep(name)
+        with pmesh.use_mesh(self.mesh):
+            return fn(self, *args, **kwargs)
+    return call
+
+
 class FireRedTTS2Engine:
     """Synthesis, voice cloning and dialogue."""
 
@@ -103,7 +156,8 @@ class FireRedTTS2Engine:
                  pretrained_dir: Optional[str] = None,
                  gen_type: str = "dialogue",
                  llm_overrides: Optional[dict] = None,
-                 codec_overrides: Optional[dict] = None):
+                 codec_overrides: Optional[dict] = None,
+                 mesh: Optional[pmesh.Mesh] = None):
         """config: the model and engine configuration (default: the
         flagship EngineConfig()). device: where weights, state and kernels
         live: "cuda" by default; "cpu" runs the plain versions and must be
@@ -123,7 +177,14 @@ class FireRedTTS2Engine:
         with a warning, when that dir is absent). llm_overrides /
         codec_overrides: config fields set on top of the JSONs or of
         `config`, e.g. the serving preset's {"quantize_backbone": True,
-        "fused_depth_plan": "gate=r8,up=s8,down=s8"}."""
+        "fused_depth_plan": "gate=r8,up=s8,down=s8"}.
+
+        mesh: a (dp, tp) mesh of this process group (``parallel.mesh.
+        make_mesh``, made on every rank): every rank passes the same whole
+        trees (or seed, or dir) and keeps its shard; the engine's device
+        calls make the mesh current for the model code (``_on_mesh``). On
+        the card a mesh whose tp the kernels' shard routes cannot split
+        raises here."""
         if gen_type not in ("monologue", "dialogue"):
             raise ValueError(f"gen_type {gen_type!r}: 'monologue' or 'dialogue'")
         self.gen_type = gen_type
@@ -161,8 +222,13 @@ class FireRedTTS2Engine:
             codec_params = codec_params or rand_codec
         # the raw trees' leaf shapes: what a reloaded checkpoint must match
         self._ref_shapes = (tree_shapes(lm_params), tree_shapes(codec_params))
-        self.lm_params, self.codec_params = self._apply_serving_transforms(
-            lm_params, codec_params)
+        self.mesh = mesh
+        # the worker thread of the lockstep pool a tp > 1 engine serves
+        # through (ContinuousBatcher sets it), else None
+        self._lockstep: Optional[threading.Thread] = None
+        self._check_mesh()
+        self.lm_params, self.codec_params = self._place(
+            *self._apply_serving_transforms(lm_params, codec_params))
         self.tokenizer = load_tokenizer(tok_dir)
 
         acfg = config.codec.acoustic_decoder
@@ -292,6 +358,8 @@ class FireRedTTS2Engine:
         caches hold activations of the weights that made them. The
         prompt-token and voice-state caches are cleared under the lock."""
         lm_params, codec_params = prepared
+        if self.mesh is not None:
+            raise NotImplementedError("hot reload on a mesh is not ported")
         with self._lock:
             self.lm_params = lm_params
             self.codec_params = codec_params
@@ -304,6 +372,7 @@ class FireRedTTS2Engine:
         through ``ContinuousBatcher.reload``, which drains in between)."""
         self.apply_checkpoint(self.prepare_checkpoint(pretrained_dir))
 
+    @_on_mesh
     def warmup(self) -> float:
         """One prefill per bucket and one short stream, so every kernel
         library is built and loaded and kernel C's merge counts are sized
@@ -326,6 +395,78 @@ class FireRedTTS2Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
+
+    # ------------------------------------------------------------------
+    # The mesh
+    # ------------------------------------------------------------------
+
+    def _check_lockstep(self, what: str) -> None:
+        """Refuse a device call that would run tp collectives on this rank
+        alone: while the engine serves through a lockstep pool, the other
+        ranks step only that pool, so a call from another thread (rank 0's
+        server building a voice, a prompt-less clone) would wait forever
+        in its first collective."""
+        t = self._lockstep
+        if t is not None and threading.current_thread() is not t:
+            raise NotImplementedError(
+                f"{what} on a tensor-parallel engine outside its serving "
+                f"pool: the other ranks follow only the pool's lockstep "
+                f"(voice prompts, clones and dialogue at tp > 1 are not "
+                f"ported yet: ROADMAP.md queue 1, item 13)")
+
+    def _check_mesh(self) -> None:
+        """On the card, refuse a mesh the kernels' shard routes cannot
+        split (no silent plain route); on the CPU the plain versions take
+        any mesh whose tp divides the split dimensions."""
+        m = self.mesh
+        if m is None or m.tp == 1:
+            return
+        llm, ac = self.config.llm, self.config.codec.acoustic_decoder
+        if llm.quantize_depth and llm.quantize_depth_bits == 4 \
+                and not llm.fused_depth_plan:
+            raise NotImplementedError(
+                "int4 depth weights (kernel E) under tp > 1 are not ported")
+        if self.device.type != "cuda":
+            return
+        bb = llm.backbone
+        T = kv_capacity(llm.max_seq_len)
+        if not flash_lm_tp_ok(m, bb.num_heads, bb.num_kv_heads, bb.head_dim, T):
+            raise ValueError(
+                f"flash_lm_tp_ok: kernel A's tp route cannot split the "
+                f"backbone (Hq={bb.num_heads}, Hkv={bb.num_kv_heads}, "
+                f"Dh={bb.head_dim}, T={T}) over tp={m.tp}")
+        Dh = ac.embed_dim // ac.num_heads
+        if not flash_voc_tp_ok(m, ac.num_heads, Dh, 8, ac.max_stream_latents):
+            raise ValueError(
+                f"flash_voc_tp_ok: kernel C's tp route cannot split the "
+                f"vocoder (H={ac.num_heads}, Dh={Dh}, "
+                f"T={ac.max_stream_latents}) over tp={m.tp}")
+
+    def _place(self, lm_params: dict, codec_params: dict
+               ) -> tuple[dict, dict]:
+        """This rank's shards of the transformed trees (whole trees without
+        a mesh)."""
+        m = self.mesh
+        if m is None or m.tp == 1:
+            return lm_params, codec_params
+        return (pmesh.shard_params(m, lm_params,
+                                   pmesh.lm_param_pspecs(lm_params)),
+                pmesh.shard_params(m, codec_params,
+                                   pmesh.codec_param_pspecs(codec_params)))
+
+    def _rows(self, B: int) -> tuple[int, int]:
+        """[start, stop) of this rank's rows of a B-stream batch: its dp
+        share, or all B when dp does not divide them."""
+        if self.mesh is None:
+            return 0, B
+        return pmesh.shard_spec_rows(B, self.mesh, "dp")
+
+    def _gather_rows(self, x: torch.Tensor, B: int) -> torch.Tensor:
+        """The whole B rows (dim 0) of a tensor whose rows split over dp."""
+        m = self.mesh
+        if m is None or x.shape[0] == B:
+            return x
+        return pmesh.gather_dim(x, B, 0, m.dp_group, m.dp_rank)
 
     def _apply_serving_transforms(self, lm_params: dict, codec_params: dict
                                   ) -> tuple[dict, dict]:
@@ -370,16 +511,20 @@ class FireRedTTS2Engine:
             return [self._next_seed() for _ in range(n)]
         return [utt_seed + i for i in range(n)]
 
-    def noise_fn(self, utt_seed: int, B: int) -> Callable[[int], torch.Tensor]:
+    def noise_fn(self, utt_seed: int, B: int,
+                 rows: Optional[tuple[int, int]] = None
+                 ) -> Callable[[int], torch.Tensor]:
         """Frame t's sampling noise (B, ncb, V_audio), Exp(1) draws from a
-        generator seeded by (utt_seed, t)."""
+        generator seeded by (utt_seed, t); rows: only rows [start, stop) of
+        those draws (a dp rank's share of a batch)."""
         shape = (B, self._ncb, self.config.llm.audio_vocab_size)
 
         def fn(t: int) -> torch.Tensor:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(_frame_seed(utt_seed, t))
-            return torch.empty(shape, dtype=torch.float32,
-                               device=self.device).exponential_(generator=gen)
+            x = torch.empty(shape, dtype=torch.float32,
+                            device=self.device).exponential_(generator=gen)
+            return x if rows is None or rows == (0, B) else x[rows[0]:rows[1]]
         return fn
 
     def _tokenize_text_segment(self, text: str, speaker: str):
@@ -391,6 +536,7 @@ class FireRedTTS2Engine:
         mask[:, -1] = True
         return frame, mask
 
+    @_on_mesh
     def _tokenize_audio(self, audio16k: np.ndarray
                         ) -> tuple[np.ndarray, np.ndarray]:
         """Prompt audio (16 kHz) -> its codec frames plus an all-zero EOS
@@ -424,6 +570,7 @@ class FireRedTTS2Engine:
                 self._audio_token_cache.popitem(last=False)
             return frame, mask
 
+    @_on_mesh
     def encode_prompt_tokens(self, audio16k: np.ndarray
                              ) -> tuple[np.ndarray, np.ndarray]:
         """Pre-encode prompt audio: (T, ncols) frames + mask for
@@ -487,12 +634,14 @@ class FireRedTTS2Engine:
     def _dev(self, a) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
 
+    @_on_mesh
     def _new_lm_state(self, B: int, capacity: Optional[int] = None):
         """A fresh B-stream LM state; capacity: a smaller position cap (a
         batcher pool's capacity class)."""
         return init_lm_state(self.config.llm, B, dtype_of(self.config.llm.dtype),
                              device=self.device, capacity=capacity)
 
+    @_on_mesh
     def _new_vstate(self, B: int, latents: Optional[int] = None):
         """A fresh B-stream vocoder state; latents: a smaller KV capacity
         (8 per frame, 16-aligned)."""
@@ -500,6 +649,7 @@ class FireRedTTS2Engine:
                                   dtype_of(self.config.codec.dtype),
                                   device=self.device, latents=latents)
 
+    @_on_mesh
     @torch.inference_mode()
     def _context_state(self, context: Optional[List[Segment]]):
         """(a copy of the cached LM state after this context's prefill,
@@ -559,18 +709,23 @@ class FireRedTTS2Engine:
               real_len: Optional[int] = None
               ) -> tuple[LMState, list[np.ndarray]]:
         """lm_generate_loop on host arrays -> (state, B arrays of (T_i, ncb)
-        int32 frames). Sets last_stats' "frames", "lm_s", "prefill_s"."""
+        int32 frames). Sets last_stats' "frames", "lm_s", "prefill_s". On a
+        mesh `state` holds this rank's rows (:meth:`_rows`) and the frames
+        are gathered whole."""
         B = tokens.shape[0]
+        r0, r1 = self._rows(B)
         stats: dict = {}
         t0 = time.perf_counter()
         state, buf, n_frames = lm_generate_loop(
-            self.lm_params, self.config.llm, state, self._dev(tokens),
-            self._dev(mask), self._dev(valid), self.noise_fn(seed, B),
+            self.lm_params, self.config.llm, state, self._dev(tokens[r0:r1]),
+            self._dev(mask[r0:r1]), self._dev(valid[r0:r1]),
+            self.noise_fn(seed, B, (r0, r1)),
             max_frames=max_frames, frame_cap=cap,
             real_len=(None if real_len is None
                       else self._dev(np.array([real_len], np.int32))),
             stats=stats, **self._sampling(temperature, topk))
-        buf, n_frames = buf.cpu().numpy(), n_frames.cpu().numpy()
+        buf = self._gather_rows(buf, B).cpu().numpy()
+        n_frames = self._gather_rows(n_frames, B).cpu().numpy()
         self.last_stats = {"frames": int(n_frames.max()),
                            "lm_s": time.perf_counter() - t0, **stats}
         return state, [buf[i, :n_frames[i]] for i in range(B)]
@@ -583,7 +738,8 @@ class FireRedTTS2Engine:
         bucket, tokens, mask, valid = self._bucketize(prompts)
         max_frames = self.max_seq_len - bucket
         seed = self._next_seed() if utt_seed is None else utt_seed
-        _, frames = self._loop(self._new_lm_state(len(prompts)), tokens, mask,
+        r0, r1 = self._rows(len(prompts))
+        _, frames = self._loop(self._new_lm_state(r1 - r0), tokens, mask,
                                valid, max_frames,
                                min(max_generation_len, max_frames),
                                temperature, topk, seed)
@@ -610,6 +766,7 @@ class FireRedTTS2Engine:
         return gen
 
     @torch.inference_mode()
+    @_on_mesh
     def _decode_tokens(self, frames: list[np.ndarray]) -> list[np.ndarray]:
         """B arrays of (T_i, ncb) frames -> B (T_i * 1920,) float32
         waveforms at 24 kHz: one bucket-padded streaming-exact vocoder pass
@@ -618,13 +775,19 @@ class FireRedTTS2Engine:
         if T_max == 0:
             return [np.zeros((0,), np.float32) for _ in frames]
         Lpad = ((T_max + 31) // 32) * 32
-        toks = np.zeros((len(frames), self._ncb, Lpad), np.int32)
+        B = len(frames)
+        toks = np.zeros((B, self._ncb, Lpad), np.int32)
         for i, f in enumerate(frames):
             toks[i, :, :f.shape[0]] = f.T
+        r0, r1 = self._rows(B)
         middles, tails = codec_decode_chunks(self.codec_params,
-                                             self.config.codec, self._dev(toks))
-        middles = middles.float().cpu().numpy()
-        tails = tails.float().cpu().numpy()
+                                             self.config.codec,
+                                             self._dev(toks[r0:r1]))
+        # (L, B, n): rows on dim 1
+        middles = self._gather_rows(middles.float().transpose(0, 1), B)
+        tails = self._gather_rows(tails.float().transpose(0, 1), B)
+        middles = middles.transpose(0, 1).cpu().numpy()
+        tails = tails.transpose(0, 1).cpu().numpy()
         acfg = self.config.codec.acoustic_decoder
         return [assemble_chunks(middles[:, i:i + 1], tails[:, i:i + 1],
                                 f.shape[0], acfg.hop_length, acfg.n_fft)[0]
@@ -704,12 +867,14 @@ class FireRedTTS2Engine:
     # Public API
     # ------------------------------------------------------------------
 
+    @_on_mesh
     def prepare_prompt(self, text: str, speaker: str, audio_path: str
                        ) -> Segment:
         """A context segment from a wav file (any rate, read at 16 kHz)."""
         return Segment(speaker=speaker, text=text,
                        audio=load_prompt_audio_16k(audio_path))
 
+    @_on_mesh
     def generate(self, text: str, speaker: str,
                  context: Optional[List[Segment]] = None,
                  max_audio_length_ms: float = 90_000, temperature: float = 0.9,
@@ -734,6 +899,7 @@ class FireRedTTS2Engine:
         self.last_stats["vocode_s"] = time.perf_counter() - t1
         return audio
 
+    @_on_mesh
     def generate_single(self, context: List[Segment], temperature: float = 0.9,
                         topk: int = 20, utt_seed: Optional[int] = None,
                         max_frames: int = 400) -> np.ndarray:
@@ -745,6 +911,7 @@ class FireRedTTS2Engine:
                              temperature, topk, utt_seed)
         return gen
 
+    @_on_mesh
     def generate_batch(self, texts: List[str], speakers: List[str],
                        contexts: Optional[List[List[Segment]]] = None,
                        max_audio_length_ms: float = 30_000,
@@ -761,6 +928,7 @@ class FireRedTTS2Engine:
                               temperature, topk, utt_seed)
         return self._decode_tokens(frames)
 
+    @_on_mesh
     def generate_stream(self, text: str, speaker: str,
                         context: Optional[List[Segment]] = None,
                         max_audio_length_ms: float = 90_000,
@@ -840,6 +1008,7 @@ class FireRedTTS2Engine:
         self.last_lm_state = state
         return state
 
+    @_on_mesh
     def generate_dialogue(self, text_list: List[str],
                           prompt_wav_list: Optional[List[str]] = None,
                           prompt_text_list: Optional[List[str]] = None,
@@ -913,6 +1082,7 @@ class FireRedTTS2Engine:
                 resample(audio24, self.output_sample_rate, self.sample_rate))
         return np.concatenate(storage) if storage else np.zeros(0, np.float32)
 
+    @_on_mesh
     def generate_dialogue_stream(self, text_list: List[str],
                                  prompt_wav_list: Optional[List[str]] = None,
                                  prompt_text_list: Optional[List[str]] = None,
@@ -977,6 +1147,7 @@ class FireRedTTS2Engine:
                     resample(audio24, self.output_sample_rate,
                              self.sample_rate))
 
+    @_on_mesh
     def generate_monologue(self, text: str, prompt_wav: Optional[str] = None,
                            prompt_text: Optional[str] = None,
                            temperature: float = 0.75, topk: int = 20,

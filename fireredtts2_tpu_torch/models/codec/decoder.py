@@ -31,9 +31,10 @@ from fireredtts2_tpu_torch.ops.stft import (
     window_envelope,
 )
 from fireredtts2_tpu_torch.models.codec.whisper_nn import (
-    conv1d as wconv1d, init_kv_slab, init_whisper_layers, layer_norm,
-    whisper_layers_forward,
+    conv1d as wconv1d, heads_split, init_kv_slab, init_whisper_layers,
+    layer_norm, whisper_layers_forward,
 )
+from fireredtts2_tpu_torch.parallel.mesh import tp_mesh
 
 Params = dict[str, Any]
 
@@ -284,12 +285,17 @@ def stream_state_init(cfg: AcousticDecoderConfig, batch: int,
                       latents: int | None = None) -> VocoderStreamState:
     """latents: the KV capacity in 100 Hz latents, 8 per 12.5 Hz token
     (default cfg.max_stream_latents; a pool capped at F frames needs 8F).
-    It must be a multiple of 16."""
+    It must be a multiple of 16. Under a serving mesh whose tp splits the
+    heads, the KV slabs hold this rank's H/tp heads' columns
+    (parallel/mesh.py:vocoder_state_pspecs); `batch` is the rank's rows."""
     d = cfg.embed_dim
     cap = latents or cfg.max_stream_latents
     if cap % 16:
         raise ValueError(f"vocoder latent capacity {cap} not 16-aligned")
-    slab = init_kv_slab(cfg.num_layers, batch, cap, cfg.num_heads,
+    m = tp_mesh()
+    heads = cfg.num_heads // m.tp if heads_split(cfg.num_heads, m) \
+        else cfg.num_heads
+    slab = init_kv_slab(cfg.num_layers, batch, cap, heads,
                         d // cfg.num_heads, dtype, device=device)
 
     def zeros(*shape):

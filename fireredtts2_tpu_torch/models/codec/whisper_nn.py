@@ -15,21 +15,36 @@ parameters are stacked on a leading L axis; k has no bias, q/v/out do.
 ``quantize_whisper_layers_int8`` makes the vocoder's matmuls weight-only
 int8; they then take ``ops.quant.quantized_matmul``'s plain dequant route,
 as the JAX package leaves them to XLA.
+
+Tensor parallelism (a current mesh with tp > 1): a stack split by
+``parallel.mesh.shard_params`` holds the rank's Megatron shards
+(parallel/mesh.py:codec_param_pspecs; :func:`stack_mesh` tells a split
+stack from a whole one, which runs as without a mesh). q/k/v and fc1 give
+the rank's columns, which are whole heads when tp divides the head count:
+the rank then attends over its own heads only (the slab decode through
+kernel C's tp route, on the rank's slab columns), and wo and fc2 end in a
+tp sum, their biases added after it. Where tp splits a head, q/k/v are
+gathered whole and every rank attends over every head (the slab is then
+tp-replicated; the engine refuses that on the card).
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from fireredtts2_tpu_torch.ops.attention import mha_attention
-from fireredtts2_tpu_torch.ops.flash_decode import flash_decode_update_bounded
+from fireredtts2_tpu_torch.ops.flash_decode import (
+    flash_decode_update_bounded, flash_decode_update_bounded_shard,
+)
 from fireredtts2_tpu_torch.ops.precision import pconv1d
 from fireredtts2_tpu_torch.ops.quant import quantize_tree, quantized_matmul
 from fireredtts2_tpu_torch.ops.remat import remat_layer
+from fireredtts2_tpu_torch.parallel.layers import split_rows
+from fireredtts2_tpu_torch.parallel.mesh import Mesh, gather_dim, tp_mesh
 
 Params = dict[str, Any]
 
@@ -88,43 +103,82 @@ def quantize_whisper_layers_int8(params: Params) -> Params:
     return quantize_tree(params, _WHISPER_MATMUL_KEYS, bits=8)
 
 
-def _whisper_layer(h: torch.Tensor, lp: Params, num_heads: int,
-                   mask: torch.Tensor | None) -> torch.Tensor:
-    """One stateless layer over the whole window; mask (B, S, S) bool,
-    True = attend."""
-    B, S, D = h.shape
+def stack_mesh(params: Params, width: int) -> Optional[Mesh]:
+    """The tp mesh a layer stack of model width `width` was split over, or
+    None for a whole stack (the ASR's, or any stack run with no tp mesh
+    current). ``mesh.shard_params`` splits a whisper stack whole or raises,
+    so its out-projection holds width/tp rows exactly when it is split."""
+    m = tp_mesh()
+    return m if m is not None and params["wo"].shape[-2] != width else None
+
+
+def heads_split(num_heads: int, m: Optional[Mesh]) -> bool:
+    """Whether each tp rank of a stack split over m holds whole heads of
+    its num_heads (False for a whole stack)."""
+    return m is not None and num_heads % m.tp == 0
+
+
+def _qkv(x: torch.Tensor, lp: Params, num_heads: int, m: Optional[Mesh]):
+    """q, k, v (B, S, H', Dh): the rank's H' = H/tp heads when the heads
+    split, else all of them (gathered whole on a split stack)."""
+    B, S, D = x.shape
     Dh = D // num_heads
-    x = layer_norm(h, lp["attn_ln_w"], lp["attn_ln_b"])
-    q = (quantized_matmul(x, lp, "wq") + lp["bq"]).reshape(B, S, num_heads, Dh)
-    k = quantized_matmul(x, lp, "wk").reshape(B, S, num_heads, Dh)
-    v = (quantized_matmul(x, lp, "wv") + lp["bv"]).reshape(B, S, num_heads, Dh)
-    attn = mha_attention(q, k, v, mask)
-    o = quantized_matmul(attn.reshape(B, S, D), lp, "wo")
+    q = quantized_matmul(x, lp, "wq") + lp["bq"]
+    k = quantized_matmul(x, lp, "wk")
+    v = quantized_matmul(x, lp, "wv") + lp["bv"]
+    if m is not None and not heads_split(num_heads, m):
+        q, k, v = (gather_dim(t, D, -1, m.tp_group, m.tp_rank)
+                   for t in (q, k, v))
+    return (q.reshape(B, S, -1, Dh), k.reshape(B, S, -1, Dh),
+            v.reshape(B, S, -1, Dh))
+
+
+def _row(a: torch.Tensor, lp: Params, name: str, m: Optional[Mesh]
+         ) -> torch.Tensor:
+    return (quantized_matmul(a, lp, name) if m is None
+            else split_rows(a, lp, name, m))
+
+
+def _out_ffn(h: torch.Tensor, attn: torch.Tensor, lp: Params,
+             m: Optional[Mesh]) -> torch.Tensor:
+    """The output projection and the GELU MLP, residuals included; on a
+    split stack wo and fc2 are row-parallel, their biases added after the
+    tp sum."""
+    B, S, D = h.shape
+    o = _row(attn.reshape(B, S, -1), lp, "wo", m)
     h = h + (o + lp["bo"]).to(h.dtype)
     x = layer_norm(h, lp["ffn_ln_w"], lp["ffn_ln_b"])
     x = F.gelu(quantized_matmul(x, lp, "fc1_w") + lp["fc1_b"])
-    return h + (quantized_matmul(x, lp, "fc2_w") + lp["fc2_b"]).to(h.dtype)
+    return h + (_row(x, lp, "fc2_w", m) + lp["fc2_b"]).to(h.dtype)
+
+
+def _whisper_layer(h: torch.Tensor, lp: Params, num_heads: int,
+                   mask: torch.Tensor | None, m: Optional[Mesh] = None
+                   ) -> torch.Tensor:
+    """One stateless layer over the whole window; mask (B, S, S) bool,
+    True = attend; m: the mesh the stack is split over (None: whole)."""
+    x = layer_norm(h, lp["attn_ln_w"], lp["attn_ln_b"])
+    q, k, v = _qkv(x, lp, num_heads, m)
+    return _out_ffn(h, mha_attention(q, k, v, mask), lp, m)
 
 
 def _whisper_layer_slab4(h: torch.Tensor, lp: Params, layer: int,
                          num_heads: int, k4: torch.Tensor, v4: torch.Tensor,
-                         pos: torch.Tensor, q_end: torch.Tensor, live_hi
-                         ) -> torch.Tensor:
+                         pos: torch.Tensor, q_end: torch.Tensor, live_hi,
+                         m: Optional[Mesh] = None) -> torch.Tensor:
     """One slab-decode layer: this chunk's K/V rows go into slab[layer] in
     place (kernel C writes them, then attends)."""
     B, S, D = h.shape
-    Dh = D // num_heads
     x = layer_norm(h, lp["attn_ln_w"], lp["attn_ln_b"])
-    q = (quantized_matmul(x, lp, "wq") + lp["bq"]).reshape(B, S, num_heads, Dh)
-    kw = quantized_matmul(x, lp, "wk")
-    vw = quantized_matmul(x, lp, "wv") + lp["bv"]
-    attn = flash_decode_update_bounded(q, kw, vw, k4, v4, layer, pos, q_end,
-                                       live_hi)
-    o = quantized_matmul(attn.reshape(B, S, D), lp, "wo")
-    h = h + (o + lp["bo"]).to(h.dtype)
-    x = layer_norm(h, lp["ffn_ln_w"], lp["ffn_ln_b"])
-    x = F.gelu(quantized_matmul(x, lp, "fc1_w") + lp["fc1_b"])
-    return h + (quantized_matmul(x, lp, "fc2_w") + lp["fc2_b"]).to(h.dtype)
+    q, k, v = _qkv(x, lp, num_heads, m)
+    kw, vw = k.reshape(B, S, -1), v.reshape(B, S, -1)
+    if heads_split(num_heads, m):
+        attn = flash_decode_update_bounded_shard(
+            m, q, kw, vw, k4, v4, layer, pos, q_end, live_hi)
+    else:
+        attn = flash_decode_update_bounded(q, kw, vw, k4, v4, layer, pos,
+                                           q_end, live_hi)
+    return _out_ffn(h, attn, lp, m)
 
 
 def whisper_layers_forward(params: Params, num_heads: int, h: torch.Tensor,
@@ -144,18 +198,19 @@ def whisper_layers_forward(params: Params, num_heads: int, h: torch.Tensor,
     per-stream write slots; q_end (B, S) exclusive per-query bounds;
     live_hi the batch's max live slot (every query must see >= 1 slot)."""
     L = params["wq"].shape[0]
+    m = stack_mesh(params, h.shape[-1])
     if cache is None:
         body = remat_layer(_whisper_layer, remat) if remat else _whisper_layer
         # one unbind per stacked leaf (its backward stacks the gradients
         # once; a slice per layer would add L zero-padded ones)
         for per_layer in zip(*(t.unbind(0) for t in params.values())):
-            h = body(h, dict(zip(params, per_layer)), num_heads, mask)
+            h = body(h, dict(zip(params, per_layer)), num_heads, mask, m)
         return h, None
     assert cache_pos.ndim == 1, "slab decode needs (B,) positions"
     for layer in range(L):
         lp = {name: t[layer] for name, t in params.items()}
         h = _whisper_layer_slab4(h, lp, layer, num_heads, cache["k"],
-                                 cache["v"], cache_pos, q_end, live_hi)
+                                 cache["v"], cache_pos, q_end, live_hi, m)
     return h, cache
 
 

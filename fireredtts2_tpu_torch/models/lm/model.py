@@ -43,6 +43,9 @@ from fireredtts2_tpu_torch.config import LLMConfig
 from fireredtts2_tpu_torch.ops import masks as mask_ops
 from fireredtts2_tpu_torch.ops.depth_chain import fused_depth_decode
 from fireredtts2_tpu_torch.ops.sampling import sample_topk
+from fireredtts2_tpu_torch.parallel.layers import (
+    gather_cols, tp_sum, vocab_logits, vocab_lookup,
+)
 from fireredtts2_tpu_torch.weights import host_to_device
 from fireredtts2_tpu_torch.models.lm.transformer import (
     _normal, init_kv_cache, init_transformer_params, transformer_forward,
@@ -135,27 +138,47 @@ def embed_audio(params: Params, cfg: LLMConfig, codebook, tokens: torch.Tensor
     """Embeddings of audio tokens of one codebook (flat table with a
     per-codebook offset)."""
     idx = tokens.to(torch.int64) + codebook * cfg.audio_vocab_size
-    return params["audio_embeddings"][idx]
+    return _audio_lookup(params, cfg, idx)
 
 
-def embed_tokens(params: Params, cfg: LLMConfig, tokens: torch.Tensor
-                 ) -> torch.Tensor:
+def _audio_lookup(params: Params, cfg: LLMConfig, idx: torch.Tensor,
+                  reduce: bool = True) -> torch.Tensor:
+    """Rows of the flat audio table (its vocabulary split over tp under a
+    serving mesh: ``parallel.layers.vocab_lookup``)."""
+    return vocab_lookup(params["audio_embeddings"], idx,
+                        cfg.audio_vocab_size * cfg.audio_num_codebooks, reduce)
+
+
+def _audio_logits(h: torch.Tensor, heads: torch.Tensor, V: int
+                  ) -> torch.Tensor:
+    """h (..., D) @ one audio head (D, V), gathered whole over tp."""
+    return vocab_logits(h, heads, V)
+
+
+def embed_tokens(params: Params, cfg: LLMConfig, tokens: torch.Tensor,
+                 reduce: bool = True) -> torch.Tensor:
     """(B, S, C+1) int tokens -> (B, S, C+1, D) per-column embeddings. Text
-    ids are clamped into the table, as JAX's gather clamps."""
+    ids are clamped into the table, as JAX's gather clamps. reduce=False:
+    under tp, this rank's part (``parallel.layers.vocab_lookup``)."""
     tokens = tokens.to(torch.int64)
-    table = params["text_embeddings"]
-    text = table[tokens[..., -1].clamp(0, table.shape[0] - 1)][..., None, :]
+    n_text = cfg.text_vocab_size
+    text = vocab_lookup(params["text_embeddings"],
+                        tokens[..., -1].clamp(0, n_text - 1), n_text,
+                        reduce)[..., None, :]
     offsets = torch.arange(cfg.audio_num_codebooks, device=tokens.device) \
         * cfg.audio_vocab_size
-    audio = params["audio_embeddings"][tokens[..., :-1] + offsets]
+    audio = _audio_lookup(params, cfg, tokens[..., :-1] + offsets, reduce)
     return torch.cat([audio, text], dim=-2)
 
 
 def frame_hidden(params: Params, cfg: LLMConfig, tokens: torch.Tensor,
                  tokens_mask: torch.Tensor, dtype) -> torch.Tensor:
-    """Masked sum of per-column embeddings -> (B, S, D)."""
-    embeds = embed_tokens(params, cfg, tokens)
-    return (embeds * tokens_mask[..., None].to(embeds.dtype)).sum(-2).to(dtype)
+    """Masked sum of per-column embeddings -> (B, S, D). Under tp each rank
+    sums its part and one tp sum of (B, S, D) follows, not one of the
+    (B, S, C+1, D) columns."""
+    embeds = embed_tokens(params, cfg, tokens, reduce=False)
+    return tp_sum((embeds * tokens_mask[..., None].to(embeds.dtype)).sum(-2)
+                  ).to(dtype)
 
 
 def draft_depth_tokens(params: Params, cfg: LLMConfig, last_h: torch.Tensor,
@@ -168,8 +191,9 @@ def draft_depth_tokens(params: Params, cfg: LLMConfig, last_h: torch.Tensor,
     e0 = embed_audio(params, cfg, 0, c0).to(last_h.dtype)
     h = torch.cat([last_h, e0], dim=-1) @ dh["trunk"]          # (B, D_dec)
     hp = h[:, None, :] + dh["pos"][None]                       # (B, ncb-1, D)
-    logits = torch.einsum("nsd,sdv->nsv", hp.to(torch.float32),
-                          params["audio_head"].to(torch.float32))
+    logits = gather_cols(torch.einsum("nsd,sdv->nsv", hp.to(torch.float32),
+                                      params["audio_head"].to(torch.float32)),
+                         cfg.audio_vocab_size)
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
@@ -209,13 +233,13 @@ def depth_decode_jacobi(params: Params, cfg: LLMConfig, last_h: torch.Tensor,
     def forward(tok):
         """Every position 1..ncb-1 sampled, each conditioned on the current
         guess of the positions before it."""
-        c_emb = params["audio_embeddings"][tok[:, :ncb - 1].to(torch.int64)
-                                           + offs].to(dtype)
+        c_emb = _audio_lookup(params, cfg, tok[:, :ncb - 1].to(torch.int64)
+                              + offs).to(dtype)
         dec_in = torch.cat([last_h[:, None, :], c_emb], dim=1) @ proj
         dec_h, _ = transformer_forward(params["decoder"], dec_cfg, dec_in, pos,
                                        attn)
-        logits = torch.einsum("nsd,sdv->nsv", dec_h[:, 1:].to(torch.float32),
-                              heads)
+        logits = gather_cols(torch.einsum(
+            "nsd,sdv->nsv", dec_h[:, 1:].to(torch.float32), heads), V)
         return sample_topk(logits, depth_topk, depth_temperature, depth_noise)
 
     tok = torch.zeros((B, ncb), dtype=torch.int32, device=dev)
@@ -292,7 +316,9 @@ def _depth_decode(params: Params, cfg: LLMConfig, last_h: torch.Tensor,
     hh, cache = transformer_forward(params["decoder"], dec_cfg, h01, pos01,
                                     mask_ops.decode_step_mask(pos01, ncb),
                                     cache, 0)
-    logits = hh[:, -1].to(torch.float32) @ heads[0].to(torch.float32)
+    V = cfg.audio_vocab_size
+    logits = _audio_logits(hh[:, -1].to(torch.float32),
+                           heads[0].to(torch.float32), V)
     prev = sample_topk(logits, depth_topk, depth_temperature, noise[:, 1])
     samples = [c0.to(torch.int32), prev]
     for i in range(2, ncb):
@@ -302,7 +328,8 @@ def _depth_decode(params: Params, cfg: LLMConfig, last_h: torch.Tensor,
         hh, cache = transformer_forward(params["decoder"], dec_cfg, h, pos,
                                         mask_ops.decode_step_mask(pos, ncb),
                                         cache, i)
-        logits = hh[:, -1].to(torch.float32) @ heads[i - 1].to(torch.float32)
+        logits = _audio_logits(hh[:, -1].to(torch.float32),
+                               heads[i - 1].to(torch.float32), V)
         prev = sample_topk(logits, depth_topk, depth_temperature, noise[:, i])
         samples.append(prev)
     return torch.stack(samples, dim=1)
@@ -364,8 +391,9 @@ def lm_generate_frame(params: Params, cfg: LLMConfig, state: LMState,
             h_out, 1, idx.expand(-1, 1, h_out.shape[-1]))[:, 0]
         last_tok = torch.gather(
             tokens, 1, idx.expand(-1, 1, tokens.shape[-1]))[:, 0]
-    c0_logits = (last_h.to(torch.float32)
-                 @ params["codebook0_head"].to(torch.float32))
+    c0_logits = _audio_logits(last_h.to(torch.float32),
+                              params["codebook0_head"].to(torch.float32),
+                              cfg.audio_vocab_size)
     c0 = sample_topk(c0_logits, topk, temperature, noise[:, 0])
     # The speculative init: the window's last frame's depth chain. RVQ codes
     # are correlated in time, so it is a free draft; it changes only the

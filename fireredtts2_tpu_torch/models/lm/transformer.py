@@ -17,6 +17,14 @@ Routing inside a cached layer:
 Weight-only quantisation (``quantize_transformer_int8`` / ``_int4``) and
 the matmul route follow the JAX package; both live in ``ops.quant``
 (int8: a plain dequant matmul; int4: kernel E).
+
+Tensor parallelism (a serving mesh with tp > 1, ``parallel.mesh``): the
+layer weights are the rank's Megatron shards. wq/wk/wv, w_gate and w_up
+give the rank's columns; the fresh K/V rows (B, S, Hkv*Dh) are gathered
+whole over tp before RoPE and the slab write, since the slab is
+tp-replicated (the rows, never the slab, cross ranks); the rank attends
+with its own query heads over its kv-head window of the slab (kernel A's
+tp route at S = 1); wo and w_down end in a tp sum (``parallel.layers``).
 """
 
 from __future__ import annotations
@@ -28,10 +36,16 @@ import torch.nn.functional as F
 
 from fireredtts2_tpu_torch.config import TransformerConfig
 from fireredtts2_tpu_torch.ops.attention import gqa_attention
-from fireredtts2_tpu_torch.ops.flash_decode import flash_decode_gqa1
+from fireredtts2_tpu_torch.ops.flash_decode import (
+    flash_decode_gqa1, flash_decode_gqa1_shard,
+)
 from fireredtts2_tpu_torch.ops.quant import quantize_tree, quantized_matmul
 from fireredtts2_tpu_torch.ops.remat import remat_layer
 from fireredtts2_tpu_torch.ops.rope import apply_rope, rope_angles
+from fireredtts2_tpu_torch.parallel.layers import (
+    gather_cols, head_window, row_matmul,
+)
+from fireredtts2_tpu_torch.parallel.mesh import tp_mesh
 
 Params = dict[str, Any]
 KVCache = dict[str, torch.Tensor]
@@ -120,26 +134,43 @@ def slab_write_rows(cache_pos: torch.Tensor, S: int, T: int
 
 def _qkv(h: torch.Tensor, lp: Params, cfg: TransformerConfig,
          cos: torch.Tensor, sin: torch.Tensor):
-    """The layer's pre-norm and roped q, k and v, (B, S, H, Dh)."""
+    """The layer's pre-norm and roped q, k and v, (B, S, H, Dh): q with
+    the rank's query heads (all of them without tp, or where its columns
+    are not whole heads), k and v with every kv head."""
     B, S, _ = h.shape
     Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-    q = (quantized_matmul(x, lp, "wq") + lp["bq"]).reshape(B, S, Hq, Dh)
-    k = (quantized_matmul(x, lp, "wk") + lp["bk"]).reshape(B, S, Hkv, Dh)
-    v = (quantized_matmul(x, lp, "wv") + lp["bv"]).reshape(B, S, Hkv, Dh)
+    q = quantized_matmul(x, lp, "wq") + lp["bq"]
+    k = gather_cols(quantized_matmul(x, lp, "wk") + lp["bk"], Hkv * Dh)
+    v = gather_cols(quantized_matmul(x, lp, "wv") + lp["bv"], Hkv * Dh)
+    if q.shape[-1] % Dh or head_window(q.shape[-1] // Dh, Hq, Hkv) is None:
+        q = gather_cols(q, Hq * Dh)
+    q = q.reshape(B, S, -1, Dh)
+    k = k.reshape(B, S, Hkv, Dh)
+    v = v.reshape(B, S, Hkv, Dh)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _attend_window(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   mask, cfg: TransformerConfig) -> torch.Tensor:
+    """Dense attention of q's heads over the kv heads they read: the
+    rank's window of k/v (B, T, Hkv, Dh) under tp, all of them without."""
+    kv0, hkv = head_window(q.shape[2], cfg.num_heads, cfg.num_kv_heads)
+    return gqa_attention(q, k[:, :, kv0:kv0 + hkv], v[:, :, kv0:kv0 + hkv],
+                         mask)
 
 
 def _out_mlp(h: torch.Tensor, attn: torch.Tensor, lp: Params,
              cfg: TransformerConfig) -> torch.Tensor:
     """The attention output projection and the SwiGLU MLP, residuals
-    included."""
+    included; under tp wo and w_down are row-parallel (a tp sum each)."""
     B, S, _ = h.shape
-    h = h + quantized_matmul(attn.reshape(B, S, -1), lp, "wo").to(h.dtype)
+    Hq, Dh, I = cfg.num_heads, cfg.head_dim, cfg.intermediate_dim
+    h = h + row_matmul(attn.reshape(B, S, -1), lp, "wo", Hq * Dh).to(h.dtype)
     x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
     gate = F.silu(quantized_matmul(x, lp, "w_gate").to(torch.float32)).to(h.dtype)
     up = quantized_matmul(x, lp, "w_up")
-    return h + quantized_matmul(gate * up, lp, "w_down").to(h.dtype)
+    return h + row_matmul(gate * up, lp, "w_down", I).to(h.dtype)
 
 
 def _layer(h: torch.Tensor, lp: Params, cfg: TransformerConfig,
@@ -165,15 +196,20 @@ def _layer(h: torch.Tensor, lp: Params, cfg: TransformerConfig,
         k4[layer, :, cache_pos:cache_pos + S] = kw
         v4[layer, :, cache_pos:cache_pos + S] = vw
 
+    m = tp_mesh()
     if bounded is not None and S == 1:
         q_start, q_end, live_lo, live_hi = bounded
-        attn = flash_decode_gqa1(q[:, 0], k4, v4, layer, q_start, q_end,
-                                 live_lo, live_hi)[:, None]
+        if m is not None and q.shape[2] < cfg.num_heads:
+            attn = flash_decode_gqa1_shard(m, q[:, 0], k4, v4, layer, q_start,
+                                           q_end, live_lo, live_hi)[:, None]
+        else:
+            attn = flash_decode_gqa1(q[:, 0], k4, v4, layer, q_start, q_end,
+                                     live_lo, live_hi)[:, None]
     else:
         T = k4.shape[2]
-        attn = gqa_attention(
+        attn = _attend_window(
             q, k4[layer].reshape(B, T, Hkv, Dh).to(h.dtype),
-            v4[layer].reshape(B, T, Hkv, Dh).to(h.dtype), mask)
+            v4[layer].reshape(B, T, Hkv, Dh).to(h.dtype), mask, cfg)
     return _out_mlp(h, attn, lp, cfg)
 
 
@@ -183,7 +219,7 @@ def _layer_stateless(h: torch.Tensor, lp: Params, cfg: TransformerConfig,
     """One layer without a cache: attention over this call's own K/V
     (plain ``gqa_attention``, as JAX runs it as plain XLA)."""
     q, k, v = _qkv(h, lp, cfg, cos, sin)
-    return _out_mlp(h, gqa_attention(q, k, v, mask), lp, cfg)
+    return _out_mlp(h, _attend_window(q, k, v, mask, cfg), lp, cfg)
 
 
 def transformer_forward(params: Params, cfg: TransformerConfig,

@@ -13,10 +13,13 @@ wrapper that
 Kernels:
 - A ``flash_decode_gqa1``: S=1 GQA decode over one layer of the LM's
   (L, B, T, Hkv*Dh) slab (read-only; the LM's slab write stays a plain
-  index copy in models/lm/transformer.py);
+  index copy in models/lm/transformer.py), optionally over a window of its
+  kv heads (``kv_base``, ``hkv``): one tp rank's share of a replicated
+  slab, which ``flash_decode_gqa1_shard`` computes;
 - C ``flash_decode_update_bounded``: writes the vocoder's fresh K/V rows
   into one layer of its (L, B, T, H*Dh) slab in place, then bounded
-  attention with per-query bounds;
+  attention with per-query bounds; ``flash_decode_update_bounded_shard``
+  is its tp route, the same call on a rank's own heads and slab columns;
 - D ``flash_decode_bounded``: kernel C's read-only mode over a
   (B, T, H*Dh) slab with optional lower bounds;
 - F ``pallas_decode_attention``: S=1 GQA decode over unmerged
@@ -109,10 +112,17 @@ def _merge_counters(device, n: int, kernel: str) -> torch.Tensor:
 
 
 def flash_decode_gqa1_plain(q, k4, v4, layer: int, q_start, q_end,
-                            live_lo, live_hi) -> torch.Tensor:
-    """Kernel A's plain version: gqa_attention_bounded on the layer's slab."""
+                            live_lo, live_hi, kv_base: int = 0,
+                            hkv: int | None = None) -> torch.Tensor:
+    """Kernel A's plain version: gqa_attention_bounded on the layer's slab,
+    over kv heads [kv_base, kv_base + hkv) (default: all of them)."""
+    k, v = k4[layer], v4[layer]
+    if hkv is not None:
+        Dh = q.shape[-1]
+        k = k[..., kv_base * Dh:(kv_base + hkv) * Dh]
+        v = v[..., kv_base * Dh:(kv_base + hkv) * Dh]
     attn = gqa_attention_bounded(
-        q[:, None], k4[layer].to(q.dtype), v4[layer].to(q.dtype),
+        q[:, None], k.to(q.dtype), v.to(q.dtype),
         q_end[:, None], live_hi, q_start=q_start[:, None], live_lo=live_lo)
     return attn[:, 0]
 
@@ -125,7 +135,7 @@ def _gqa1_lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     if lib.frt_flash_decode_gqa1.argtypes is None:
         lib.frt_gqa1_plan.argtypes = [_I] * 5 + [_P] * 4
         lib.frt_gqa1_plan.restype = _I
-        lib.frt_flash_decode_gqa1.argtypes = [_P] * 10 + [_I] * 9 + [_F, _P]
+        lib.frt_flash_decode_gqa1.argtypes = [_P] * 10 + [_I] * 11 + [_F, _P]
         lib.frt_flash_decode_gqa1.restype = _I
     return lib
 
@@ -150,15 +160,17 @@ def gqa1_plan(B: int, Hkv: int, G: int, T: int, Dh: int, device_index: int = 0,
 
 
 def _gqa1_launch(q, k3, v3, q_start, q_end, live_lo, live_hi,
-                 defines: tuple[str, ...] = ()) -> torch.Tensor:
-    """Shared launch of csrc/flash_decode_gqa1.cu on (B, T, Hkv*Dh) views
-    of one layer's slabs: one CUDA launch, its fp32 scratch in one
-    torch.empty, its merge counts in a per-device buffer the kernel leaves
-    zero. Nothing is copied from or to the host."""
+                 defines: tuple[str, ...] = (), kv_base: int = 0,
+                 hkv: int | None = None) -> torch.Tensor:
+    """Shared launch of csrc/flash_decode_gqa1.cu on (B, T, W) views of
+    one layer's slabs, over kv heads [kv_base, kv_base + hkv) (default: all
+    W / Dh): one CUDA launch, its fp32 scratch in one torch.empty, its merge
+    counts in a per-device buffer the kernel leaves zero. Nothing is copied
+    from or to the host."""
     dev = q.device
     B, Hq, Dh = q.shape
     _, T, W = k3.shape
-    Hkv = W // Dh
+    Hkv = W // Dh if hkv is None else hkv
     G = Hq // Hkv
     C = pick_chunk(T)
     _require(C is not None, f"slab length {T} has no 16-aligned chunking")
@@ -173,7 +185,7 @@ def _gqa1_launch(q, k3, v3, q_start, q_end, live_lo, live_hi,
         q.data_ptr(), k3.data_ptr(), v3.data_ptr(),
         q_start.data_ptr(), q_end.data_ptr(), lo.data_ptr(), hi.data_ptr(),
         part.data_ptr(), _merge_counters(dev, B * Hkv, "gqa1").data_ptr(),
-        out.data_ptr(), B, Hkv, G, Dh, T, C, split, ns, smem,
+        out.data_ptr(), B, Hkv, G, Dh, T, C, W, kv_base, split, ns, smem,
         1.0 / math.sqrt(Dh), _stream(dev))
     if err:
         raise RuntimeError(f"flash_decode_gqa1 launch failed: CUDA error {err}")
@@ -182,7 +194,8 @@ def _gqa1_launch(q, k3, v3, q_start, q_end, live_lo, live_hi,
 
 def flash_decode_gqa1(q: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor,
                       layer: int, q_start: torch.Tensor, q_end: torch.Tensor,
-                      live_lo, live_hi) -> torch.Tensor:
+                      live_lo, live_hi, kv_base: int = 0,
+                      hkv: int | None = None) -> torch.Tensor:
     """Single-token GQA decode attention over layer `layer` of merged
     (L, B, T, Hkv*Dh) slabs (fresh rows already written).
 
@@ -192,12 +205,16 @@ def flash_decode_gqa1(q: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor,
         q_start / q_end: (B,) int per-stream window [start, end).
         live_lo / live_hi: int or 0-d tensor, the batch's min start and max
             end; they fix the chunk range the kernel may read (clamped to T).
+        kv_base / hkv: compute only kv heads [kv_base, kv_base + hkv) of
+            the slab, q then holding just their hkv * G query heads (one tp
+            rank's share; pallas_flash.py:flash_decode_gqa1's window).
+            Defaults: the whole slab width.
     Returns:
         (B, Hq, Dh) in q's dtype.
     """
     if q.device.type == "cpu":
         return flash_decode_gqa1_plain(q, k4, v4, layer, q_start, q_end,
-                                       live_lo, live_hi)
+                                       live_lo, live_hi, kv_base, hkv)
     dev = q.device
     _require(q.is_cuda, f"flash_decode_gqa1: unsupported device {dev}")
     _check_slab("q", q, dev, 3)
@@ -208,15 +225,77 @@ def flash_decode_gqa1(q: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor,
     _require(v4.shape == k4.shape, f"v4 {tuple(v4.shape)} != k4 {tuple(k4.shape)}")
     _require(Bk == B, f"slab batch {Bk} != q batch {B}")
     _require(Dh in (64, 128) and W % Dh == 0, f"head dim {Dh}, slab width {W}")
-    Hkv = W // Dh
+    Hkv = W // Dh if hkv is None else hkv
+    _require(Hkv >= 1 and 0 <= kv_base and (kv_base + Hkv) * Dh <= W,
+             f"kv-head window [{kv_base}, {kv_base + Hkv}) outside the slab's "
+             f"{W // Dh} heads")
     _require(Hq % Hkv == 0, f"Hq {Hq} not a multiple of Hkv {Hkv}")
     _require(0 <= layer < L, f"layer {layer} outside [0, {L})")
-    out = _gqa1_launch(q, k4[layer], v4[layer], q_start, q_end, live_lo, live_hi)
+    out = _gqa1_launch(q, k4[layer], v4[layer], q_start, q_end, live_lo,
+                       live_hi, kv_base=kv_base, hkv=Hkv)
     flash_decode_gqa1.launches += 1
     return out
 
 
 flash_decode_gqa1.launches = 0
+
+
+def gqa1_window(Hq: int, Hkv: int, ntp: int, t: int) -> tuple[int, int]:
+    """The kv-head window (kv_base, hkv) of tp rank t of ntp over a slab of
+    Hkv kv heads whose Hq query heads split evenly over the ranks
+    (pallas_flash.py:flash_decode_gqa1_shard: kv0 = (t * hql) // g_total,
+    hkv_local = max(1, Hkv // ntp))."""
+    hql = Hq // ntp
+    return (t * hql) // (Hq // Hkv), max(1, Hkv // ntp)
+
+
+def flash_lm_tp_ok(mesh, Hq: int, Hkv: int, Dh: int, T: int,
+                   cuda: bool = True) -> bool:
+    """Whether kernel A's tp route can split a backbone of Hq query and Hkv
+    kv heads of Dh dims over `mesh`'s tp ranks (pallas_flash.py:
+    flash_lm_tp_ok): query heads split evenly, each rank covering a whole
+    number of kv heads or an exact part of one group. On the card the
+    kernel also needs Dh 64 or 128 and a 16-aligned chunking of the slab
+    length T. Streams split over dp by the engine, whole rows a rank, so
+    the batch never disqualifies."""
+    ntp = int(mesh.shape.get("tp", 1))
+    if Hq % Hkv or Hq % ntp:
+        return False
+    if ntp <= Hkv and Hkv % ntp:
+        return False
+    hql = Hq // ntp
+    if hql % max(1, Hkv // ntp):
+        return False
+    if ntp > Hkv and (Hq // Hkv) % hql:
+        return False
+    if cuda and (Dh not in (64, 128) or pick_chunk(T) is None
+                 or hql // max(1, Hkv // ntp) > 8):
+        return False
+    return True
+
+
+def flash_decode_gqa1_shard(mesh, q: torch.Tensor, k4: torch.Tensor,
+                            v4: torch.Tensor, layer: int, q_start, q_end,
+                            live_lo, live_hi) -> torch.Tensor:
+    """Kernel A on one tp rank (pallas_flash.py:flash_decode_gqa1_shard).
+
+    q holds this rank's Hq/tp query heads (the column-parallel wq's
+    output); k4/v4 are the tp-replicated slab, holding every kv head. The
+    call reads only the rank's kv-head window of the slab's columns, and its
+    output stays head-split for the row-parallel wo: no collective. A dp-only
+    mesh (tp = 1) takes the whole slab."""
+    ntp = int(mesh.shape.get("tp", 1))
+    Dh = q.shape[-1]
+    Hkv = k4.shape[-1] // Dh
+    kv0, hkv = gqa1_window(q.shape[1] * ntp, Hkv, ntp, mesh.tp_rank)
+    out = flash_decode_gqa1(q, k4, v4, layer, q_start, q_end, live_lo,
+                            live_hi, kv_base=kv0, hkv=hkv)
+    if q.is_cuda:
+        flash_decode_gqa1_shard.launches += 1
+    return out
+
+
+flash_decode_gqa1_shard.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -373,6 +452,44 @@ def flash_decode_update_bounded(q: torch.Tensor, new_k: torch.Tensor,
 flash_decode_update_bounded.launches = 0
 
 
+def flash_voc_tp_ok(mesh, H: int, Dh: int, S: int, T: int,
+                    cuda: bool = True) -> bool:
+    """Whether kernel C's tp route can split a vocoder of H heads of Dh
+    dims over `mesh`'s tp ranks (pallas_flash.py:flash_voc_tp_ok): whole
+    heads a rank, 8-aligned query blocks and a 16-aligned chunking of the
+    slab length T; on the card the kernel takes Dh = 64."""
+    ntp = int(mesh.shape.get("tp", 1))
+    if H % ntp or S % 8 or pick_chunk(T) is None:
+        return False
+    return not cuda or Dh == 64
+
+
+def flash_decode_update_bounded_shard(mesh, q: torch.Tensor,
+                                      new_k: torch.Tensor, new_v: torch.Tensor,
+                                      k4: torch.Tensor, v4: torch.Tensor,
+                                      layer: int, pos: torch.Tensor,
+                                      q_end: torch.Tensor,
+                                      live_hi) -> torch.Tensor:
+    """Kernel C on one tp rank (pallas_flash.py:
+    flash_decode_update_bounded_shard). The vocoder is MHA and its slab is
+    column-split over tp (parallel/mesh.py:vocoder_state_pspecs), so q
+    (B, S, H/tp, Dh), the fresh rows (B, S, H/tp * Dh) and the slab
+    (L, B, T, H/tp * Dh) are all this rank's heads: the rank's call writes
+    only its own columns and attends over them, and its head-split output
+    feeds the row-parallel wo. No collective, and no kernel change."""
+    _require(k4.shape[-1] == q.shape[2] * q.shape[3],
+             f"slab width {k4.shape[-1]} is not the rank's {q.shape[2]} heads "
+             f"x {q.shape[3]}")
+    out = flash_decode_update_bounded(q, new_k, new_v, k4, v4, layer, pos,
+                                      q_end, live_hi)
+    if q.is_cuda:
+        flash_decode_update_bounded_shard.launches += 1
+    return out
+
+
+flash_decode_update_bounded_shard.launches = 0
+
+
 def flash_decode_bounded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          q_end: torch.Tensor, live_hi,
                          q_start: torch.Tensor | None = None,
@@ -467,8 +584,11 @@ def pallas_decode_attention(q: torch.Tensor, k_slab: torch.Tensor,
 
 pallas_decode_attention.launches = 0
 
+# the tp routes count their launches too (each also counts in the kernel it
+# runs: kernel A or C)
 KERNELS = (flash_decode_gqa1, flash_decode_update_bounded, flash_decode_bounded,
-           pallas_decode_attention)
+           pallas_decode_attention, flash_decode_gqa1_shard,
+           flash_decode_update_bounded_shard)
 
 
 def reset_launch_counts() -> None:

@@ -82,17 +82,22 @@ def quantize_tree(params: Params, keys: tuple[str, ...], bits: int = 8,
     return out
 
 
-def quantized_matmul(x: torch.Tensor, lp: Params, name: str) -> torch.Tensor:
+def quantized_matmul(x: torch.Tensor, lp: Params, name: str,
+                     reduce=None) -> torch.Tensor:
     """x @ lp[name], with transparent weight-only int8/int4 (see the
-    module docstring for the routes)."""
+    module docstring for the routes). reduce: the tp sum of a row-parallel
+    weight's partial products (``parallel.layers.row_matmul``), applied to
+    the product before an int8 scale multiplies it, as the scale of a
+    row-parallel matrix is per output column and replicated."""
     w = lp[name]
+    reduce = reduce or (lambda y: y)
     if name + "_scale4" in lp:
-        return int4_matmul(x, w, lp[name + "_scale4"], lp.get(name + "_t4"),
-                           lp.get(name + "_s4t"))
+        return reduce(int4_matmul(x, w, lp[name + "_scale4"],
+                                  lp.get(name + "_t4"), lp.get(name + "_s4t")))
     if w.dtype == torch.int8:
-        y = pmatmul(x, w.to(x.dtype))
+        y = reduce(pmatmul(x, w.to(x.dtype)))
         return y * lp[name + "_scale"][0].to(y.dtype)
-    return promoting_matmul(x, w)
+    return reduce(promoting_matmul(x, w))
 
 
 def promoting_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

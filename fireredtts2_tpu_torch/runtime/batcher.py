@@ -30,6 +30,22 @@ The port's own points:
   every live and pending handle as its ``error``; nothing falls back.
 
 Clients consume per-stream chunk queues (float32 at 24 kHz).
+
+On a meshed engine (``engine.mesh``, ``parallel.mesh``) every rank builds
+the pool and runs its worker loop in lockstep, as JAX's one program steps
+every slot: the B slots' host bookkeeping lives on every rank, the device
+state holds the rank's dp share of the slots (all of them when dp does not
+divide B). Rank 0 alone takes requests: at the top of each iteration it
+broadcasts the iteration's control (stop, the admissions with their slot
+ids, tokens, seeds and sampling, and the block length K its policy chose)
+to the other ranks, which run the same admission and block on their rows.
+Each block's packed output is gathered whole over dp, so every rank fans
+it out alike; rank 0's handles hold the audio (the others' are sinks).
+On a mesh a pool admits plain requests only: no cached KV prefix, no
+dialogue, and with tp > 1 no voice prompt or clone (encoding and vocoding
+would need the other ranks outside the lockstep), and it does not
+hot-reload. The worker loop runs with the engine's mesh current; while a
+tp > 1 pool runs, the engine refuses device calls from other threads.
 """
 
 from __future__ import annotations
@@ -55,6 +71,7 @@ from fireredtts2_tpu_torch.models.lm.model import (
     slot_kv_prefix,
 )
 from fireredtts2_tpu_torch.models.pipeline import stream_block
+from fireredtts2_tpu_torch.parallel.mesh import broadcast_object, use_mesh
 from fireredtts2_tpu_torch.runtime.policy import (
     AdaptiveBlockPolicy, BlockPolicyConfig,
 )
@@ -135,6 +152,20 @@ class _Pending:
     rebuild: Optional[Callable[[], "_Pending"]] = None
 
 
+class _Sink:
+    """A follower rank's chunk queue: it keeps nothing."""
+
+    def put(self, item, *a, **k) -> None:
+        pass
+
+    put_nowait = put
+
+
+# the fields of a _Pending that a follower rank needs to admit it
+_WIRE = ("tokens", "mask", "valid", "temperature", "topk", "max_frames",
+         "collect_tokens", "real_len")
+
+
 def voc_latent_capacity(ac_cfg, max_frames_cap: int) -> int:
     """Latent rows a pool's vocoder slab holds for a frame cap: 8 latents a
     frame, rounded up to 16, at most the stock slab."""
@@ -175,14 +206,20 @@ class ContinuousBatcher:
                                   stock_frames, self.seq_capacity - 1)
         self._ncb = llm_cfg.audio_num_codebooks
         self._V = llm_cfg.audio_vocab_size
+        # a meshed engine: this rank's device rows [r0, r1) of the B slots
+        self.mesh = getattr(engine, "mesh", None)
+        self._tp_split = self.mesh is not None and self.mesh.tp > 1
+        self._r0, self._r1 = (engine._rows(self.B) if self.mesh is not None
+                              else (0, self.B))
+        self._Bl = self._r1 - self._r0
         with torch.inference_mode():
-            self.lm_state = engine._new_lm_state(self.B,
+            self.lm_state = engine._new_lm_state(self._Bl,
                                                  capacity=self.seq_capacity)
             self.vo_state = engine._new_vstate(
-                self.B, latents=voc_latent_capacity(acfg, self.max_frames_cap))
-            self.frames = torch.zeros((self.B, self._ncb), dtype=torch.int32,
+                self._Bl, latents=voc_latent_capacity(acfg, self.max_frames_cap))
+            self.frames = torch.zeros((self._Bl, self._ncb), dtype=torch.int32,
                                       device=self.device)
-            self.emitted = torch.zeros((self.B,), dtype=torch.int32,
+            self.emitted = torch.zeros((self._Bl,), dtype=torch.int32,
                                        device=self.device)
             self._ones = torch.ones((self._ncb, self._V), dtype=torch.float32,
                                     device=self.device)
@@ -230,7 +267,19 @@ class ContinuousBatcher:
     # ------------------------------------------------------------- API
 
     def start(self) -> None:
+        if self._tp_split:
+            # the engine's device calls from any other thread would run
+            # collectives the other ranks never join: it refuses them
+            self.engine._lockstep = self._worker
         self._worker.start()
+
+    def follow(self) -> None:
+        """A follower rank of a meshed pool: run the worker loop until rank
+        0's pool stops."""
+        self.start()
+        self._worker.join()
+        if self._dead is not None:
+            raise self._dead
 
     def wait_ready(self, timeout: Optional[float] = None) -> bool:
         """Block until the worker's warm-up is done (True) or timeout
@@ -263,8 +312,18 @@ class ContinuousBatcher:
         return req.handle
 
     def _upload_sampling(self) -> None:
-        self._temps_dev = host_to_device(self.temps[:, None].copy(), self.device)
-        self._topks_dev = host_to_device(self.topks.copy(), self.device)
+        r0, r1 = self._r0, self._r1
+        self._temps_dev = host_to_device(self.temps[r0:r1, None].copy(),
+                                         self.device)
+        self._topks_dev = host_to_device(self.topks[r0:r1].copy(), self.device)
+
+    def _local(self, ids) -> np.ndarray:
+        """Global slot ids -> this rank's device rows; ids outside its rows
+        (and the padding id B) -> its padding row Bl, which resets and
+        prefills drop."""
+        ids = np.asarray(ids, np.int64)
+        inside = (ids >= self._r0) & (ids < self._r1)
+        return np.where(inside, ids - self._r0, self._Bl)
 
     def _block(self, K: int, noise: torch.Tensor):
         e = self.engine
@@ -287,16 +346,16 @@ class ContinuousBatcher:
         for k in getattr(pcfg, "ladder", (self.block_frames,)):
             if k * 80.0 > cadence:
                 continue
-            noise = self._ones.expand(k, self.B, self._ncb, self._V)
+            noise = self._ones.expand(k, self._Bl, self._ncb, self._V)
             (self.lm_state, self.vo_state, self.frames, self.emitted,
              packed) = self._block(k, noise)
             packed.cpu()
         S0 = min(self.cfg.prefill_buckets)
         C = self.cfg.llm.num_columns
         e = self.engine
-        for Np in (1, self.B):
+        for Np in (1, self._Bl):
             self.lm_state, _ = prefill_into_slots(
-                e.lm_params, self.cfg.llm, self.lm_state, [self.B] * Np,
+                e.lm_params, self.cfg.llm, self.lm_state, [self._Bl] * Np,
                 *self._dev(np.zeros((Np, S0, C), np.int32),
                            np.zeros((Np, S0, C), bool),
                            np.zeros((Np, S0), bool)),
@@ -320,7 +379,7 @@ class ContinuousBatcher:
                                  [self.default_topk]),
             self.cfg.depth_topk, self.cfg.depth_temperature)
         slot_kv_prefix(self.lm_state, 0, 128)
-        rs = np.full((self.B,), self.B, np.int64)
+        rs = np.full((self._Bl,), self._Bl, np.int64)
         self.lm_state = reset_lm_slots(self.lm_state, rs)
         self.vo_state = reset_vocoder_slots(self.vo_state, rs)
         self.frames.cpu()
@@ -340,7 +399,10 @@ class ContinuousBatcher:
 
         Raises TimeoutError, and goes on serving the old weights, when the
         live streams do not finish within timeout_s. ``last_reload`` holds
-        the seconds of the last swap's prepare, drain and apply."""
+        the seconds of the last swap's prepare, drain and apply. Not on a
+        meshed engine."""
+        if self.mesh is not None:
+            raise NotImplementedError("hot reload on a mesh is not ported")
         with self._reload_lock:
             t0 = time.perf_counter()
             prepared = self.engine.prepare_checkpoint(pretrained_dir)
@@ -380,6 +442,9 @@ class ContinuousBatcher:
             raise RuntimeError("batcher stopped")
 
     def _new_handle(self, utt_seed: Optional[int] = None) -> StreamHandle:
+        if self.mesh is not None and not self.mesh.is_leader:
+            raise RuntimeError("a follower rank of a meshed pool takes no "
+                               "requests; submit to rank 0")
         return StreamHandle(request_id=uuid.uuid4().hex,
                             seed=(self.engine._next_seed() if utt_seed is None
                                   else utt_seed))
@@ -409,6 +474,15 @@ class ContinuousBatcher:
             list(context), text, speaker, temp, k, max_audio_length_ms,
             utt_seed=utt_seed))
 
+    def _refuse_on_tp(self, what: str) -> None:
+        """On a tp > 1 pool: encoding prompt audio and vocoding a clone run
+        the engine outside the lockstep, which the other ranks never
+        join."""
+        if self._tp_split:
+            raise NotImplementedError(
+                f"{what} on a tensor-parallel pool are not ported yet "
+                f"(ROADMAP.md queue 1, item 13)")
+
     def _text_request(self, context: list, text: str, speaker: str,
                       temp: float, k: int, max_audio_length_ms: float,
                       utt_seed: Optional[int] = None,
@@ -419,8 +493,10 @@ class ContinuousBatcher:
         handle."""
         gen = self._gen          # read first: what follows is this or newer
         req = None
-        pre = (self._context_prefix(context) if context and use_prefix
-               else None)
+        if context:
+            self._refuse_on_tp("voice prompts")
+        pre = (self._context_prefix(context)
+               if context and use_prefix and self.mesh is None else None)
         if pre is not None:
             pk, pv, plen, P = pre
             win, wmask = self.engine._tokenize_text_segment(text, speaker)
@@ -531,6 +607,7 @@ class ContinuousBatcher:
         from fireredtts2_tpu_torch.engine.engine import Segment
         from fireredtts2_tpu_torch.utils.text import clean_text, split_text
 
+        self._refuse_on_tp("voice clones")
         e = self.engine
         prompt_text = clean_text(prompt_text)
         text = clean_text(text)
@@ -584,6 +661,8 @@ class ContinuousBatcher:
         dialogue's carried KV prefix; at its end the slot hands out the
         grown prefix (keep_kv). Utterance 0 rides a zero prefix (plen 0),
         so every turn has the same contiguous-position layout."""
+        if self.mesh is not None:
+            raise NotImplementedError("dialogue on a meshed pool is not ported")
         bucket, tokens, tmask, valid = self.engine._right_pad(win, wmask)
         if prefix is None:
             L, _, _, W = self.lm_state.cache_k.shape
@@ -653,6 +732,7 @@ class ContinuousBatcher:
             SPEAKER_TAGS, process_text_list,
         )
 
+        self._refuse_on_tp("dialogue")
         e = self.engine
         text_list = process_text_list(list(text_list))
         segs = list(prompt_segments) if prompt_segments else []
@@ -764,32 +844,43 @@ class ContinuousBatcher:
             reqs.append(req)
         return reqs
 
-    def _admit_locked(self) -> None:
-        """Admit the pending requests that fit in free slots: one reset per
-        state, one burst prefill (padded to 1 or B rows; dummy rows go to
-        slot B and are dropped) and one prefill per prefix admission."""
+    def _choose(self) -> list[tuple["_Pending", int]]:
+        """The pending requests that fit in free slots, each with its slot."""
         free = [i for i, s in enumerate(self.slots) if not s.active]
         reqs = self._take_pending(len(free))
-        slot_ids = [free.pop() for _ in reqs]
-        if not reqs:
+        return [(r, free.pop()) for r in reqs]
+
+    def _admit_locked(self) -> None:
+        self._admit_pairs(self._choose())
+
+    def _admit_pairs(self, pairs: list[tuple["_Pending", int]]) -> None:
+        """Admit requests into their slots: one reset per state, one burst
+        prefill (padded to 1 or Bl rows; dummy rows go to row Bl and are
+        dropped) and one prefill per prefix admission. The device work
+        covers this rank's rows; the slots' bookkeeping all of them."""
+        if not pairs:
             return
+        reqs = [r for r, _ in pairs]
+        slot_ids = [b for _, b in pairs]
         t_admit = time.perf_counter()
         e, llm_cfg = self.engine, self.cfg.llm
         depth = (self.cfg.depth_topk, self.cfg.depth_temperature)
 
-        rs = np.full((self.B,), self.B, np.int64)
-        rs[:len(slot_ids)] = slot_ids
+        rows = self._local(slot_ids)
+        rs = np.full((max(self._Bl, len(rows)),), self._Bl, np.int64)
+        rs[:len(rows)] = rows
         self.lm_state = reset_lm_slots(self.lm_state, rs)
         self.vo_state = reset_vocoder_slots(self.vo_state, rs)
         t_reset = time.perf_counter()
 
-        plain = [(r, b) for r, b in zip(reqs, slot_ids) if r.prefix is None]
+        plain = [(r, int(b)) for (r, _), b in zip(pairs, rows)
+                 if r.prefix is None and b < self._Bl]
         prefixed = [(r, b) for r, b in zip(reqs, slot_ids)
                     if r.prefix is not None]
         t_pack = t_disp = t_reset
         if plain:
             N = len(plain)
-            Np = 1 if N == 1 else self.B
+            Np = 1 if N == 1 else self._Bl
             S = max(r.tokens.shape[1] for r, _ in plain)
             C = llm_cfg.num_columns
             tokens = np.zeros((Np, S, C), np.int32)
@@ -797,7 +888,7 @@ class ContinuousBatcher:
             valid = np.zeros((Np, S), bool)
             temps = np.full((Np,), self.cfg.default_temperature, np.float32)
             topks = np.full((Np,), self.default_topk, np.int32)
-            bs = np.full((Np,), self.B, np.int64)
+            bs = np.full((Np,), self._Bl, np.int64)
             noise = [self._ones] * Np
             for i, (req, slot_id) in enumerate(plain):
                 s = req.tokens.shape[1]
@@ -824,7 +915,7 @@ class ContinuousBatcher:
                 *self._sampling_rows([req.temperature], [req.topk]), *depth)
             self.frames[slot_id] = frame[0]
         self.emitted = self.emitted.index_fill(
-            0, host_to_device(np.asarray(slot_ids, np.int64), self.device), 0)
+            0, host_to_device(rows[rows < self._Bl], self.device), 0)
         now = time.perf_counter()
         self.timeline.append({
             "t": round(now - self._tl_t0, 4), "ev": "admit", "n": len(reqs),
@@ -869,14 +960,14 @@ class ContinuousBatcher:
         return max(room, 1)
 
     def _block_noise(self, K: int) -> torch.Tensor:
-        """(K, B, ncb, V): each live slot's next K frames' noise, ones for
-        idle slots."""
+        """(K, Bl, ncb, V): each live slot's next K frames' noise, ones for
+        idle slots, over this rank's rows."""
         rows = []
         for t in range(K):
-            for s in self.slots:
+            for s in self.slots[self._r0:self._r1]:
                 rows.append(self._noise(s.handle.seed, s.noise_t + t)
                             if s.active else self._ones)
-        return torch.stack(rows).reshape(K, self.B, self._ncb, self._V)
+        return torch.stack(rows).reshape(K, self._Bl, self._ncb, self._V)
 
     def _finish(self, b: int) -> None:
         slot = self.slots[b]
@@ -912,8 +1003,11 @@ class ContinuousBatcher:
                 torch.cuda.set_device(self._device_index)
                 # the stream every kernel of the loop launches on
                 self.cuda_stream = torch.cuda.current_stream()
-            with torch.inference_mode():
-                self._loop_inner()
+            with torch.inference_mode(), use_mesh(self.mesh):
+                if self.mesh is None:
+                    self._loop_inner()
+                else:
+                    self._loop_mesh()
         except Exception as e:  # fail every live and pending stream loudly
             traceback.print_exc()
             self._dead = e
@@ -924,13 +1018,26 @@ class ContinuousBatcher:
                     s.handle.chunks.put(None)
                     with self._lock:
                         s.active = False
-            while not self.pending.empty():
-                try:
-                    req = self.pending.get_nowait()
-                except queue.Empty:
-                    break
-                req.handle.error = e
-                req.handle.chunks.put(None)
+            self._end_pending(e)
+        else:
+            # requests queued as the pool stopped: their consumers must
+            # not wait forever (a consumer thread blocked in a handle
+            # would also hold up the interpreter's exit)
+            self._end_pending(RuntimeError("batcher stopped"))
+        finally:
+            if getattr(self.engine, "_lockstep", None) \
+                    is threading.current_thread():
+                self.engine._lockstep = None
+
+    def _end_pending(self, e: Exception) -> None:
+        """End every queued request's handle with error e."""
+        while not self.pending.empty():
+            try:
+                req = self.pending.get_nowait()
+            except queue.Empty:
+                break
+            req.handle.error = e
+            req.handle.chunks.put(None)
 
     def _to_host(self, packed: torch.Tensor):
         """Start the packed block's copy to the host: pinned memory and a
@@ -993,6 +1100,85 @@ class ContinuousBatcher:
             if s.active:
                 self._finish(b)
 
+    def _control(self) -> dict:
+        """Rank 0: this iteration's control, broadcast to every rank: stop;
+        the slots its fan-out dropped; the admissions (slot, seed and the
+        request's _WIRE fields); the block length K (0: no block). The other
+        ranks receive it and make follower requests of the admissions."""
+        if self.mesh.is_leader:
+            ctl = {"stop": self._stop.is_set(), "drop": self._dropped,
+                   "admit": [], "K": 0}
+            self._dropped = []
+            pairs = []
+            if not ctl["stop"]:
+                with self._admit_lock:
+                    if not (self._admit_paused.is_set() or self._held):
+                        pairs = self._choose()
+                ctl["admit"] = [(b, r.handle.seed,
+                                 {f: getattr(r, f) for f in _WIRE})
+                                for r, b in pairs]
+            broadcast_object(ctl, self.mesh)
+            ctl["pairs"] = pairs
+            return ctl
+        ctl = broadcast_object(None, self.mesh)
+        ctl["pairs"] = [
+            (_Pending(handle=StreamHandle(request_id=f"follower-{b}",
+                                          chunks=_Sink(), seed=seed), **f), b)
+            for b, seed, f in ctl["admit"]]
+        return ctl
+
+    def _choose_block(self) -> int:
+        """Rank 0: K for the next block over the active slots (0: none)."""
+        active = [(i, s.handle) for i, s in enumerate(self.slots) if s.active]
+        if not active:
+            return 0
+        fresh = any(h.first_packet_s is None for _, h in active)
+        return min(self.policy.choose(
+            pending=fresh or not self.pending.empty(), active=len(active)),
+            self._vocoder_room(active))
+
+    def _loop_mesh(self) -> None:
+        """The lockstep loop of a meshed pool (every rank): each iteration
+        takes rank 0's control, admits, runs one block on this rank's rows,
+        gathers its packed output whole over dp and fans it out. No double
+        buffering: the gather is a collective, in step on every rank."""
+        try:
+            if self._warmup_blocks_on:
+                self._warmup_ladder()
+        finally:
+            self._ready.set()
+        self._dropped: list = []
+        while True:
+            ctl = self._control()
+            if ctl["stop"]:
+                break
+            for b in ctl["drop"]:
+                if self.slots[b].active:
+                    self._finish(b)
+            self._admit_pairs(ctl["pairs"])
+            if self.mesh.is_leader:
+                ctl["K"] = self._choose_block()
+            K = broadcast_object(ctl["K"], self.mesh)
+            if K:
+                active = [(i, s.handle) for i, s in enumerate(self.slots)
+                          if s.active]
+                t_block = time.perf_counter()
+                noise = self._block_noise(K)
+                (self.lm_state, self.vo_state, self.frames, self.emitted,
+                 packed) = self._block(K, noise)
+                for i, _ in active:
+                    self.slots[i].noise_t += K
+                packed = self.engine._gather_rows(packed, self.B)
+                host, ev = self._to_host(packed)
+                self._host["dispatch_s"] += time.perf_counter() - t_block
+                self._fan_out(host, ev, K, active, t_block)
+            elif self.mesh.is_leader:
+                self._wake.wait(timeout=0.5)
+                self._wake.clear()
+        for b, s in enumerate(self.slots):
+            if s.active:
+                self._finish(b)
+
     def _fan_out(self, host: torch.Tensor, ev, K: int, active: list,
                  t_block: float) -> None:
         """Read one packed block, (B, K*cs + K*ts + K + K*ncb) = [middles |
@@ -1040,6 +1226,8 @@ class ContinuousBatcher:
                         self.chunk_drops += 1
                         slot.frames_done += n
                         self._finish(b)
+                        if self.mesh is not None:   # the others follow
+                            self._dropped.append(b)
                         continue
                 slot.frames_done += n
             if hit_eos or capped:

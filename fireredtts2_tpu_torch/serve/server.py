@@ -1026,7 +1026,8 @@ class HealthHTTPServer:
                     self._json(504, {"error": str(err)})
                     return
                 if err is not None:
-                    self._json(500, {"error": str(err)})
+                    self._json(501 if isinstance(err, NotImplementedError)
+                               else 500, {"error": str(err)})
                     return
                 self._json(200, {"sample_rate": sr_out, "format": "pcm16",
                                  "duration_s": len(audio) / sr_out,
@@ -1168,13 +1169,19 @@ class HealthHTTPServer:
                 if audio.size < 1600:           # >= 0.1 s of 16 kHz audio
                     self._json(400, {"error": "reference audio too short"})
                     return
-                # the prompt is encoded once, here; clones ride its tokens
+                # the prompt is encoded once, here, before anything is
+                # stored; clones ride its tokens
+                try:
+                    tokens = service.engine.encode_prompt_tokens(audio)
+                except NotImplementedError as e:   # a tp > 1 engine
+                    self._json(501, {"error": str(e)})
+                    return
                 p = voices.create_profile(
                     name=name, reference_text=ref_text, audio16k=audio,
                     metadata={k: req[k] for k in
                               ("language", "gender", "age_range",
                                "description") if k in req},
-                    encoder=service.engine.encode_prompt_tokens)
+                    encoder=lambda _audio: tokens)
                 self._json(200, {"profile_id": p.profile_id, "name": p.name,
                                  "quality": p.quality})
 
@@ -1241,7 +1248,14 @@ def serve(engine, ws_port: int = 8765, http_port: int = 8080,
     A CUDA engine is warmed up (``engine.warmup``) and the pool's warm-up
     ladder awaited before the sockets bind, so /health answers only once
     the server is ready. Without ``websockets`` the REST server runs
-    alone (said on stderr)."""
+    alone (said on stderr).
+
+    On a meshed engine this is rank 0's half; every other rank runs
+    :func:`serve_follower` with the same max_streams. Every request then
+    goes through the pool (at least 2 slots), which steps all ranks in
+    lockstep; its stop on the way out stops the followers. At tp > 1 what
+    would run the engine outside the pool (voice creation, clones,
+    dialogue) answers an error (501 on REST) at once."""
     security = None
     if require_auth:
         from fireredtts2_tpu_torch.serve.security import (
@@ -1254,6 +1268,7 @@ def serve(engine, ws_port: int = 8765, http_port: int = 8080,
         if not secret:
             print("serve: auth required; example token:",
                   security.auth.issue("operator"))
+    max_streams = _pool_size(engine, max_streams)
     if engine.device.type == "cuda":
         print(f"serve: engine warm-up {engine.warmup():.1f} s", flush=True)
     server = WebSocketTTSServer(engine, host=host, port=ws_port,
@@ -1282,4 +1297,26 @@ def serve(engine, ws_port: int = 8765, http_port: int = 8080,
               + (f"  ws://{host}:{ws_port}" if has_ws else ""), flush=True)
         await asyncio.Future()  # run forever
 
-    asyncio.run(main())
+    try:
+        asyncio.run(main())
+    finally:
+        if batcher is not None:
+            batcher.stop()
+
+
+def _pool_size(engine, max_streams: int) -> int:
+    """A meshed engine serves through the pool only (its lockstep is what
+    keeps the ranks together): at least 2 slots."""
+    return max(max_streams, 2) if getattr(engine, "mesh", None) else max_streams
+
+
+def serve_follower(engine, max_streams: int = 1) -> None:
+    """A follower rank of meshed serving (rank > 0): the engine's warm-up
+    on the card, then the pool's follower loop (``ContinuousBatcher.
+    follow``) until rank 0's pool stops."""
+    from fireredtts2_tpu_torch.runtime.batcher import ContinuousBatcher
+
+    if engine.device.type == "cuda":
+        engine.warmup()
+    ContinuousBatcher(engine, max_streams=_pool_size(engine, max_streams)
+                      ).follow()

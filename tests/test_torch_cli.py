@@ -13,7 +13,8 @@
   rounds;
 - the entry point's defaults: the card unless --device cpu is given, and
   every flag or subcommand of the JAX CLI without a port exits non-zero
-  naming its ROADMAP item.
+  naming its ROADMAP item; `--tp`/`--dp` run on two ranks under
+  torch.distributed.run.
 """
 
 import os
@@ -179,14 +180,40 @@ def test_cli_serve_answers_over_sockets(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--tp", "2", "qa"], "item 13"),
-    (["--dp", "2", "qa"], "item 13"),
+    (["--tp", "2", "generate", "--text", "[S1]Hi. [S2]Hello."], "item 13"),
+    (["--dp", "2", "generate", "--text", "[S1]Hi. [S2]Hello."], "item 13"),
     (["serve", "--profiler-port", "9999"], "tracing item"),
     (["bench"], "item 1 "),
     (["train", "--zero1"], "item 13"),
     (["train", "--tp", "2"], "item 13"),
+    (["--tp", "2", "serve", "--asr"], "item 13"),
 ])
-def test_cli_unported_flags_exit_nonzero(argv, item):
+def test_cli_unported_flags_exit_nonzero(argv, item, tmp_path):
+    """Flags of the JAX CLI without a port exit non-zero naming their
+    ROADMAP item. Serving's --tp/--dp are ported (item 13's serving half):
+    those cases run generate on two ranks under torch.distributed.run,
+    rank 0 writing the wav; one process alone exits saying how to launch
+    the ranks. serve --asr at tp > 1 (ASR on a mesh) is not."""
+    if "generate" in argv:
+        out = str(tmp_path / "mesh.wav")
+        argv = argv + ["--out", out, "--max-utterance-ms", "800"]
+        with pytest.raises(SystemExit) as e:
+            cli.main(["--device", "cpu"] + argv)
+        assert "torchrun --nproc-per-node 2" in str(e.value.code)
+        p = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run",
+             "--nproc-per-node", "2", "--master-addr", "127.0.0.1",
+             "--master-port", str(free_port()), "-m", "fireredtts2_tpu_torch",
+             "--device", "cpu", *argv], cwd=REPO,
+            env=dict(ENV, PYTHONPATH=REPO), capture_output=True, text=True,
+            timeout=240)
+        assert p.returncode == 0, (p.stdout[-2000:], p.stderr[-2000:])
+        assert p.stdout.count(f"wrote {out}") == 1
+        assert f"dp={1 if argv[0] == '--tp' else 2} " \
+            f"tp={2 if argv[0] == '--tp' else 1}" in p.stderr
+        sr, data = wavfile.read(out)
+        assert sr == 24_000 and len(data) > 0
+        return
     with pytest.raises(SystemExit) as e:
         cli.main(["--device", "cpu"] + argv)
     assert e.value.code not in (0, None)

@@ -82,6 +82,69 @@ def test_kernel_a_matches_plain(cuda, B, Hkv, G, Dh, windows):
                                            min(q_start), max(q_end)))
 
 
+@pytest.mark.parametrize("tp,rank,Dh", [(2, 0, 128), (2, 1, 128), (4, 2, 128),
+                                        (4, 3, 64)])
+def test_kernel_a_kv_window_matches_plain(cuda, tp, rank, Dh):
+    """Kernel A over one tp rank's kv-head window of the whole slab
+    (flash_decode_gqa1_shard: Hq=12 over Hkv=2, so 6 or 3 query heads a
+    rank) against its plain version with the same window, and every
+    rank's output concatenated against the unsharded call."""
+    from fireredtts2_tpu_torch.parallel.mesh import Mesh
+
+    q, k4, v4, qs, qe = _kernel_a_inputs(cuda, 3, 2, 6, Dh, [0, 37, 511],
+                                         [3000, 1024, 3584])
+    hql = 12 // tp
+    kv0, hkv = fd.gqa1_window(12, 2, tp, rank)
+    parts = []
+    for t in range(tp):
+        ql = q[:, t * hql:(t + 1) * hql].contiguous()
+        before = fd.flash_decode_gqa1_shard.launches
+        parts.append(fd.flash_decode_gqa1_shard(Mesh(dp=1, tp=tp, rank=t), ql,
+                                                k4, v4, 2, qs, qe, 0, 3584))
+        assert fd.flash_decode_gqa1_shard.launches == before + 1
+        if t == rank:
+            _close(parts[-1], fd.flash_decode_gqa1_plain(
+                ql, k4, v4, 2, qs, qe, 0, 3584, kv_base=kv0, hkv=hkv))
+    torch.cuda.synchronize()
+    _close(torch.cat(parts, dim=1),
+           fd.flash_decode_gqa1(q, k4, v4, 2, qs, qe, 0, 3584))
+
+
+def test_kernel_c_tp_route_matches_plain(cuda):
+    """Kernel C on each tp=2 rank's 8 heads and slab columns
+    (flash_decode_update_bounded_shard) against the plain version on
+    copies: outputs close, written rows identical, and the ranks' columns
+    assembling the unsharded call's slab."""
+    from fireredtts2_tpu_torch.parallel.mesh import Mesh
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    B, S, H, Dh, L, T = 2, 32, 16, 64, 2, 3008
+    q = _rnd(gen, B, S, H, Dh)
+    nk, nv = _rnd(gen, B, S, H * Dh), _rnd(gen, B, S, H * Dh)
+    k4, v4 = _rnd(gen, L, B, T, H * Dh), _rnd(gen, L, B, T, H * Dh)
+    pos = torch.tensor([200, 2900], dtype=torch.int32, device=cuda)
+    q_end = pos[:, None] + 8 * (torch.arange(S, device=cuda,
+                                             dtype=torch.int32)[None] // 8 + 1)
+    kk, vk = k4.clone(), v4.clone()
+    whole = fd.flash_decode_update_bounded(q, nk, nv, kk, vk, 1, pos, q_end,
+                                           pos.max() + S)
+    for t in range(2):
+        c = slice(t * 512, (t + 1) * 512)
+        args = (q[:, :, 8 * t:8 * (t + 1)].contiguous(), nk[..., c].contiguous(),
+                nv[..., c].contiguous())
+        kl, vl = k4[..., c].contiguous(), v4[..., c].contiguous()
+        kp, vp = kl.clone(), vl.clone()
+        out = fd.flash_decode_update_bounded_shard(
+            Mesh(dp=1, tp=2, rank=t), *args, kl, vl, 1, pos, q_end,
+            pos.max() + S)
+        torch.cuda.synchronize()
+        _close(out, fd.flash_decode_update_bounded_plain(
+            *args, kp, vp, 1, pos, q_end, pos.max() + S))
+        _close(out, whole[:, :, 8 * t:8 * (t + 1)])
+        assert torch.equal(kl, kp) and torch.equal(vl, vp)
+        assert torch.equal(kl, kk[..., c]) and torch.equal(vl, vk[..., c])
+
+
 def test_kernel_a_merge_counts_reset(cuda):
     """Kernel A twice at one batch, then at another: the last block of each
     (stream, kv head) leaves its merge count at zero for the next call."""
